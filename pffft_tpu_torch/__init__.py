@@ -1,0 +1,60 @@
+"""pffft_tpu_torch: the PyTorch/CUDA port of pffft_tpu.
+
+A second package beside the JAX one, with the same conventions: unscaled
+transforms (backward(forward(x)) == N*x), canonical bin order, planar
+(re, im) split APIs.  Its kernels are CUDA C++ for Hopper (sm_90a) under
+``csrc/``, built with nvcc on first use; on the CPU every kernel wrapper
+runs its plain PyTorch version.  It imports neither jax nor pffft_tpu.
+
+This slice ports the main path: the complex f32 transform of time-major
+planes, :func:`transform_ordered_split_tmajor`.
+"""
+
+from . import fft, ops
+from .fft import transform_ordered_split_tmajor
+from .plan import (
+    BACKWARD,
+    COMPLEX,
+    FORWARD,
+    REAL,
+    Direction,
+    Plan,
+    StageTables,
+    TransformKind,
+    decompose_smooth,
+    is_power_of_two,
+    is_valid_size,
+    load_plan,
+    min_fft_size,
+    nearest_transform_size,
+    new_setup,
+    next_power_of_two,
+    plan_factors,
+    plan_from_reference,
+    save_plan,
+)
+
+__all__ = [
+    "fft",
+    "ops",
+    "transform_ordered_split_tmajor",
+    "BACKWARD",
+    "COMPLEX",
+    "FORWARD",
+    "REAL",
+    "Direction",
+    "Plan",
+    "StageTables",
+    "TransformKind",
+    "decompose_smooth",
+    "is_power_of_two",
+    "is_valid_size",
+    "load_plan",
+    "min_fft_size",
+    "nearest_transform_size",
+    "new_setup",
+    "next_power_of_two",
+    "plan_factors",
+    "plan_from_reference",
+    "save_plan",
+]

@@ -1,0 +1,116 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), compiled on first use for
+Hopper (``sm_90a``) into ``pffft_tpu_torch/_build/``, keyed by a hash of
+the sources and flags.  Several sources build in parallel, one nvcc each.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("stockham_chain", "combine", "stream_copy")
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+
+    home = os.environ.get("CUDA_HOME")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def log_path(name: str) -> Path:
+    """nvcc's output (ptxas register and spill report) of the last build."""
+
+    return BUILD_DIR / f"{name}-{_digest(name)}.log"
+
+
+def build(names: Iterable[str] = SOURCES) -> float:
+    """Compile the named sources that are not built yet, all in parallel.
+
+    Returns the wall seconds spent.  Raises RuntimeError with nvcc's
+    output if any build fails."""
+
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc(), *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, tmp, proc in procs:
+        log, _ = proc.communicate()
+        log_path(name).write_text(log)
+        if proc.returncode == 0:
+            os.replace(tmp, library_path(name))
+        else:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu``, built first if needed."""
+
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.pf_error_string.argtypes = [ctypes.c_int]
+        lib.pf_error_string.restype = ctypes.c_char_p
+        _LOADED[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+
+    if err:
+        msg = lib.pf_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

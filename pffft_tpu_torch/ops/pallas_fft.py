@@ -1,0 +1,491 @@
+"""Wrappers of the hand-written CUDA FFT kernels, and their plain versions.
+
+Counterpart of ``pffft_tpu/ops/pallas_fft.py`` (the name is kept so that
+each function's counterpart is easy to find).  The Pallas kernels become
+CUDA C++ under ``pffft_tpu_torch/csrc/``:
+
+  * ``cfft_chain_tmajor``   -> ``stockham_chain.cu`` (``cfft_pallas_tmajor``)
+  * ``cfft_combine_tmajor`` -> ``combine.cu`` (``cfft_combine_tmajor``)
+  * ``stream_copy``         -> ``stream_copy.cu`` (``stream_copy_pallas``)
+
+Each wrapper takes its plain PyTorch version only for tensors on the CPU;
+for a CUDA tensor it launches its kernel or raises.  Each counts its
+launches in a plain int attribute, ``<wrapper>.launches``, incremented
+where the kernel is launched and nowhere else.
+
+The plain versions repeat the kernels' arithmetic (``_butterfly`` has the
+reference's constants and operation order).  On the card they differ from
+the kernels by a few ulp, because nvcc contracts a*b+c into FMAs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import plan as _plan
+from . import _build
+
+__all__ = [
+    "supported",
+    "thin_factors",
+    "chain_tile",
+    "chain_max_n",
+    "cfft_chain_tmajor",
+    "cfft_combine_tmajor",
+    "stream_copy",
+    "chain_tmajor_plain",
+    "combine_tmajor_plain",
+    "stream_copy_plain",
+    "CHAIN_RADICES",
+    "COMBINE_RADICES",
+]
+
+CHAIN_RADICES = (2, 3, 4, 5, 8, 16)
+COMBINE_RADICES = (2, 3, 4, 5, 8, 16, 32)
+
+# Tile limits of stockham_chain.cu (kElems, kMaxThreads): a thread holds at
+# most 32 complex values across a stage barrier, a block has at most 512
+# threads.
+_CHAIN_ELEMS = 32
+_CHAIN_MAX_THREADS = 512
+# Shared memory a block may use on sm_90 (232,448 bytes = 227 KB), the
+# value the CPU plans with; on the card it is read from the device.
+_SM90_SMEM_OPTIN = 232448
+# Narrowest tile the chain serves well: 8 columns = 32-byte row segments.
+# Measured by chip_smoke.py's "split" lines (H100 80GB HBM3, 700 W, 64 MB
+# planes): at N=4096 the 4-column tile loses to kern2 on m=2048 (0.392 vs
+# 0.316 ms); at N=2048 the 8-column tile beats kern2 on m=1024 (0.213 vs
+# 0.330 ms).  With the tile limits below this puts the single-pass /
+# kern2 split at N=2048 / 4096.
+_CHAIN_MIN_TB = 8
+_CHAIN_MAX_TB = 32
+
+_SQRT3_2 = math.sqrt(3.0) / 2.0
+_C51, _S51 = math.cos(2 * math.pi / 5), math.sin(2 * math.pi / 5)
+_C52, _S52 = math.cos(4 * math.pi / 5), math.sin(4 * math.pi / 5)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _butterfly(r: int, a, sign: float):
+    """Radix-r DFT of r planar slabs a[i] = (re, im); returns r slabs.
+
+    sign = -1 forward, +1 backward.  y[t] = sum_i W_r^{sign*i*t} a[i].
+    """
+
+    if r == 2:
+        (x0r, x0i), (x1r, x1i) = a
+        return [(x0r + x1r, x0i + x1i), (x0r - x1r, x0i - x1i)]
+    if r == 4:
+        (x0r, x0i), (x1r, x1i), (x2r, x2i), (x3r, x3i) = a
+        t0r, t0i = x0r + x2r, x0i + x2i
+        t1r, t1i = x0r - x2r, x0i - x2i
+        t2r, t2i = x1r + x3r, x1i + x3i
+        t3r, t3i = x1r - x3r, x1i - x3i
+        # forward (sign=-1): y1 = t1 - i t3, y3 = t1 + i t3
+        if sign < 0:
+            y1 = (t1r + t3i, t1i - t3r)
+            y3 = (t1r - t3i, t1i + t3r)
+        else:
+            y1 = (t1r - t3i, t1i + t3r)
+            y3 = (t1r + t3i, t1i - t3r)
+        return [(t0r + t2r, t0i + t2i), y1, (t0r - t2r, t0i - t2i), y3]
+    if r == 3:
+        (x0r, x0i), (x1r, x1i), (x2r, x2i) = a
+        sr, si = x1r + x2r, x1i + x2i
+        dr, di = x1r - x2r, x1i - x2i
+        mr, mi = x0r - 0.5 * sr, x0i - 0.5 * si
+        s3 = sign * _SQRT3_2
+        return [
+            (x0r + sr, x0i + si),
+            (mr - s3 * di, mi + s3 * dr),
+            (mr + s3 * di, mi - s3 * dr),
+        ]
+    if r == 5:
+        (x0r, x0i), (x1r, x1i), (x2r, x2i), (x3r, x3i), (x4r, x4i) = a
+        s1r, s1i = x1r + x4r, x1i + x4i
+        d1r, d1i = x1r - x4r, x1i - x4i
+        s2r, s2i = x2r + x3r, x2i + x3i
+        d2r, d2i = x2r - x3r, x2i - x3i
+        out = [(x0r + s1r + s2r, x0i + s1i + s2i), None, None, None, None]
+        for t, (ca, cb, sa, sb) in (
+            (1, (_C51, _C52, _S51, _S52)),
+            (2, (_C52, _C51, _S52, -_S51)),
+        ):
+            er = x0r + ca * s1r + cb * s2r
+            ei = x0i + ca * s1i + cb * s2i
+            fr = sign * (sa * d1r + sb * d2r)
+            fi = sign * (sa * d1i + sb * d2i)
+            out[t] = (er - fi, ei + fr)
+            out[5 - t] = (er + fi, ei - fr)
+        return out
+    if r == 8:
+        # i = 2a + b: radix-4 over a per parity b, then a twiddled radix-2
+        ev = _butterfly(4, a[0::2], sign)
+        od = _butterfly(4, a[1::2], sign)
+        out = [None] * 8
+        for c in range(4):
+            er, ei = ev[c]
+            xr, xi = od[c]
+            if c:
+                ang = 2 * math.pi * c / 8
+                wr, wi = math.cos(ang), sign * math.sin(ang)
+                xr, xi = xr * wr - xi * wi, xr * wi + xi * wr
+            out[c] = (er + xr, ei + xi)
+            out[c + 4] = (er - xr, ei - xi)
+        return out
+    if r in (16, 32):
+        # i = 4a + b: radix-q over a per residue b (q = r/4), twiddles
+        # W_r^{sign*b*c}, then a radix-4 over b: y[c + q d] = R4_d(W^{bc} A_b[c])
+        q = r // 4
+        cols = [_butterfly(q, a[b::4], sign) for b in range(4)]
+        out = [None] * r
+        for c in range(q):
+            slabs = []
+            for b in range(4):
+                xr, xi = cols[b][c]
+                if b and c:
+                    ang = 2 * math.pi * b * c / r
+                    wr, wi = math.cos(ang), sign * math.sin(ang)
+                    xr, xi = xr * wr - xi * wi, xr * wi + xi * wr
+                slabs.append((xr, xi))
+            ys = _butterfly(4, slabs, sign)
+            for d in range(4):
+                out[c + q * d] = ys[d]
+        return out
+    raise ValueError(f"unsupported radix {r}")
+
+
+def _stage_values(ar, ai, l: int, r: int, m: int, twr, twi, sign: float):
+    """One Stockham stage on planar values shaped [l, r*m, B]."""
+
+    b = ar.shape[-1]
+    a4r = ar.reshape(l, r, m, b)
+    a4i = ai.reshape(l, r, m, b)
+    slabs = []
+    for i in range(r):
+        sr_, si_ = a4r[:, i], a4i[:, i]  # [l, m, B]
+        if l > 1 and i > 0:  # T[k, 0] == 1
+            wr = twr[:, i].reshape(l, 1, 1)
+            wi = twi[:, i].reshape(l, 1, 1)
+            sr_, si_ = sr_ * wr - si_ * wi, sr_ * wi + si_ * wr
+        slabs.append((sr_, si_))
+    ys = _butterfly(r, slabs, sign)
+    outr = torch.stack([y[0] for y in ys], dim=0)  # [r, l, m, B]
+    outi = torch.stack([y[1] for y in ys], dim=0)
+    return outr.reshape(r * l, m, b), outi.reshape(r * l, m, b)
+
+
+@functools.lru_cache(maxsize=1024)
+def _stage_twiddle(stage, device: torch.device):
+    """A stage's [l, r] table as (re, im) f32 tensors on ``device``."""
+
+    tw = stage.twiddle
+    return (
+        torch.from_numpy(np.ascontiguousarray(tw.real, np.float32)).to(device),
+        torch.from_numpy(np.ascontiguousarray(tw.imag, np.float32)).to(device),
+    )
+
+
+def chain_tmajor_plain(plan: _plan.Plan, re, im, *, backward: bool = False):
+    """Plain PyTorch version of the chain kernel: all stages of ``plan``."""
+
+    sign = 1.0 if backward else -1.0
+    n, b = re.shape
+    ar, ai = re, im
+    for st in plan.stages:
+        if st.r == 1:
+            continue
+        twr, twi = _stage_twiddle(st, re.device)
+        if backward:
+            twi = -twi
+        ar, ai = _stage_values(ar, ai, st.l, st.r, st.m, twr, twi, sign)
+    return ar.reshape(n, b), ai.reshape(n, b)
+
+
+def combine_tmajor_plain(last_stage, re, im, *, backward: bool = False):
+    """Plain PyTorch version of the combine kernel (kern2 pass B)."""
+
+    sign = 1.0 if backward else -1.0
+    m, r = last_stage.l, last_stage.r
+    n, b = re.shape
+    twr, twi = _stage_twiddle(last_stage, re.device)
+    if backward:
+        twi = -twi
+    ar = re.reshape(m, r, b)
+    ai = im.reshape(m, r, b)
+    slabs = []
+    for c in range(r):
+        sr_, si_ = ar[:, c], ai[:, c]  # [m, B]
+        if c > 0:  # T[k, 0] == 1
+            wr = twr[:, c].reshape(m, 1)
+            wi = twi[:, c].reshape(m, 1)
+            sr_, si_ = sr_ * wr - si_ * wi, sr_ * wi + si_ * wr
+        slabs.append((sr_, si_))
+    ys = _butterfly(r, slabs, sign)
+    outr = torch.stack([y[0] for y in ys], dim=0)  # [r, m, B]
+    outi = torch.stack([y[1] for y in ys], dim=0)
+    return outr.reshape(n, b), outi.reshape(n, b)
+
+
+def stream_copy_plain(re, im):
+    """Plain PyTorch version of the copy kernel."""
+
+    return re.clone(), im.clone()
+
+
+# ---------------------------------------------------------------------------
+# Coverage
+# ---------------------------------------------------------------------------
+
+
+def supported(plan: _plan.Plan) -> bool:
+    """Whether the chain kernel runs this plan's stages."""
+
+    return (
+        plan.local_split is None
+        and len(plan.stages) > 0
+        and all(st.r == 1 or st.r in CHAIN_RADICES for st in plan.stages)
+    )
+
+
+def thin_factors(n: int, radix16: bool = True) -> Optional[Tuple[int, ...]]:
+    """A kernel-supported stage chain for engine length ``n``.
+
+    radix16=True prefers fat 16/8 stages (fewest passes over the tile);
+    False gives the radix<=5 chain.  None if n is not 2/3/5-smooth."""
+
+    a = 0
+    m = n
+    while m % 2 == 0:
+        m //= 2
+        a += 1
+    out = []
+    if radix16:
+        while a >= 4:
+            out.append(16)
+            a -= 4
+        if a == 3:
+            out.append(8)
+            a = 0
+    while a >= 2:
+        out.append(4)
+        a -= 2
+    if a:
+        out.append(2)
+    while m % 5 == 0:
+        out.append(5)
+        m //= 5
+    while m % 3 == 0:
+        out.append(3)
+        m //= 3
+    if m != 1:
+        return None
+    return tuple(out)
+
+
+def smem_per_block(device: Optional[torch.device] = None) -> int:
+    """Opt-in shared memory per block: read from the card for a CUDA
+    device, the sm_90 value (232,448 bytes) otherwise."""
+
+    if device is not None and torch.device(device).type == "cuda":
+        props = torch.cuda.get_device_properties(device)
+        return int(props.shared_memory_per_block_optin)
+    return _SM90_SMEM_OPTIN
+
+
+def chain_tile(n: int, radices: Sequence[int] = (2,),
+               device: Optional[torch.device] = None) -> Optional[int]:
+    """Batch columns per block of the chain kernel for engine length ``n``
+    with stage ``radices`` (a power of two, at most 32), or None when no
+    tile of at least 8 columns fits.
+
+    The tile [n, tb] must fit one float2 buffer in shared memory and the
+    block's registers (kMaxThreads threads x kElems values, rounded down
+    to whole butterflies per radix)."""
+
+    per_thread = min(r * (_CHAIN_ELEMS // r) for r in radices)
+    reg_elems = _CHAIN_MAX_THREADS * per_thread
+    smem_elems = smem_per_block(device) // 8
+    tb = _CHAIN_MAX_TB
+    while tb >= _CHAIN_MIN_TB:
+        if n * tb <= reg_elems and n * tb <= smem_elems:
+            return tb
+        tb //= 2
+    return None
+
+
+def chain_max_n(device: Optional[torch.device] = None) -> int:
+    """The largest power-of-two engine length the chain kernel covers."""
+
+    n = 16
+    while chain_tile(2 * n, (16,), device) is not None:
+        n *= 2
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "stockham_chain": ("pf_chain_tmajor",
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "combine": ("pf_combine_tmajor", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "stream_copy": ("pf_stream_copy", [_P, _P, _P, _P, ctypes.c_longlong, _I, _P]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(name: str):
+    lib = _build.load(name)
+    fname, argtypes = _SIGNATURES[name]
+    fn = getattr(lib, fname)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    if name == "stockham_chain":
+        limits = (lib.pf_chain_elems_per_thread(), lib.pf_chain_max_threads())
+        if limits != (_CHAIN_ELEMS, _CHAIN_MAX_THREADS):
+            raise RuntimeError(f"stockham_chain.cu tile limits {limits} differ from "
+                               f"{(_CHAIN_ELEMS, _CHAIN_MAX_THREADS)} planned with here")
+    return lib, fn
+
+
+def _planes(re: torch.Tensor, im: torch.Tensor) -> Tuple[int, int]:
+    if re.ndim != 2 or re.shape != im.shape:
+        raise ValueError(f"planes must be two equal [N, B] tensors; got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    if re.device != im.device:
+        raise ValueError(f"planes on different devices: {re.device}, {im.device}")
+    return int(re.shape[0]), int(re.shape[1])
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel input on {t.device}; expected a CUDA tensor")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous float32 tensors")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_tables(stages: tuple, device: torch.device):
+    """(concatenated [l, r] tables as (re, im) pairs on ``device``,
+    ctypes stage descriptor rows (r, l, m, offset), stage count).  The
+    combine kernel takes the one-stage form's table."""
+
+    active = [st for st in stages if st.r != 1]
+    desc = []
+    off = 0
+    for st in active:
+        desc += [st.r, st.l, st.m, off]
+        off += st.l * st.r
+    tw = np.concatenate([st.twiddle.astype(np.complex64).ravel() for st in active])
+    tw_t = torch.from_numpy(tw.view(np.float32).copy()).to(device)
+    return tw_t, (ctypes.c_int * len(desc))(*desc), len(active)
+
+
+def cfft_chain_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
+                      backward: bool = False, tb: Optional[int] = None):
+    """Batched complex FFT of time-major planes [N, B] in one pass.
+
+    Unscaled both directions; canonical bin order.  ``tb`` overrides the
+    tile's batch columns (measurement only).  The inputs are not modified.
+    """
+
+    if not supported(plan):
+        raise ValueError(f"plan {plan} has factors the chain kernel does not run")
+    n, b = _planes(re, im)
+    if n != plan.engine_n:
+        raise ValueError(f"data length {n} != plan engine length {plan.engine_n}")
+    if re.device.type == "cpu":
+        return chain_tmajor_plain(plan, re, im, backward=backward)
+    _check_cuda(re, im)
+    radices = [st.r for st in plan.stages if st.r != 1]
+    if tb is None:
+        tb = chain_tile(n, radices, re.device)
+        if tb is None:
+            raise ValueError(f"N={n} exceeds the chain kernel's tile limits")
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    if b == 0:
+        return ore, oim
+    lib, fn = _kernel("stockham_chain")
+    tw, desc, count = _chain_tables(plan.stages, re.device)
+    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+             tw.data_ptr(), desc, count, n, b, tb, int(backward),
+             re.device.index or 0, _stream(re))
+    _build.check(lib, err, f"chain kernel (N={n}, B={b}, tb={tb})")
+    cfft_chain_tmajor.launches += 1
+    return ore, oim
+
+
+cfft_chain_tmajor.launches = 0
+
+
+def cfft_combine_tmajor(last_stage, re: torch.Tensor, im: torch.Tensor, *,
+                        backward: bool = False):
+    """Twiddled radix-r combine of the kern2 state (pass B).
+
+    ``last_stage``: the l=m, radix-r, m'=1 StageTables of the full plan
+    (dispatch._build_ksplit); planes are [N, B] holding pass A's [m, r, B]
+    state row-major.  Returns the canonical ordered spectrum [N, B]."""
+
+    m, r = last_stage.l, last_stage.r
+    n, b = _planes(re, im)
+    if n != m * r:
+        raise ValueError(f"data length {n} != combine {m}*{r}")
+    if r not in COMBINE_RADICES:
+        raise ValueError(f"combine radix {r} not in {COMBINE_RADICES}")
+    if re.device.type == "cpu":
+        return combine_tmajor_plain(last_stage, re, im, backward=backward)
+    _check_cuda(re, im)
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    if b == 0:
+        return ore, oim
+    lib, fn = _kernel("combine")
+    tw = _chain_tables((last_stage,), re.device)[0]
+    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+             tw.data_ptr(), m, r, b, int(backward), re.device.index or 0,
+             _stream(re))
+    _build.check(lib, err, f"combine kernel (m={m}, r={r}, B={b})")
+    cfft_combine_tmajor.launches += 1
+    return ore, oim
+
+
+cfft_combine_tmajor.launches = 0
+
+
+def stream_copy(re: torch.Tensor, im: torch.Tensor):
+    """Copy of two f32 planes (the per-pass bandwidth probe)."""
+
+    _planes(re, im)
+    if re.device.type == "cpu":
+        return stream_copy_plain(re, im)
+    _check_cuda(re, im)
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    if re.numel() == 0:
+        return ore, oim
+    lib, fn = _kernel("stream_copy")
+    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+             re.numel(), re.device.index or 0, _stream(re))
+    _build.check(lib, err, f"copy kernel ({re.numel()} elements)")
+    stream_copy.launches += 1
+    return ore, oim
+
+
+stream_copy.launches = 0

@@ -1,0 +1,169 @@
+"""Split-format (planar re/im) stage engine, time-major.
+
+Counterpart of ``pffft_tpu/ops/split.py``'s ``"xla"`` engine in its
+``"4mul"`` form: each Stockham stage is an elementwise twiddle multiply and
+a dense [r, r] DFT-matrix contraction (``torch.einsum``).  The dispatcher
+sends here the shapes that no CUDA kernel covers.
+
+The contractions run in full fp32: reduced-precision products (TF32) give
+relative errors of 1e-5 to 1e-3 and break the 140 dB carrier bound, so
+:func:`cfft_stages_split_tmajor` turns TF32 off and the matmul precision to
+"highest" for its duration.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+# Above this many elements a twiddle table is factored into split tables
+# T[k, i] = A[k_hi, i] * B[k_lo, i] (k = k_hi * _TW_SPLIT_LO + k_lo), with
+# KB-sized constants in place of an l*r-sized table; exponents reduce
+# exactly in integers, so A*B == T up to one extra rounding.
+_TW_SPLIT_MIN = 1 << 21
+_TW_SPLIT_LO = 128
+
+
+@functools.lru_cache(maxsize=4096)
+def _stage_consts(stage, backward: bool):
+    """Host-side split of a stage's complex tables: (dft_re, dft_im, tw).
+
+    ``tw`` is ("dense", re, im) or ("split", lo, Ar, Ai, Br, Bi)."""
+
+    dft = np.conj(stage.dft) if backward else stage.dft
+    tw = stage.twiddle  # stored forward-sign; conjugated below for backward
+    twc = _tw_consts_from_table(tw, tw.shape[0] * tw.shape[1], backward)
+    return np.ascontiguousarray(dft.real), np.ascontiguousarray(dft.imag), twc
+
+
+def _tw_consts_from_table(tw: np.ndarray, period: int, backward: bool):
+    """Dense or split constants for a product-exponent table
+    T[a, b] = exp(-2i pi a b / period); ``backward`` conjugates."""
+
+    if backward:
+        tw = np.conj(tw)
+    l, r = tw.shape
+    if l * r >= _TW_SPLIT_MIN and l % _TW_SPLIT_LO == 0:
+        lo = _TW_SPLIT_LO
+        sign = 1 if backward else -1
+        hi_k = (np.arange(l // lo, dtype=np.int64)[:, None] * lo) % period
+        lo_k = np.arange(lo, dtype=np.int64)[:, None]
+        i = np.arange(r, dtype=np.int64)[None, :]
+        ang_a = (2.0 * np.pi / period) * ((hi_k * i) % period).astype(np.float64)
+        ang_b = (2.0 * np.pi / period) * ((lo_k * i) % period).astype(np.float64)
+        dt = tw.real.dtype
+        return (
+            "split",
+            lo,
+            np.cos(ang_a).astype(dt), (np.sin(ang_a) * sign).astype(dt),
+            np.cos(ang_b).astype(dt), (np.sin(ang_b) * sign).astype(dt),
+        )
+    return ("dense", np.ascontiguousarray(tw.real), np.ascontiguousarray(tw.imag))
+
+
+@functools.lru_cache(maxsize=4096)
+def _device_consts(stage, backward: bool, device: torch.device):
+    """:func:`_stage_consts` as tensors on ``device`` (cached per stage)."""
+
+    dr, di, twc = _stage_consts(stage, backward)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    tw = (twc[0], twc[1], *map(put, twc[2:])) if twc[0] == "split" else (
+        twc[0], *map(put, twc[1:]))
+    return put(dr), put(di), tw
+
+
+def _contract_stage(ar, ai, consts, sub: str):
+    """One stage's complex DFT-matrix contraction, planar, 4 real einsums.
+
+    ``sub`` contracts index ``r`` against the [r, t] DFT matrix."""
+
+    dr, di, _ = consts
+    nr = torch.einsum(sub, ar, dr) - torch.einsum(sub, ai, di)
+    ni = torch.einsum(sub, ar, di) + torch.einsum(sub, ai, dr)
+    return nr, ni
+
+
+def _apply_twiddle(ar, ai, twc, l_axis: int):
+    """Elementwise product twiddle T[a, b] on axes (l_axis, l_axis + 1).
+
+    Split form: the l axis is viewed as (l_hi, lo) and A[l_hi, r] then
+    B[lo, r] are applied."""
+
+    shape = ar.shape
+    nd = len(shape)
+    l_axis %= nd
+    r_axis = l_axis + 1
+    l, r = shape[l_axis], shape[r_axis]
+    if twc[0] == "dense":
+        _, twr, twi = twc
+        b = [1] * nd
+        b[l_axis], b[r_axis] = l, r
+        wr, wi = twr.reshape(b), twi.reshape(b)
+        return ar * wr - ai * wi, ar * wi + ai * wr
+    _, lo, a_r, a_i, b_r, b_i = twc
+    hi = l // lo
+    ns = shape[:l_axis] + (hi, lo) + shape[l_axis + 1 :]
+    xr = ar.reshape(ns)
+    xi = ai.reshape(ns)
+    ba = [1] * (nd + 1)
+    ba[l_axis], ba[r_axis + 1] = hi, r
+    bb = [1] * (nd + 1)
+    bb[l_axis + 1], bb[r_axis + 1] = lo, r
+    war, wai = a_r.reshape(ba), a_i.reshape(ba)
+    wbr, wbi = b_r.reshape(bb), b_i.reshape(bb)
+    xr, xi = xr * war - xi * wai, xr * wai + xi * war
+    xr, xi = xr * wbr - xi * wbi, xr * wbi + xi * wbr
+    return xr.reshape(shape), xi.reshape(shape)
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """No TF32 and "highest" matmul precision inside the block."""
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    prec = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def cfft_stages_split_tmajor(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    stages: Sequence,
+    *,
+    backward: bool,
+    ordered: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Staged complex FFT in TIME-MAJOR layout: planes [N, B] -> [N, B].
+
+    Unscaled.  ``ordered`` gives canonical bin order; otherwise the last
+    stage leaves the internal order of the reference engine."""
+
+    n, b = re.shape
+    ar = re.reshape(1, n, b)
+    ai = im.reshape(1, n, b)
+    nstages = len(stages)
+    with _full_fp32():
+        for idx, st in enumerate(stages):
+            l, r, m = st.l, st.r, st.m
+            if r == 1:
+                continue
+            consts = _device_consts(st, backward, re.device)
+            ar = ar.reshape(l, r, m, b)
+            ai = ai.reshape(l, r, m, b)
+            if l > 1:
+                ar, ai = _apply_twiddle(ar, ai, consts[2], 0)
+            last = idx == nstages - 1
+            sub = "lrmb,rt->ltmb" if (last and not ordered) else "lrmb,rt->tlmb"
+            ar, ai = _contract_stage(ar, ai, consts, sub)
+            ar, ai = ar.reshape(l * r, m, b), ai.reshape(l * r, m, b)
+    return ar.reshape(n, b), ai.reshape(n, b)
