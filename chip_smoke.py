@@ -7,14 +7,20 @@ against its plain PyTorch version.
 Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. environment: CUDA, compute capability, nvcc, triton, card and power limit;
   2. build: nvcc compiles pffft_tpu_torch/csrc/*.cu (sm_90a), in parallel;
-  3. each kernel against its plain version on the card;
-  4. the main path, ``transform_ordered_split_tmajor`` at the bench band
-     shapes (64 MB per plane), forward and backward, checked against a
+  3. each kernel against its plain version on the card, at the shapes the
+     two main paths give it and at small, non-power-of-two and ragged ones;
+  4. the complex main path, ``transform_ordered_split_tmajor`` at the bench
+     band shapes (64 MB per plane), forward and backward, checked against a
      complex128 oracle, the unscaled round trip and the 140 dB carrier
      bound; launch counters show which kernels served it;
-  5. timing with CUDA events (median of 10 after warm-up), per band shape
+  5. the real main path, the same entry point on REAL plans at the real band
+     shapes (a 64 MB [N, B] signal), checked the same way against a
+     complex128 ``torch.fft.rfft``; the launch counts of each shape must
+     match its route (the fused real kernel, or the packed chain + combine
+     + split kernel);
+  6. timing with CUDA events (median of 10 after warm-up), per band shape
      and per kernel, beside the bound, the plain version and torch.fft;
-  6. the ``kernels`` line, the card line, and the final ``ok`` line.
+  7. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 repository checkout.  It imports neither jax nor pffft_tpu.
@@ -35,17 +41,24 @@ import pffft_tpu_torch as pt
 from pffft_tpu_torch.ops import _build
 from pffft_tpu_torch.ops import dispatch as D
 from pffft_tpu_torch.ops import pallas_fft as pk
+from pffft_tpu_torch.ops import split as S
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 BAND = ((1024, 16384), (2048, 8192), (4096, 4096), (8192, 2048),
         (16384, 1024), (32768, 512), (65536, 256))
+# real N, B: a 64 MB signal in, two 32 MB spectrum planes [N/2, B] out
+REAL_BAND = ((2048, 8192), (4096, 4096), (8192, 2048), (16384, 1024),
+             (32768, 512), (65536, 256), (131072, 128))
 KERNEL_TOL = 2e-6   # kernel vs plain, relative to max|plain|: FMA contraction
 ORACLE_TOL = 1e-5   # vs the complex128 oracle, relative to max|oracle|
+ROUND_TRIP_TOL = 1e-5
 CARRIER_DB = 140.0
 REPS = 10
 SEED = 1234
-WRAPPERS = (pk.cfft_chain_tmajor, pk.cfft_combine_tmajor, pk.stream_copy)
+WRAPPERS = (pk.cfft_chain_tmajor, pk.cfft_combine_tmajor, pk.stream_copy,
+            pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
+            pk.rfft_bwd_chain_tmajor_fused, pk.real_split_tmajor)
 
 
 def emit(obj) -> None:
@@ -108,6 +121,17 @@ def counts():
     return {w.__name__: w.launches for w in WRAPPERS}
 
 
+def launched(after, before):
+    """The wrappers that launched between two counts, with how often."""
+
+    return {k: v - before[k] for k, v in after.items() if v != before[k]}
+
+
+def real_tw(h: int):
+    return S.real_split_twiddle(pt.new_setup(2 * h, pt.REAL),
+                                torch.device("cuda"))
+
+
 def reset_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
@@ -151,10 +175,11 @@ def phase_kernels(gen):
     max abs errors."""
 
     dev = torch.device("cuda")
-    errs = {"chain": 0.0, "combine": 0.0}
+    errs = {name: 0.0 for name in ("chain", "combine", "chain_packed", "real_fused",
+                                   "real_split")}
 
-    def hold(name, kern, plain, case):
-        for bwd in (False, True):
+    def hold(name, kern, plain, case, dirs=(False, True)):
+        for bwd in dirs:
             kr, ki = kern(bwd)
             pr, pi = plain(bwd)
             torch.cuda.synchronize()
@@ -201,6 +226,55 @@ def phase_kernels(gen):
     for r in pk.COMBINE_RADICES:
         for b in (256, 250):
             combine_case(D._build_ksplit(2048 * r, 2048, r)[1], b)
+
+    def packed_case(plan, m, b, slabs):
+        y = planes(m, slabs * 2 * b, gen)[0]
+        hold("chain_packed",
+             lambda bwd: pk.cfft_chain_tmajor_packed(plan, y, slabs=slabs),
+             lambda bwd: pk.chain_tmajor_packed_plain(plan, y, slabs=slabs),
+             {"n": m, "b": b, "slabs": slabs, "factors": list(plan.factors)},
+             dirs=(False,))  # a forward-only kernel: the real forward's input
+
+    def fused_case(plan, h, b):
+        tw = real_tw(h)
+        y = planes(h, 2 * b, gen)[0]
+        sr, si = planes(h, b, gen)
+        hold("real_fused",
+             lambda bwd: (pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw) if bwd
+                          else pk.rfft_chain_tmajor_fused(plan, y, tw)),
+             lambda bwd: (pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw) if bwd
+                          else pk.rfft_chain_tmajor_fused_plain(plan, y, tw)),
+             {"h": h, "b": b, "factors": list(plan.factors)})
+
+    def split_case(h, b):
+        tw = real_tw(h)
+        zr, zi = planes(h, b, gen)
+        hold("real_split",
+             lambda bwd: pk.real_split_tmajor(zr, zi, tw, backward=bwd),
+             lambda bwd: pk.real_split_tmajor_plain(zr, zi, tw, backward=bwd),
+             {"h": h, "b": b})
+
+    # the real path's kernel calls, shape for shape
+    for n, b in REAL_BAND:
+        plan, h = pt.new_setup(n, pt.REAL), n // 2
+        if D.select_engine(plan, b, True, dev) == "chain":
+            fused_case(D._chain_plan(plan, dev), h, b)
+        else:
+            m, r = D._kern2_conf(h, dev)
+            mplan, last = D._build_ksplit(h, m, r)
+            packed_case(mplan, m, b, r)
+            chain_case(mplan, m, r * b)  # the backward's pass A
+            combine_case(last, b)
+            split_case(h, b)
+    # small and non-power-of-two H, ragged and odd batches (B=1001 takes
+    # the scalar loads and stores)
+    for b in (1000, 1001):
+        for h in (96, 960):
+            fused_case(D._thin_plan(h), h, b)
+            packed_case(D._thin_plan(h), h, b, 1)
+            split_case(h, b)
+        packed_case(D._thin_plan(2048), 2048, b, 2)
+        split_case(2400, b)
     re, im = planes(1024, 16384, gen)
     cr, ci = pk.stream_copy(re, im)
     torch.cuda.synchronize()
@@ -274,6 +348,188 @@ def phase_main_path(gen):
     launches = counts()
     emit({"phase": "main", "launches": launches})
     return launches, per_shape
+
+
+def real_carrier_db(n: int) -> float:
+    """Smallest carrier dynamic range over the test_pffft.c real carrier
+    sweep (cosines at bins 0 .. N/2; the packed bin0 is DC + i*Nyquist)."""
+
+    ks = list(range(0, n // 2 + 1, max(1, n // 16)))
+    cols = []
+    for j, k in enumerate(ks):
+        amp = 1.0 if j % 3 == 0 else 1.1
+        cols.append(amp * np.cos((j % 4) * 0.125 * np.pi
+                                 + 2.0 * np.pi * (k / n) * np.arange(n, dtype=np.float64)))
+    x = np.stack(cols, axis=1).astype(np.float32)
+    yr, yi = pt.transform_ordered_split_tmajor(pt.new_setup(n, pt.REAL), x, device="cuda")
+    yr = yr.cpu().numpy().astype(np.float64)
+    yi = yi.cpu().numpy().astype(np.float64)
+    h = n // 2
+    power = np.empty((h + 1, len(ks)))
+    power[0], power[h] = yr[0] ** 2, yi[0] ** 2
+    power[1:h] = yr[1:] ** 2 + yi[1:] ** 2
+    worst = np.inf
+    for j, k in enumerate(ks):
+        p = power[:, j].copy()
+        car = p[k]
+        p[k] = 0.0
+        worst = min(worst, 10.0 * (np.log10(car) - np.log10(max(p.max(), 1e-300))))
+    return float(worst)
+
+
+# wrappers launched by one call of each real route, per direction
+REAL_ROUTE_LAUNCHES = {
+    "chain": ({"rfft_chain_tmajor_fused": 1}, {"rfft_bwd_chain_tmajor_fused": 1}),
+    "kern2": ({"cfft_chain_tmajor_packed": 1, "cfft_combine_tmajor": 1,
+               "real_split_tmajor": 1},
+              {"real_split_tmajor": 1, "cfft_chain_tmajor": 1, "cfft_combine_tmajor": 1}),
+}
+
+
+def phase_real_main_path(gen):
+    """The public transform on REAL plans at the real band shapes; returns
+    the launch counts."""
+
+    reset_counts()
+    per_shape = []
+    for n, b in REAL_BAND:
+        plan = pt.new_setup(n, pt.REAL)
+        engine = D.select_engine(plan, b, True, torch.device("cuda"))
+        x = torch.randn((n, b), generator=gen, device="cuda")
+        c0 = counts()
+        yr, yi = pt.transform_ordered_split_tmajor(plan, x, pt.FORWARD)
+        c1 = counts()
+        back = pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD)
+        torch.cuda.synchronize()
+        c2 = counts()
+        cols = torch.arange(0, b, max(1, b // 8), device="cuda")
+        ref = torch.fft.rfft(x[:, cols].double(), dim=0)
+        packed = ref[: n // 2].clone()
+        packed[0] = torch.complex(ref[0].real, ref[n // 2].real)
+        e_fwd = rel_err(torch.complex(yr[:, cols].double(), yi[:, cols].double()), packed)
+        e_rt = rel_err(back / n, x)
+        fwd, bwd = launched(c1, c0), launched(c2, c1)
+        finite = bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()
+                      and torch.isfinite(back).all())
+        emit({"phase": "real_main", "n": n, "b": b, "engine": engine,
+              "fwd_rel_err": e_fwd, "roundtrip_rel_err": e_rt, "finite": finite,
+              "fwd_launches": fwd, "bwd_launches": bwd})
+        check(finite and yr.shape == (n // 2, b) and back.shape == (n, b),
+              f"real N={n}: output not finite/shaped")
+        check(e_fwd <= ORACLE_TOL, f"real N={n}: forward error {e_fwd}")
+        check(e_rt <= ROUND_TRIP_TOL, f"real N={n}: round-trip error {e_rt}")
+        check(engine in REAL_ROUTE_LAUNCHES, f"real N={n}: engine {engine}")
+        check((fwd, bwd) == REAL_ROUTE_LAUNCHES[engine],
+              f"real N={n}: launches {fwd}, {bwd} do not match engine {engine}")
+        per_shape.append((n, b, engine))
+        del x, yr, yi, back
+    for n in (2048, 8192, 131072):
+        db = real_carrier_db(n)
+        emit({"phase": "real_main", "carrier_n": n, "dynamic_range_db": db})
+        check(db >= CARRIER_DB, f"real N={n}: carrier dynamic range {db} dB")
+    launches = counts()
+    emit({"phase": "real_main", "launches": launches})
+    return launches, per_shape
+
+
+def phase_real_timing(gen, per_shape):
+    """Times per real band shape and per pass; returns the real kernels'
+    rows."""
+
+    dev = torch.device("cuda")
+    rows = {}
+    for n, b, engine in per_shape:
+        plan, h = pt.new_setup(n, pt.REAL), n // 2
+        x = torch.randn((n, b), generator=gen, device="cuda")
+        yr, yi = pt.transform_ordered_split_tmajor(plan, x)
+        # one read of the [N, B] signal, one write of the two [H, B] planes
+        bnd = bound(8.0 * n * b, fft_flops(h, b) + 16.0 * h * b)
+        lib_fwd = time_ms(lambda: torch.fft.rfft(x, dim=0))
+        spec = torch.fft.rfft(x, dim=0)
+        lib_bwd = time_ms(lambda: torch.fft.irfft(spec, n=n, dim=0))
+        del spec
+        fwd = time_ms(lambda: pt.transform_ordered_split_tmajor(plan, x))
+        bwd = time_ms(lambda: pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD))
+        rec = {"phase": "real_time", "n": n, "b": b, "engine": engine, "fwd_ms": fwd,
+               "bwd_ms": bwd, "bound_ms": bnd[0], "bound_by": bnd[1],
+               "frac_bound_fwd": bnd[0] / fwd, "frac_bound_bwd": bnd[0] / bwd,
+               "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd}
+        tw = S.real_split_twiddle(plan, dev)
+        y = x.view(h, 2 * b)
+        if engine == "chain":
+            cplan = D._chain_plan(plan, dev)
+            k_f = time_ms(lambda: pk.rfft_chain_tmajor_fused(cplan, y, tw))
+            k_b = time_ms(lambda: pk.rfft_bwd_chain_tmajor_fused(cplan, yr, yi, tw))
+            p_f = time_ms(lambda: pk.rfft_chain_tmajor_fused_plain(cplan, y, tw))
+            p_b = time_ms(lambda: pk.rfft_bwd_chain_tmajor_fused_plain(cplan, yr, yi, tw))
+            rec.update(fused_fwd_ms=k_f, fused_bwd_ms=k_b, plain_fwd_ms=p_f,
+                       plain_bwd_ms=p_b)
+            if n == 2048:
+                rows["real_fused"] = dict(ms=k_f, bwd_ms=k_b, plain_ms=p_f,
+                                          plain_bwd_ms=p_b, library_ms=lib_fwd,
+                                          shape=[n, b], bound_ms=bnd[0], bound_by=bnd[1])
+        else:
+            m, r = D._kern2_conf(h, dev)
+            mplan, last = D._build_ksplit(h, m, r)
+            yw = y.reshape(m, r * 2 * b)
+            ar, ai = pk.cfft_chain_tmajor_packed(mplan, yw, slabs=r)
+            ar, ai = ar.reshape(h, b), ai.reshape(h, b)
+            zr, zi = pk.cfft_combine_tmajor(last, ar, ai)
+            sr, si = pk.real_split_tmajor(yr, yi, tw, backward=True)
+            vr, vi = sr.reshape(m, r * b), si.reshape(m, r * b)
+            wr, wi = pk.cfft_chain_tmajor(mplan, vr, vi, backward=True)
+            wr, wi = wr.reshape(h, b), wi.reshape(h, b)
+            passes = {
+                "fwd_packed_chain_ms": lambda: pk.cfft_chain_tmajor_packed(mplan, yw, slabs=r),
+                "fwd_combine_ms": lambda: pk.cfft_combine_tmajor(last, ar, ai),
+                "fwd_split_ms": lambda: pk.real_split_tmajor(zr, zi, tw),
+                "bwd_split_ms": lambda: pk.real_split_tmajor(yr, yi, tw, backward=True),
+                "bwd_chain_ms": lambda: pk.cfft_chain_tmajor(mplan, vr, vi, backward=True),
+                "bwd_combine_ms": lambda: pk.cfft_combine_tmajor(last, wr, wi, backward=True),
+                "bwd_interleave_ms": lambda: S.interleave_to_real_split_tmajor(wr, wi),
+                "plain_packed_chain_ms":
+                    lambda: pk.chain_tmajor_packed_plain(mplan, yw, slabs=r),
+                "plain_split_ms": lambda: pk.real_split_tmajor_plain(zr, zi, tw),
+            }
+            rec.update(conf=[m, r], **{k: time_ms(f) for k, f in passes.items()})
+            if n == 8192:
+                # each reads 64 MB and writes 64 MB, as the whole call does
+                pbnd = bound(8.0 * n * b, fft_flops(m, r * b))
+                rows["chain_packed"] = dict(
+                    ms=rec["fwd_packed_chain_ms"], plain_ms=rec["plain_packed_chain_ms"],
+                    library_ms=None, shape=[m, r, b], bound_ms=pbnd[0], bound_by=pbnd[1])
+                sbnd = bound(8.0 * n * b, 16.0 * h * b)
+                rows["real_split"] = dict(
+                    ms=rec["fwd_split_ms"], bwd_ms=rec["bwd_split_ms"],
+                    plain_ms=rec["plain_split_ms"], library_ms=None, shape=[h, b],
+                    bound_ms=sbnd[0], bound_by=sbnd[1])
+            del ar, ai, zr, zi, sr, si, vr, vi, wr, wi
+        emit(rec)
+        del x, yr, yi
+    # the host's share of a public real call at a small batch: the kern2
+    # route's three route decisions and three launches, against the same
+    # three wrappers called directly
+    n, b, calls = 8192, 16, 200
+    plan, h = pt.new_setup(n, pt.REAL), n // 2
+    x = torch.randn((n, b), generator=gen, device="cuda")
+    m, r = D._kern2_conf(h, dev)
+    mplan, last = D._build_ksplit(h, m, r)
+    tw = S.real_split_twiddle(plan, dev)
+    yw = x.view(m, r * 2 * b)
+    ar, ai = pk.cfft_chain_tmajor_packed(mplan, yw, slabs=r)
+    ar, ai = ar.reshape(h, b), ai.reshape(h, b)
+    wrappers_ms = (time_ms(lambda: pk.cfft_chain_tmajor_packed(mplan, yw, slabs=r), inner=50)
+                   + time_ms(lambda: pk.cfft_combine_tmajor(last, ar, ai), inner=50)
+                   + time_ms(lambda: pk.real_split_tmajor(ar, ai, tw), inner=50))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        pt.transform_ordered_split_tmajor(plan, x)
+    torch.cuda.synchronize()
+    emit({"phase": "host", "real_n": n, "b": b,
+          "public_call_us": (time.perf_counter() - t0) / calls * 1e6,
+          "wrappers_event_us": wrappers_ms * 1e3})
+    return rows
 
 
 def phase_timing(gen, per_shape):
@@ -392,26 +648,41 @@ def main() -> int:
     phase_build()
     errs = phase_kernels(gen)
     launches, per_shape = phase_main_path(gen)
+    real_launches, real_shapes = phase_real_main_path(gen)
     rows = phase_timing(gen, per_shape)
-    for name in ("chain", "combine", "copy"):
+    rows.update(phase_real_timing(gen, real_shapes))
+    for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split"):
         check(name in rows, f"no timing row for {name}")
     check(launches["cfft_chain_tmajor"] > 0 and launches["cfft_combine_tmajor"] > 0,
-          f"main path did not launch every path kernel: {launches}")
+          f"complex main path did not launch every path kernel: {launches}")
+    for name in ("cfft_chain_tmajor_packed", "rfft_chain_tmajor_fused",
+                 "rfft_bwd_chain_tmajor_fused", "real_split_tmajor"):
+        check(real_launches[name] > 0,
+              f"real main path did not launch every path kernel: {real_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    # launches: the count over both main-path runs (each from zero)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
-                  "pffft_tpu/ops/pallas_fft.py:950", "cfft_chain_tmajor"),
+                  "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),
         "combine": ("pffft_tpu_torch/csrc/combine.cu",
-                    "pffft_tpu/ops/pallas_fft.py:1135", "cfft_combine_tmajor"),
+                    "pffft_tpu/ops/pallas_fft.py:1135", ("cfft_combine_tmajor",)),
         "copy": ("pffft_tpu_torch/csrc/stream_copy.cu",
-                 "pffft_tpu/ops/pallas_fft.py:1299", "stream_copy"),
+                 "pffft_tpu/ops/pallas_fft.py:1299", ("stream_copy",)),
+        "chain_packed": ("pffft_tpu_torch/csrc/chain_packed.cu",
+                         "pffft_tpu/ops/pallas_fft.py:1189", ("cfft_chain_tmajor_packed",)),
+        "real_fused": ("pffft_tpu_torch/csrc/real_fused.cu",
+                       "pffft_tpu/ops/pallas_fft.py:586",
+                       ("rfft_chain_tmajor_fused", "rfft_bwd_chain_tmajor_fused")),
+        "real_split": ("pffft_tpu_torch/csrc/real_split.cu",
+                       "pffft_tpu/ops/pallas_fft.py:723", ("real_split_tmajor",)),
     }
     kernels = []
-    for name, (src, rep, wrapper) in meta.items():
+    for name, (src, rep, wrappers) in meta.items():
         row = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": launches[wrapper], "max_abs_err": errs[name],
+                        "launches": sum(launches[w] + real_launches[w] for w in wrappers),
+                        "max_abs_err": errs[name],
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": row["shape"]})

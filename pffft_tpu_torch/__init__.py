@@ -6,8 +6,8 @@ transforms (backward(forward(x)) == N*x), canonical bin order, planar
 ``csrc/``, built with nvcc on first use; on the CPU every kernel wrapper
 runs its plain PyTorch version.  It imports neither jax nor pffft_tpu.
 
-This slice ports the main path: the complex f32 transform of time-major
-planes, :func:`transform_ordered_split_tmajor`.
+Ported so far: the f32 transform of time-major planes,
+:func:`transform_ordered_split_tmajor`, for complex and real plans.
 """
 
 from . import fft, ops

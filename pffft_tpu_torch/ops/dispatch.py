@@ -1,4 +1,4 @@
-"""Engine dispatch for the complex time-major transform.
+"""Engine dispatch for the time-major transforms.
 
 Counterpart of ``pffft_tpu/ops/dispatch.py``.  Engines, with the reference's
 names beside them:
@@ -17,6 +17,17 @@ table keyed by (compute capability, N, time_major) overrides it; it
 starts empty and is filled by :func:`record_engine` from measurements on
 the card.  On the CPU the capability is the H100's (9, 0), so the tests
 walk the routes the card takes.
+
+A REAL plan's transform runs the same engines at its engine length
+H = N/2, chosen by the same rules from a table of its own
+(:func:`record_engine_real`): real and complex route state never mix.
+The engine picks the real route (the routes below):
+
+  * ``"chain"``: the fused real kernel, one pass per direction;
+  * ``"kern2"``: forward the packed-input chain on kern2's wide view, the
+    combine, then the split kernel; backward the split kernel, then kern2;
+  * ``"stages"``: the pack view and the stage engine, with the split
+    kernel, which covers any H.
 """
 
 from __future__ import annotations
@@ -36,16 +47,24 @@ __all__ = [
     "select_engine",
     "set_engine",
     "record_engine",
+    "record_engine_real",
     "cfft_dispatch",
     "cfft_kern2_tmajor",
+    "cfft_kern2_tmajor_packed",
+    "fused_real_fwd_route",
+    "fused_real_bwd_route",
+    "packed_fwd_route",
+    "real_split_kernel_route",
 ]
 
 ENGINES = ("stages", "chain", "kern2")
 
 _FORCED: Optional[str] = None
 
-# (compute capability, N, time_major) -> engine, measured on the card.
+# (compute capability, N, time_major) -> engine, measured on the card: one
+# table for complex plans, one for real plans (keyed by the engine length).
 _MEASURED_TABLE: dict = {}
+_MEASURED_TABLE_REAL: dict = {}
 
 _SM90 = (9, 0)
 
@@ -74,9 +93,10 @@ def _thin_plan(n: int) -> Optional[_plan.Plan]:
 
 def _chain_plan(plan: _plan.Plan, device=None) -> Optional[_plan.Plan]:
     """The plan the chain engine runs (reference ``_pallas_plan``), or None
-    when the plan is not complex f32 or the chain's tile cannot hold N."""
+    when the plan is not f32 or the chain's tile cannot hold its engine
+    length (N, or N/2 for a real plan)."""
 
-    if plan.dtype != np.float32 or plan.is_real:
+    if plan.dtype != np.float32:
         return None
     p = _thin_plan(plan.engine_n)
     if p is None:
@@ -120,6 +140,19 @@ def _kern2_conf(n: int, device=None) -> Optional[Tuple[int, int]]:
     return None
 
 
+def _kern2_build(n: int, device, conf: Optional[Tuple[int, int]]):
+    """(m_plan, last_stage) of the two-pass engine for length n, with the
+    (m, r) split ``conf`` or the default one."""
+
+    c = conf if conf is not None else _kern2_conf(n, device)
+    if c is None:
+        raise ValueError(f"no kern2 configuration for N={n}")
+    built = _build_ksplit(n, *c)
+    if built is None:
+        raise ValueError(f"no kern2 build for N={n} (m,r)={c}")
+    return built
+
+
 def cfft_kern2_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
                       backward: bool = False,
                       conf: Optional[Tuple[int, int]] = None):
@@ -130,18 +163,29 @@ def cfft_kern2_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     the combine kernel.  ``conf`` overrides the (m, r) split."""
 
     n, b = re.shape
-    c = conf if conf is not None else _kern2_conf(n, re.device)
-    if c is None:
-        raise ValueError(f"no kern2 configuration for N={n}")
-    built = _build_ksplit(n, *c)
-    if built is None:
-        raise ValueError(f"no kern2 build for N={n} (m,r)={c}")
-    mplan, last = built
+    mplan, last = _kern2_build(n, re.device, conf)
     m, r = mplan.engine_n, last.r
     ar, ai = _pk.cfft_chain_tmajor(
         mplan, re.reshape(m, r * b), im.reshape(m, r * b), backward=backward)
     return _pk.cfft_combine_tmajor(
         last, ar.reshape(n, b), ai.reshape(n, b), backward=backward)
+
+
+def cfft_kern2_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *,
+                             conf: Optional[Tuple[int, int]] = None):
+    """Two-kernel-pass forward FFT of a PACKED time-major buffer y [N, 2B]
+    (the real forward's free ``x.reshape(H, 2B)``: columns :B re, B: im).
+
+    Pass A is the packed-input chain on the free wide view [m, r*2B], whose
+    slab c holds z[c::r], so the planar pack never exists; pass B is the
+    combine.  Unscaled, canonical order."""
+
+    n = plan.engine_n
+    mplan, last = _kern2_build(n, y.device, conf)
+    m, r = mplan.engine_n, last.r
+    b = y.shape[1] // 2
+    ar, ai = _pk.cfft_chain_tmajor_packed(mplan, y.reshape(m, r * 2 * b), slabs=r)
+    return _pk.cfft_combine_tmajor(last, ar.reshape(n, b), ai.reshape(n, b))
 
 
 def available_engines(plan: _plan.Plan, batch: int, time_major: bool = True,
@@ -153,8 +197,7 @@ def available_engines(plan: _plan.Plan, batch: int, time_major: bool = True,
     out = ["stages"] if plan.local_split is None else []
     if _chain_plan(plan, device) is not None:
         out.append("chain")
-    if (plan.dtype == np.float32 and not plan.is_real
-            and _kern2_conf(plan.engine_n, device) is not None):
+    if plan.dtype == np.float32 and _kern2_conf(plan.engine_n, device) is not None:
         out.append("kern2")
     return tuple(out)
 
@@ -170,11 +213,22 @@ def set_engine(name: Optional[str]) -> None:
 
 def record_engine(cap: Tuple[int, int], n: int, engine: str,
                   time_major: bool = True) -> None:
-    """Record a measured engine choice for (compute capability, N)."""
+    """Record a measured engine choice for complex plans at (compute
+    capability, N)."""
 
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     _MEASURED_TABLE[(tuple(cap), int(n), bool(time_major))] = engine
+
+
+def record_engine_real(cap: Tuple[int, int], n: int, engine: str,
+                       time_major: bool = True) -> None:
+    """Record a measured engine choice for real plans at (compute
+    capability, engine length n = N/2).  Complex plans never read it."""
+
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    _MEASURED_TABLE_REAL[(tuple(cap), int(n), bool(time_major))] = engine
 
 
 def select_engine(plan: _plan.Plan, batch: int, time_major: bool = True,
@@ -187,8 +241,8 @@ def select_engine(plan: _plan.Plan, batch: int, time_major: bool = True,
                 f"(batch={batch}, time_major={time_major}); available: {avail}"
             )
         return _FORCED
-    measured = _MEASURED_TABLE.get(
-        (capability(device), plan.engine_n, bool(time_major)))
+    table = _MEASURED_TABLE_REAL if plan.is_real else _MEASURED_TABLE
+    measured = table.get((capability(device), plan.engine_n, bool(time_major)))
     if measured is not None and measured in avail:
         return measured
     for engine in ("chain", "kern2", "stages"):
@@ -212,3 +266,55 @@ def cfft_dispatch(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
         return cfft_kern2_tmajor(plan, re, im, backward=backward)
     return _split.cfft_stages_split_tmajor(
         re, im, plan.stages, backward=backward, ordered=True)
+
+
+# ---------------------------------------------------------------------------
+# Routes of the real transform (reference ``fused_real_fwd_route`` etc.)
+# ---------------------------------------------------------------------------
+
+
+def _real_f32(plan: _plan.Plan) -> bool:
+    return plan.is_real and plan.dtype == np.float32
+
+
+def fused_real_fwd_route(plan: _plan.Plan, batch: int, device=None):
+    """Callable y [H, 2B] -> packed spectrum planes [H, B] x2 through the
+    fused real kernel when the real plan's engine is the chain, else None."""
+
+    if not _real_f32(plan) or select_engine(plan, batch, True, device) != "chain":
+        return None
+    cplan = _chain_plan(plan, device)
+    return lambda y: _pk.rfft_chain_tmajor_fused(
+        cplan, y, _split.real_split_twiddle(plan, y.device))
+
+
+def fused_real_bwd_route(plan: _plan.Plan, batch: int, device=None):
+    """Callable (sr, si) -> the planar pre-interleave pair through the
+    fused real kernel when the real plan's engine is the chain, else None."""
+
+    if not _real_f32(plan) or select_engine(plan, batch, True, device) != "chain":
+        return None
+    cplan = _chain_plan(plan, device)
+    return lambda sr, si: _pk.rfft_bwd_chain_tmajor_fused(
+        cplan, sr, si, _split.real_split_twiddle(plan, sr.device))
+
+
+def packed_fwd_route(plan: _plan.Plan, batch: int, device=None):
+    """Callable y [H, 2B] -> the planar length-H spectrum pair through
+    :func:`cfft_kern2_tmajor_packed` when the real plan's engine is kern2,
+    else None (the chain is served by the fused route, the stage engine
+    reads the pack's views)."""
+
+    if not _real_f32(plan) or select_engine(plan, batch, True, device) != "kern2":
+        return None
+    return lambda y: cfft_kern2_tmajor_packed(plan, y)
+
+
+def real_split_kernel_route(plan: _plan.Plan, backward: bool):
+    """Callable (zr, zi) -> the split step through the split kernel for a
+    real f32 plan (the kernel covers any H and B), else None."""
+
+    if not _real_f32(plan):
+        return None
+    return lambda zr, zi: _pk.real_split_tmajor(
+        zr, zi, _split.real_split_twiddle(plan, zr.device), backward=backward)

@@ -7,6 +7,12 @@ CUDA C++ under ``pffft_tpu_torch/csrc/``:
   * ``cfft_chain_tmajor``   -> ``stockham_chain.cu`` (``cfft_pallas_tmajor``)
   * ``cfft_combine_tmajor`` -> ``combine.cu`` (``cfft_combine_tmajor``)
   * ``stream_copy``         -> ``stream_copy.cu`` (``stream_copy_pallas``)
+  * ``cfft_chain_tmajor_packed`` -> ``chain_packed.cu``
+    (``cfft_pallas_tmajor_packed``)
+  * ``rfft_chain_tmajor_fused`` / ``rfft_bwd_chain_tmajor_fused`` ->
+    ``real_fused.cu`` (``rfft_pallas_tmajor_fused`` /
+    ``rfft_bwd_pallas_tmajor_fused``)
+  * ``real_split_tmajor``   -> ``real_split.cu`` (``real_split_tmajor_pallas``)
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises.  Each counts its
@@ -14,8 +20,14 @@ launches in a plain int attribute, ``<wrapper>.launches``, incremented
 where the kernel is launched and nowhere else.
 
 The plain versions repeat the kernels' arithmetic (``_butterfly`` has the
-reference's constants and operation order).  On the card they differ from
-the kernels by a few ulp, because nvcc contracts a*b+c into FMAs.
+reference's constants and operation order; the real split step is the flat
+form of ``ops/split.py``, the counterpart of the reference's
+``_fwd_split_block`` / ``_bwd_prep_block`` with the mirror as an index).
+On the card they differ from the kernels by a few ulp, because nvcc
+contracts a*b+c into FMAs.
+
+The real kernels take the split twiddles as ``real_twiddle = (wr, wi)``,
+f32 tensors [H] on the data's device (``split.real_split_twiddle``).
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import torch
 
 from .. import plan as _plan
 from . import _build
+from . import split as _split
 
 __all__ = [
     "supported",
@@ -39,9 +52,17 @@ __all__ = [
     "cfft_chain_tmajor",
     "cfft_combine_tmajor",
     "stream_copy",
+    "cfft_chain_tmajor_packed",
+    "rfft_chain_tmajor_fused",
+    "rfft_bwd_chain_tmajor_fused",
+    "real_split_tmajor",
     "chain_tmajor_plain",
     "combine_tmajor_plain",
     "stream_copy_plain",
+    "chain_tmajor_packed_plain",
+    "rfft_chain_tmajor_fused_plain",
+    "rfft_bwd_chain_tmajor_fused_plain",
+    "real_split_tmajor_plain",
     "CHAIN_RADICES",
     "COMBINE_RADICES",
 ]
@@ -49,7 +70,7 @@ __all__ = [
 CHAIN_RADICES = (2, 3, 4, 5, 8, 16)
 COMBINE_RADICES = (2, 3, 4, 5, 8, 16, 32)
 
-# Tile limits of stockham_chain.cu (kElems, kMaxThreads): a thread holds at
+# Tile limits of csrc/chain.cuh (kElems, kMaxThreads): a thread holds at
 # most 32 complex values across a stage barrier, a block has at most 512
 # threads.
 _CHAIN_ELEMS = 32
@@ -243,6 +264,41 @@ def stream_copy_plain(re, im):
     return re.clone(), im.clone()
 
 
+def chain_tmajor_packed_plain(plan: _plan.Plan, y, *, slabs: int = 1):
+    """Plain PyTorch version of the packed-input chain kernel: the planes
+    sliced out of the packed buffer, then the forward chain."""
+
+    n, w = y.shape
+    b = w // (2 * slabs)
+    v = y.reshape(n, slabs, 2, b)
+    re = v[:, :, 0].reshape(n, slabs * b)
+    im = v[:, :, 1].reshape(n, slabs * b)
+    return chain_tmajor_plain(plan, re, im)
+
+
+def real_split_tmajor_plain(zr, zi, real_twiddle, *, backward: bool = False):
+    """Plain PyTorch version of the split kernel: REAL_FINALIZE forward,
+    REAL_PREPROCESS (2*Z) backward."""
+
+    if backward:
+        return _split.real_backward_split_planar_tmajor_flat(zr, zi, real_twiddle)
+    return _split.real_forward_split_planar_tmajor_flat(zr, zi, real_twiddle)
+
+
+def rfft_chain_tmajor_fused_plain(plan: _plan.Plan, y, real_twiddle):
+    """Plain PyTorch version of the fused real forward kernel."""
+
+    zr, zi = chain_tmajor_packed_plain(plan, y)
+    return _split.real_forward_split_planar_tmajor_flat(zr, zi, real_twiddle)
+
+
+def rfft_bwd_chain_tmajor_fused_plain(plan: _plan.Plan, sr, si, real_twiddle):
+    """Plain PyTorch version of the fused real backward kernel."""
+
+    zr, zi = _split.real_backward_split_planar_tmajor_flat(sr, si, real_twiddle)
+    return chain_tmajor_plain(plan, zr, zi, backward=True)
+
+
 # ---------------------------------------------------------------------------
 # Coverage
 # ---------------------------------------------------------------------------
@@ -339,25 +395,35 @@ def chain_max_n(device: Optional[torch.device] = None) -> int:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# C entry point -> (source in csrc/, argument types)
 _SIGNATURES = {
-    "stockham_chain": ("pf_chain_tmajor",
-                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "combine": ("pf_combine_tmajor", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "stream_copy": ("pf_stream_copy", [_P, _P, _P, _P, ctypes.c_longlong, _I, _P]),
+    "pf_chain_tmajor": ("stockham_chain",
+                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "pf_combine_tmajor": ("combine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "pf_stream_copy": ("stream_copy", [_P, _P, _P, _P, ctypes.c_longlong, _I, _P]),
+    "pf_chain_tmajor_packed": ("chain_packed",
+                               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "pf_rfft_tmajor_fused_fwd": ("real_fused",
+                                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "pf_rfft_tmajor_fused_bwd": ("real_fused",
+                                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "pf_real_split_tmajor": ("real_split", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
+# Sources built on csrc/chain.cuh, whose tile limits chain_tile plans with.
+_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused")
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(name: str):
+def _kernel(fname: str):
+    name, argtypes = _SIGNATURES[fname]
     lib = _build.load(name)
-    fname, argtypes = _SIGNATURES[name]
     fn = getattr(lib, fname)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    if name == "stockham_chain":
+    if name in _CHAIN_SOURCES:
         limits = (lib.pf_chain_elems_per_thread(), lib.pf_chain_max_threads())
         if limits != (_CHAIN_ELEMS, _CHAIN_MAX_THREADS):
-            raise RuntimeError(f"stockham_chain.cu tile limits {limits} differ from "
+            raise RuntimeError(f"{name}.cu tile limits {limits} differ from "
                                f"{(_CHAIN_ELEMS, _CHAIN_MAX_THREADS)} planned with here")
     return lib, fn
 
@@ -400,6 +466,33 @@ def _chain_tables(stages: tuple, device: torch.device):
     return tw_t, (ctypes.c_int * len(desc))(*desc), len(active)
 
 
+def _chain_plan_fits(plan: _plan.Plan, n: int) -> None:
+    if not supported(plan):
+        raise ValueError(f"plan {plan} has factors the chain kernel does not run")
+    if n != plan.engine_n:
+        raise ValueError(f"data length {n} != plan engine length {plan.engine_n}")
+
+
+def _chain_tb(plan: _plan.Plan, device: torch.device) -> int:
+    """The chain tile's batch columns: the widest that fits (ValueError
+    when none does)."""
+
+    n = plan.engine_n
+    tb = chain_tile(n, [st.r for st in plan.stages if st.r != 1], device)
+    if tb is None:
+        raise ValueError(f"N={n} exceeds the chain kernel's tile limits")
+    return tb
+
+
+def _check_real_twiddle(real_twiddle, h: int, device: torch.device) -> None:
+    wr, wi = real_twiddle
+    if wr.shape != (h,) or wi.shape != (h,):
+        raise ValueError(f"split twiddles must be two [{h}] tensors; got "
+                         f"{tuple(wr.shape)} and {tuple(wi.shape)}")
+    if wr.device != device or wi.device != device:
+        raise ValueError(f"split twiddles on {wr.device}, {wi.device}; data on {device}")
+
+
 def cfft_chain_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
                       backward: bool = False, tb: Optional[int] = None):
     """Batched complex FFT of time-major planes [N, B] in one pass.
@@ -408,23 +501,17 @@ def cfft_chain_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     tile's batch columns (measurement only).  The inputs are not modified.
     """
 
-    if not supported(plan):
-        raise ValueError(f"plan {plan} has factors the chain kernel does not run")
     n, b = _planes(re, im)
-    if n != plan.engine_n:
-        raise ValueError(f"data length {n} != plan engine length {plan.engine_n}")
+    _chain_plan_fits(plan, n)
     if re.device.type == "cpu":
         return chain_tmajor_plain(plan, re, im, backward=backward)
     _check_cuda(re, im)
-    radices = [st.r for st in plan.stages if st.r != 1]
     if tb is None:
-        tb = chain_tile(n, radices, re.device)
-        if tb is None:
-            raise ValueError(f"N={n} exceeds the chain kernel's tile limits")
+        tb = _chain_tb(plan, re.device)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
-    lib, fn = _kernel("stockham_chain")
+    lib, fn = _kernel("pf_chain_tmajor")
     tw, desc, count = _chain_tables(plan.stages, re.device)
     err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
              tw.data_ptr(), desc, count, n, b, tb, int(backward),
@@ -457,7 +544,7 @@ def cfft_combine_tmajor(last_stage, re: torch.Tensor, im: torch.Tensor, *,
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
-    lib, fn = _kernel("combine")
+    lib, fn = _kernel("pf_combine_tmajor")
     tw = _chain_tables((last_stage,), re.device)[0]
     err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
              tw.data_ptr(), m, r, b, int(backward), re.device.index or 0,
@@ -480,7 +567,7 @@ def stream_copy(re: torch.Tensor, im: torch.Tensor):
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if re.numel() == 0:
         return ore, oim
-    lib, fn = _kernel("stream_copy")
+    lib, fn = _kernel("pf_stream_copy")
     err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
              re.numel(), re.device.index or 0, _stream(re))
     _build.check(lib, err, f"copy kernel ({re.numel()} elements)")
@@ -489,3 +576,129 @@ def stream_copy(re: torch.Tensor, im: torch.Tensor):
 
 
 stream_copy.launches = 0
+
+
+def cfft_chain_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *, slabs: int = 1):
+    """Forward complex FFT of a PACKED time-major buffer -> planar pair.
+
+    ``slabs=1``: y [N, 2B] with columns :B re and B: im, the free
+    ``x.reshape(H, 2B)`` of a real [2H, B] signal -> ([N, B]) x2.
+    ``slabs=r``: y [N, r*2B], kern2 pass A's wide view of the same buffer
+    (slab s holds re at columns s*2B.., im at s*2B+B..) -> the planar
+    pass-A state ([N, r*B]) x2.  Unscaled, canonical order.  The pack costs
+    no pass of its own."""
+
+    if y.ndim != 2 or slabs < 1 or y.shape[1] % (2 * slabs):
+        raise ValueError(f"packed buffer must be [N, {slabs}*2B]; got {tuple(y.shape)}")
+    n, b = int(y.shape[0]), int(y.shape[1]) // (2 * slabs)
+    _chain_plan_fits(plan, n)
+    if y.device.type == "cpu":
+        return chain_tmajor_packed_plain(plan, y, slabs=slabs)
+    _check_cuda(y)
+    tb = _chain_tb(plan, y.device)
+    ore = torch.empty((n, slabs * b), dtype=y.dtype, device=y.device)
+    oim = torch.empty_like(ore)
+    if b == 0:
+        return ore, oim
+    lib, fn = _kernel("pf_chain_tmajor_packed")
+    tw, desc, count = _chain_tables(plan.stages, y.device)
+    err = fn(y.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(), desc, count,
+             n, b, slabs, tb, y.device.index or 0, _stream(y))
+    _build.check(lib, err, f"packed chain kernel (N={n}, B={b}, slabs={slabs}, tb={tb})")
+    cfft_chain_tmajor_packed.launches += 1
+    return ore, oim
+
+
+cfft_chain_tmajor_packed.launches = 0
+
+
+def rfft_chain_tmajor_fused(plan: _plan.Plan, y: torch.Tensor, real_twiddle):
+    """ONE-pass real forward: packed [H, 2B] buffer (the free
+    ``x.reshape(H, 2B)`` of a real [N, B] signal) -> the packed real
+    spectrum planes ([H, B]) x2, bin0 = DC + i*Nyquist.
+
+    ``plan`` is the length-H chain plan."""
+
+    if y.ndim != 2 or y.shape[1] % 2:
+        raise ValueError(f"packed real input must be [H, 2B]; got {tuple(y.shape)}")
+    h, b = int(y.shape[0]), int(y.shape[1]) // 2
+    _chain_plan_fits(plan, h)
+    _check_real_twiddle(real_twiddle, h, y.device)
+    if y.device.type == "cpu":
+        return rfft_chain_tmajor_fused_plain(plan, y, real_twiddle)
+    wr, wi = real_twiddle
+    _check_cuda(y, wr, wi)
+    tb = _chain_tb(plan, y.device)
+    ore = torch.empty((h, b), dtype=y.dtype, device=y.device)
+    oim = torch.empty_like(ore)
+    if b == 0:
+        return ore, oim
+    lib, fn = _kernel("pf_rfft_tmajor_fused_fwd")
+    tw, desc, count = _chain_tables(plan.stages, y.device)
+    err = fn(y.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(), wr.data_ptr(),
+             wi.data_ptr(), desc, count, h, b, tb, y.device.index or 0, _stream(y))
+    _build.check(lib, err, f"fused real forward kernel (H={h}, B={b}, tb={tb})")
+    rfft_chain_tmajor_fused.launches += 1
+    return ore, oim
+
+
+rfft_chain_tmajor_fused.launches = 0
+
+
+def rfft_bwd_chain_tmajor_fused(plan: _plan.Plan, sr: torch.Tensor, si: torch.Tensor,
+                                real_twiddle):
+    """ONE-pass real backward core: packed spectrum planes [H, B] x2 ->
+    the planar pre-interleave pair ([H, B]) x2 (REAL_PREPROCESS, then the
+    backward length-H chain; the caller interleaves to [N, B]).  Unscaled:
+    with the forward it gives 2H = N times the signal."""
+
+    h, b = _planes(sr, si)
+    _chain_plan_fits(plan, h)
+    _check_real_twiddle(real_twiddle, h, sr.device)
+    if sr.device.type == "cpu":
+        return rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, real_twiddle)
+    wr, wi = real_twiddle
+    _check_cuda(sr, si, wr, wi)
+    tb = _chain_tb(plan, sr.device)
+    ore, oim = torch.empty_like(sr), torch.empty_like(si)
+    if b == 0:
+        return ore, oim
+    lib, fn = _kernel("pf_rfft_tmajor_fused_bwd")
+    tw, desc, count = _chain_tables(plan.stages, sr.device)
+    err = fn(sr.data_ptr(), si.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
+             wr.data_ptr(), wi.data_ptr(), desc, count, h, b, tb, sr.device.index or 0,
+             _stream(sr))
+    _build.check(lib, err, f"fused real backward kernel (H={h}, B={b}, tb={tb})")
+    rfft_bwd_chain_tmajor_fused.launches += 1
+    return ore, oim
+
+
+rfft_bwd_chain_tmajor_fused.launches = 0
+
+
+def real_split_tmajor(zr: torch.Tensor, zi: torch.Tensor, real_twiddle, *,
+                      backward: bool = False):
+    """ONE-pass real split step on time-major planes [H, B], any H.
+
+    Forward: REAL_FINALIZE, the length-H transform -> the packed real
+    spectrum.  Backward: REAL_PREPROCESS, the packed spectrum -> 2*Z, the
+    input of the backward length-H transform."""
+
+    h, b = _planes(zr, zi)
+    _check_real_twiddle(real_twiddle, h, zr.device)
+    if zr.device.type == "cpu":
+        return real_split_tmajor_plain(zr, zi, real_twiddle, backward=backward)
+    wr, wi = real_twiddle
+    _check_cuda(zr, zi, wr, wi)
+    ore, oim = torch.empty_like(zr), torch.empty_like(zi)
+    if b == 0 or h == 0:
+        return ore, oim
+    lib, fn = _kernel("pf_real_split_tmajor")
+    err = fn(zr.data_ptr(), zi.data_ptr(), ore.data_ptr(), oim.data_ptr(), wr.data_ptr(),
+             wi.data_ptr(), h, b, int(backward), zr.device.index or 0, _stream(zr))
+    _build.check(lib, err, f"real split kernel (H={h}, B={b}, backward={backward})")
+    real_split_tmajor.launches += 1
+    return ore, oim
+
+
+real_split_tmajor.launches = 0

@@ -138,3 +138,124 @@ def test_transform_on_the_card_matches_oracle(cuda_device, n, engine):
     assert _rel(torch.complex(yr.double(), yi.double()), ref) <= ORACLE_TOL
     assert max(_rel(br / n, re), _rel(bi / n, im)) <= ORACLE_TOL
     assert torch.equal(re, keep[0]) and torch.equal(im, keep[1])
+
+
+# ---------------------------------------------------------------------------
+# The real transform's kernels
+# ---------------------------------------------------------------------------
+
+
+def _real_tw(h, dev):
+    from pffft_tpu_torch.ops import split as tsplit
+
+    return tsplit.real_split_twiddle(pt.new_setup(2 * h, pt.REAL), dev)
+
+
+def _hold(kernel_out, plain_out):
+    torch.cuda.synchronize()
+    for k, p in zip(kernel_out, plain_out, strict=True):
+        assert k.shape == p.shape
+        assert _rel(k, p) <= KERNEL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,slabs", [(96, 1), (960, 1), (2048, 1), (2048, 2), (2048, 32)])
+@pytest.mark.parametrize("b", [256, 250, 251])  # aligned, ragged, odd (scalar loads)
+def test_packed_chain_kernel_matches_plain(cuda_device, h, slabs, b):
+    plan = D._thin_plan(h)
+    y = _planes(h, slabs * 2 * b, h + b, cuda_device)[0]
+    before = pk.cfft_chain_tmajor_packed.launches
+    got = pk.cfft_chain_tmajor_packed(plan, y, slabs=slabs)
+    _hold(got, pk.chain_tmajor_packed_plain(plan, y, slabs=slabs))
+    assert pk.cfft_chain_tmajor_packed.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [96, 960, 1024, 2048])
+@pytest.mark.parametrize("b", [1024, 1000, 1001])
+def test_fused_real_kernel_matches_plain(cuda_device, h, b):
+    plan = D._thin_plan(h)
+    tw = _real_tw(h, cuda_device)
+    y = _planes(h, 2 * b, h, cuda_device)[0]
+    sr, si = _planes(h, b, h + 1, cuda_device)
+    counts = (pk.rfft_chain_tmajor_fused.launches, pk.rfft_bwd_chain_tmajor_fused.launches)
+    _hold(pk.rfft_chain_tmajor_fused(plan, y, tw),
+          pk.rfft_chain_tmajor_fused_plain(plan, y, tw))
+    _hold(pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw),
+          pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw))
+    assert (pk.rfft_chain_tmajor_fused.launches,
+            pk.rfft_bwd_chain_tmajor_fused.launches) == (counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [96, 960, 2400, 4096, 65536])
+@pytest.mark.parametrize("b", [256, 250, 251])
+def test_split_kernel_matches_plain(cuda_device, h, b):
+    tw = _real_tw(h, cuda_device)
+    zr, zi = _planes(h, b, h + b, cuda_device)
+    for backward in (False, True):
+        before = pk.real_split_tmajor.launches
+        _hold(pk.real_split_tmajor(zr, zi, tw, backward=backward),
+              pk.real_split_tmajor_plain(zr, zi, tw, backward=backward))
+        assert pk.real_split_tmajor.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_refused_real_launches_raise(cuda_device, monkeypatch):
+    """Tiles too large for one block are refused before launch and raise;
+    the counters do not move."""
+
+    plan = D._thin_plan(2048)
+    tw = _real_tw(2048, cuda_device)
+    sr, si = _planes(2048, 64, 6, cuda_device)
+    y = _planes(2048, 128, 7, cuda_device)[0]
+    wrappers = (pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
+                pk.rfft_bwd_chain_tmajor_fused)
+    before = [w.launches for w in wrappers]
+    monkeypatch.setattr(pk, "chain_tile", lambda *a, **k: 64)  # a tile plan gone wrong
+    with pytest.raises(RuntimeError, match="packed chain kernel"):
+        pk.cfft_chain_tmajor_packed(plan, y)
+    with pytest.raises(RuntimeError, match="fused real forward kernel"):
+        pk.rfft_chain_tmajor_fused(plan, y, tw)
+    with pytest.raises(RuntimeError, match="fused real backward kernel"):
+        pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw)
+    assert [w.launches for w in wrappers] == before
+    with pytest.raises(ValueError, match="contiguous float32"):
+        pk.real_split_tmajor(sr.t(), si.t(), _real_tw(64, cuda_device))
+
+
+# real N -> launches per direction (fused real, or packed chain + combine +
+# split forward and split + chain + combine backward)
+REAL_ROUTES = [(192, "chain"), (4096, "chain"), (8192, "kern2"), (131072, "kern2")]
+_REAL_WRAPPERS = (pk.cfft_chain_tmajor, pk.cfft_combine_tmajor, pk.cfft_chain_tmajor_packed,
+                  pk.rfft_chain_tmajor_fused, pk.rfft_bwd_chain_tmajor_fused,
+                  pk.real_split_tmajor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,engine", REAL_ROUTES)
+@pytest.mark.parametrize("b", [40, 37])
+def test_real_transform_on_the_card_matches_oracle(cuda_device, n, engine, b):
+    plan = pt.new_setup(n, pt.REAL)
+    assert D.select_engine(plan, b, device=cuda_device) == engine
+    x = _planes(n, b, n, cuda_device)[0]
+    keep = x.clone()
+    counts = lambda: [w.launches for w in _REAL_WRAPPERS]
+    c0 = counts()
+    yr, yi = pt.transform_ordered_split_tmajor(plan, x)
+    c1 = counts()
+    back = pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD)
+    torch.cuda.synchronize()
+    c2 = counts()
+    fwd = [a - b_ for a, b_ in zip(c1, c0)]
+    bwd = [a - b_ for a, b_ in zip(c2, c1)]
+    if engine == "chain":
+        assert (fwd, bwd) == ([0, 0, 0, 1, 0, 0], [0, 0, 0, 0, 1, 0])
+    else:
+        assert (fwd, bwd) == ([0, 1, 1, 0, 0, 1], [1, 1, 0, 0, 0, 1])
+    ref = torch.fft.rfft(x.double(), dim=0)
+    packed = ref[: n // 2].clone()
+    packed[0] = torch.complex(ref[0].real, ref[n // 2].real)
+    assert _rel(torch.complex(yr.double(), yi.double()), packed) <= ORACLE_TOL
+    assert back.shape == (n, b) and _rel(back / n, x) <= ORACLE_TOL
+    assert torch.equal(x, keep)

@@ -91,8 +91,9 @@ def test_errors_match_reference():
 
 def test_unported_plans_raise():
     x = np.zeros((64, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="A5"):
-        pt.transform_ordered_split_tmajor(pt.new_setup(64, pt.REAL), (x, x), device=CPU)
+    with pytest.raises(NotImplementedError, match="A6"):
+        pt.transform_ordered_split_tmajor(pt.new_setup(64, pt.REAL, dtype="float64"), x,
+                                          device=CPU)
     with pytest.raises(NotImplementedError, match="A6"):
         pt.transform_ordered_split_tmajor(pt.new_setup(64, dtype="float64"), (x, x),
                                           device=CPU)
