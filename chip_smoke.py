@@ -18,9 +18,23 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      complex128 ``torch.fft.rfft``; the launch counts of each shape must
      match its route (the fused real kernel, or the packed chain + combine
      + split kernel);
-  6. timing with CUDA events (median of 10 after warm-up), per band shape
-     and per kernel, beside the bound, the plain version and torch.fft;
-  7. the ``kernels`` line, the card line, and the final ``ok`` line.
+  6. FIR filtering by overlap-save: ``FastConv.apply_batched`` on a
+     16-channel real stream [16, 2^22] (256 MB) with 64-, 1024- and
+     4096-tap lowpass filters (the fused conv kernel at nfft 128 and 2048,
+     the composed kern2 route at 8192), CPLX_INP_OUT, CPLX_SINGLE_FFT and
+     CORRELATION runs, each against a complex128 FFT convolution on
+     sampled channels, and a ``StreamingConv`` run in odd-sized chunks
+     against the one-shot output; launch counts per route;
+  7. the polyphase channelizer at (M, P, batch, frames) = (4096, 8, 4,
+     1024) and (1024, 8, 16, 1024) (64 MB per plane): ``process_split``
+     and ``process_split_tmajor`` over two steps with the state carried,
+     against a float64 polyphase and a complex128 inverse DFT, two chunks
+     against one of twice the length, and one ``OversampledChannelizer``
+     (V = 2) step; launch counts per step;
+  8. timing with CUDA events (median of 10 after warm-up), per band shape,
+     per kernel and per FIR pipeline, beside the bound, the plain version
+     and a library yardstick (torch.fft, conv1d);
+  9. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 repository checkout.  It imports neither jax nor pffft_tpu.
@@ -28,6 +42,7 @@ repository checkout.  It imports neither jax nor pffft_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -38,9 +53,13 @@ import numpy as np
 import torch
 
 import pffft_tpu_torch as pt
+from pffft_tpu_torch import channelizer as CH
+from pffft_tpu_torch import conv as C
 from pffft_tpu_torch.ops import _build
+from pffft_tpu_torch.ops import conv_kernel as ck
 from pffft_tpu_torch.ops import dispatch as D
 from pffft_tpu_torch.ops import pallas_fft as pk
+from pffft_tpu_torch.ops import pfb_kernel as pfb
 from pffft_tpu_torch.ops import split as S
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -58,7 +77,15 @@ REPS = 10
 SEED = 1234
 WRAPPERS = (pk.cfft_chain_tmajor, pk.cfft_combine_tmajor, pk.stream_copy,
             pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
-            pk.rfft_bwd_chain_tmajor_fused, pk.real_split_tmajor)
+            pk.rfft_bwd_chain_tmajor_fused, pk.real_split_tmajor, ck.zconv_tmajor,
+            pfb.pfb_fir, pfb.pfb_fir_stream_tmajor)
+# FastConv: a 16-channel real stream of 2^22 samples (256 MB), filtered by
+# design_lowpass(F, 0.1) at F = 64, 1024 and 4096 (nfft 128, 2048, 8192)
+CONV_ROWS, CONV_LEN, CONV_TAPS = 16, 1 << 22, (64, 1024, 4096)
+# the flag runs: [4, 2^20] complex64 streams at F = 1024
+FLAG_ROWS, FLAG_LEN, FLAG_TAPS = 4, 1 << 20, 1024
+# the channelizer: (M, P, batch, frames per step), 64 MB per plane per step
+CHAN_CONFIGS = ((4096, 8, 4, 1024), (1024, 8, 16, 1024))
 
 
 def emit(obj) -> None:
@@ -80,11 +107,11 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def time_ms(fn, inner: int = 5) -> float:
+def time_ms(fn, inner: int = 5, warm: int = 3) -> float:
     """ms per call: the median over REPS CUDA-event windows, each around
-    ``inner`` back-to-back calls, after warm-up."""
+    ``inner`` back-to-back calls, after ``warm`` calls of warm-up."""
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     ts = []
@@ -176,16 +203,14 @@ def phase_kernels(gen):
 
     dev = torch.device("cuda")
     errs = {name: 0.0 for name in ("chain", "combine", "chain_packed", "real_fused",
-                                   "real_split")}
+                                   "real_split", "conv_fused", "pfb_fir")}
 
     def hold(name, kern, plain, case, dirs=(False, True)):
         for bwd in dirs:
-            kr, ki = kern(bwd)
-            pr, pi = plain(bwd)
+            ks, ps = kern(bwd), plain(bwd)
             torch.cuda.synchronize()
-            e = max(rel_err(kr, pr), rel_err(ki, pi))
-            errs[name] = max(errs[name], float((kr - pr).abs().max()),
-                             float((ki - pi).abs().max()))
+            e = max(rel_err(k, p) for k, p in zip(ks, ps, strict=True))
+            errs[name] = max(errs[name], *(float((k - p).abs().max()) for k, p in zip(ks, ps)))
             emit({"phase": "kernel", "kernel": name, **case, "backward": bwd,
                   "rel_err": e})
             check(e <= KERNEL_TOL, f"{name} {case} bwd={bwd}: {e}")
@@ -275,6 +300,46 @@ def phase_kernels(gen):
             split_case(h, b)
         packed_case(D._thin_plan(2048), 2048, b, 2)
         split_case(2400, b)
+    def conv_case(n, b, cplx):
+        plan = D._thin_plan(n)
+        re, im = planes(n, b, gen)
+        hfr, hfi = filter_spectrum(n, cplx)
+        hold("conv_fused",
+             lambda bwd: ck.zconv_tmajor(plan, re, im, hfr, hfi),
+             lambda bwd: ck.zconv_tmajor_plain(plan, re, im, hfr, hfi),
+             {"n": n, "b": b, "complex_filter": cplx}, dirs=(False,))
+
+    def pfb_case(m, p, r, k, maps=("rows", "stream")):
+        w = torch.randn((p, m), generator=gen, device="cuda")
+        if "rows" in maps:
+            rows = torch.randn((r, k + p - 1, m), generator=gen, device="cuda")
+            hold("pfb_fir", lambda bwd: (pfb.pfb_fir(rows, w, k),),
+                 lambda bwd: (pfb.pfb_fir_plain(rows, w, k),),
+                 {"map": "rows", "m": m, "p": p, "r": r, "k": k}, dirs=(False,))
+        if "stream" in maps:
+            ext = torch.randn((r, (p + k) * m), generator=gen, device="cuda")
+            hold("pfb_fir", lambda bwd: (pfb.pfb_fir_stream_tmajor(ext, w, k),),
+                 lambda bwd: (pfb.pfb_fir_stream_tmajor_plain(ext, w, k),),
+                 {"map": "stream", "m": m, "p": p, "r": r, "k": k}, dirs=(False,))
+
+    # the FIR paths' kernel calls, shape for shape: the fused conv kernel on
+    # FastConv's column sets, the polyphase FIR on the channelizer's streams
+    for taps in CONV_TAPS:
+        fc = C.FastConv(pt.design_lowpass(taps, 0.1))
+        if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+            conv_case(fc.nfft, conv_columns(fc, CONV_ROWS, CONV_LEN), False)
+    for m, p, batch, frames in CHAN_CONFIGS:
+        pfb_case(m, p, batch, frames, ("stream",))
+    pfb_case(4096, 8, 4, 1024, ("rows",))
+    # small, non-power-of-two nfft; ragged and odd column counts (scalar
+    # loads); real and complex filters
+    for n in (64, 128, 480, 2048):
+        for b in (1024, 1000, 1001):
+            for cplx in (False, True):
+                conv_case(n, b, cplx)
+    for m in (64, 1000, 4096):
+        for p in (1, 4, 8):
+            pfb_case(m, p, 3, 70)
     re, im = planes(1024, 16384, gen)
     cr, ci = pk.stream_copy(re, im)
     torch.cuda.synchronize()
@@ -283,6 +348,24 @@ def phase_kernels(gen):
     check(exact, "copy kernel is not bit-exact")
     errs["copy"] = 0.0
     return errs
+
+
+def filter_spectrum(n: int, cplx: bool):
+    """Hf of a lowpass (shifted in frequency when ``cplx``) on the card."""
+
+    h = pt.design_lowpass(n // 2, 0.1)
+    if cplx:
+        h = h * np.exp(2j * np.pi * 0.05 * np.arange(h.size))
+    return tuple(torch.from_numpy(a).to("cuda") for a in ck.filter_spectrum(D._thin_plan(n), h))
+
+
+def conv_columns(fc, rows: int, length: int) -> int:
+    """The column count of FastConv's block planes for a real [rows, length]
+    stream with flush: two frames per column, padded to a multiple of 4."""
+
+    nb = -(-(length - fc.filter_len + 1) // fc.num_out_per_block)
+    nb += nb & 1
+    return -(-(rows * nb // 2) // 4) * 4
 
 
 def carrier_db(n: int) -> float:
@@ -637,6 +720,317 @@ def phase_timing(gen, per_shape):
     return rows
 
 
+def conv_oracle(x: torch.Tensor, h: np.ndarray, correlation: bool = False) -> torch.Tensor:
+    """Valid-mode y[i] = sum_j x[i+j] c[j] (c = reversed h, or h for
+    correlation) of one stream, as a complex128 FFT convolution."""
+
+    xd = x.to(torch.complex128)
+    g = torch.from_numpy(np.asarray(h, np.complex128)).to(x.device)
+    if correlation:
+        g = g.flip(0)
+    n, f = xd.shape[-1], g.shape[0]
+    size = 1 << (n + f - 2).bit_length()
+    full = torch.fft.ifft(torch.fft.fft(xd, size) * torch.fft.fft(g, size))
+    ref = full[f - 1:n]
+    return ref if x.is_complex() else ref.real
+
+
+# launches of one block-convolution call per route (the composed route's
+# nfft = 4096 and 8192 ride kern2 in both directions)
+CONV_ROUTE_LAUNCHES = {"fused": {"zconv_tmajor": 1},
+                       "tmajor": {"cfft_chain_tmajor": 2, "cfft_combine_tmajor": 2}}
+
+
+def phase_fastconv(gen):
+    """FastConv at full size on every route and flag; returns the launch
+    counts and the runs to time."""
+
+    dev = torch.device("cuda")
+    reset_counts()
+    runs = []
+
+    def run(name, fc, x, sample_rows):
+        route = D.conv_route_mode(fc.nfft, None, dev)
+        c0 = counts()
+        y = fc.apply_batched(x, flush=True)
+        torch.cuda.synchronize()
+        delta = launched(counts(), c0)
+        err = max(rel_err(y[r], conv_oracle(x[r], fc_taps[name], fc.correlation))
+                  for r in sample_rows)
+        finite = bool(torch.isfinite(torch.view_as_real(y) if y.is_complex() else y).all())
+        emit({"phase": "fastconv", "run": name, "shape": list(x.shape), "taps": fc.filter_len,
+              "nfft": fc.nfft, "route": route, "out_shape": list(y.shape),
+              "oracle_rel_err": err, "finite": finite, "launches": delta})
+        check(finite and y.shape == (*x.shape[:-1], x.shape[-1] - fc.filter_len + 1),
+              f"FastConv {name}: output not finite/shaped {tuple(y.shape)}")
+        check(err <= ORACLE_TOL, f"FastConv {name}: oracle error {err}")
+        check(delta == CONV_ROUTE_LAUNCHES[route],
+              f"FastConv {name}: launches {delta} do not match route {route}")
+        runs.append((name, fc, x, route))
+        return y
+
+    fc_taps = {}
+    x = torch.randn((CONV_ROWS, CONV_LEN), generator=gen, device="cuda")
+    for taps in CONV_TAPS:
+        name = f"real_f{taps}"
+        fc_taps[name] = pt.design_lowpass(taps, 0.1)
+        run(name, C.FastConv(fc_taps[name]), x, (0, CONV_ROWS - 1))
+    xc = torch.complex(*planes(FLAG_ROWS, FLAG_LEN, gen))
+    h = pt.design_lowpass(FLAG_TAPS, 0.1)
+    for name, flags in (("cplx_inp_out", C.ConvFlags.CPLX_INP_OUT),
+                        ("cplx_single_fft", C.ConvFlags.CPLX_INP_OUT
+                         | C.ConvFlags.CPLX_SINGLE_FFT)):
+        fc_taps[name] = h
+        run(name, C.FastConv(h, flags=flags), xc, (0, FLAG_ROWS - 1))
+    fc_taps["correlation"] = np.random.default_rng(SEED).standard_normal(FLAG_TAPS)
+    run("correlation", C.FastConv(fc_taps["correlation"], flags=C.ConvFlags.CORRELATION),
+        x[:FLAG_ROWS, :FLAG_LEN], (0, FLAG_ROWS - 1))
+    # the streaming entry, fed in odd-sized chunks, against the one-shot output
+    sc = C.StreamingConv(h, device="cuda")
+    xs = x[1, : 1 << 19].cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    outs, pos = [], 0
+    while pos < xs.size:
+        step = int(rng.integers(1000, 30000)) | 1
+        outs.append(sc.push(xs[pos:pos + step]))
+        pos += step
+    outs.append(sc.flush())
+    got = np.concatenate(outs)
+    want = C.FastConv(h).apply(x[1, : 1 << 19], flush=True)[0].cpu().numpy()
+    serr = float(np.abs(got - want).max() / np.abs(want).max()) if got.shape == want.shape else 1.0
+    emit({"phase": "fastconv", "run": "streaming", "taps": FLAG_TAPS, "samples": int(xs.size),
+          "chunks": len(outs) - 1, "out": int(got.size), "rel_err_vs_one_shot": serr})
+    check(got.shape == want.shape and serr <= KERNEL_TOL,
+          f"StreamingConv: {got.shape} vs {want.shape}, rel err {serr}")
+    launches = counts()
+    emit({"phase": "fastconv", "launches": launches})
+    return launches, runs
+
+
+def pfb_oracle(x: torch.Tensor, weights: np.ndarray, offset: int = 0) -> torch.Tensor:
+    """Channels [K, M] of one complex stream x [K*M] from zero history, in
+    float64: v[k, phi] = sum_s hb[s, phi] x_ext[(P + k - s)*M - phi + offset],
+    then an unscaled inverse DFT over phi."""
+
+    p, m = weights.shape
+    k = x.shape[-1] // m
+    ext = torch.cat([torch.zeros(p * m, dtype=torch.complex128, device=x.device),
+                     x.to(torch.complex128)])
+    ext = torch.nn.functional.pad(ext[offset:], (0, offset))
+    w = torch.from_numpy(weights.astype(np.float64)).to(x.device)
+    ks = torch.arange(k, device=x.device)[:, None]
+    ph = torch.arange(m, device=x.device)[None, :]
+    v = torch.zeros((k, m), dtype=torch.complex128, device=x.device)
+    for s in range(p):
+        v += ext[(p + ks - s) * m - ph] * w[s]
+    return torch.fft.ifft(v, dim=-1) * m
+
+
+def phase_channelizer(gen):
+    """The channelizer at full size over two streaming steps; returns the
+    launch counts and the runs to time."""
+
+    dev = torch.device("cuda")
+    reset_counts()
+    runs = []
+    for m, p, batch, frames in CHAN_CONFIGS:
+        ch = CH.Channelizer(m, p, device="cuda")
+        engine = D.select_engine(ch.plan, batch * frames, True, dev)
+        step_launches = {"pfb_fir_stream_tmajor": 2, "cfft_chain_tmajor": 1}
+        if engine == "kern2":
+            step_launches["cfft_combine_tmajor"] = 1
+        xr, xi = planes(batch, 2 * frames * m, gen)
+        half = frames * m
+        outs, outs_t, deltas = [], [], []
+        st = st_t = ch.init_state((batch,))
+        for j in range(2):
+            sl = slice(j * half, (j + 1) * half)
+            c0 = counts()
+            y, st = ch.process_split(st, xr[:, sl], xi[:, sl])
+            c1 = counts()
+            y_t, st_t = ch.process_split_tmajor(st_t, xr[:, sl], xi[:, sl])
+            torch.cuda.synchronize()
+            deltas += [launched(c1, c0), launched(counts(), c1)]
+            outs.append(y)
+            outs_t.append(y_t)
+        yr = torch.cat([o[0] for o in outs], dim=-2)
+        yi = torch.cat([o[1] for o in outs], dim=-2)
+        (ar, ai), _ = ch.process_split(ch.init_state((batch,)), xr, xi)
+        torch.cuda.synchronize()
+        e_chunks = max(rel_err(ar, yr), rel_err(ai, yi))
+        e_tmajor = max(
+            rel_err(o_t[c].reshape(m, batch, frames).permute(1, 2, 0), o[c])
+            for o, o_t in zip(outs, outs_t) for c in (0, 1))
+        err = 0.0
+        for r in (0, batch - 1):
+            ref = pfb_oracle(torch.complex(xr[r], xi[r]), ch.weights)
+            err = max(err, rel_err(torch.complex(yr[r], yi[r]), ref))
+        emit({"phase": "channelizer", "m": m, "p": p, "batch": batch, "frames": frames,
+              "engine": engine, "oracle_rel_err": err, "two_chunks_vs_one_rel_err": e_chunks,
+              "tmajor_vs_split_rel_err": e_tmajor, "launches_per_step": deltas})
+        check(yr.shape == (batch, 2 * frames, m) and bool(torch.isfinite(yr).all()),
+              f"channelizer M={m}: output not finite/shaped")
+        check(err <= ORACLE_TOL, f"channelizer M={m}: oracle error {err}")
+        check(e_chunks <= KERNEL_TOL and e_tmajor == 0.0,
+              f"channelizer M={m}: chunked {e_chunks}, tmajor layout {e_tmajor}")
+        check(all(d == step_launches for d in deltas),
+              f"channelizer M={m}: launches {deltas}, expected {step_launches} per step")
+        runs.append((ch, xr[:, :half].contiguous(), xi[:, :half].contiguous(), engine))
+        del xr, xi, yr, yi, ar, ai, outs, outs_t
+    # one oversampled step (V = 2) at the second configuration
+    m, p, batch, frames = CHAN_CONFIGS[1]
+    och = CH.OversampledChannelizer(m, 2, p, device="cuda")
+    xr, xi = planes(batch, frames * m, gen)
+    (yr, yi), _ = och.process_split(och.init_state((batch,)), xr, xi)
+    torch.cuda.synchronize()
+    x0 = torch.complex(xr[0], xi[0])
+    ref = torch.empty((frames, 2, m), dtype=torch.complex128, device="cuda")
+    for r in range(2):
+        ph = torch.from_numpy(och.ph_re[r] + 1j * och.ph_im[r].astype(np.float64)).to("cuda")
+        ref[:, r] = pfb_oracle(x0, och.base.weights, r * och.hop) * ph
+    err = rel_err(torch.complex(yr[0], yi[0]), ref.reshape(2 * frames, m))
+    emit({"phase": "channelizer", "oversampled": 2, "m": m, "p": p, "batch": batch,
+          "frames": frames, "out_shape": list(yr.shape), "oracle_rel_err": err})
+    check(yr.shape == (batch, 2 * frames, m) and err <= ORACLE_TOL,
+          f"oversampled channelizer: shape {tuple(yr.shape)}, oracle error {err}")
+    launches = counts()
+    emit({"phase": "channelizer", "launches": launches})
+    return launches, runs
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The FIR paths with every kernel wrapper swapped for its plain
+    version: the pipelines' plain-version timing."""
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (pk, "cfft_chain_tmajor"), (pk, "cfft_combine_tmajor"), (ck, "zconv_tmajor"),
+        (pfb, "pfb_fir_stream_tmajor"))]
+    pk.cfft_chain_tmajor = lambda plan, re, im, *, backward=False, tb=None: \
+        pk.chain_tmajor_plain(plan, re, im, backward=backward)
+    pk.cfft_combine_tmajor = lambda last, re, im, *, backward=False: \
+        pk.combine_tmajor_plain(last, re, im, backward=backward)
+    ck.zconv_tmajor = lambda plan, re, im, hfr, hfi, *, tb=None: \
+        ck.zconv_tmajor_plain(plan, re, im, hfr, hfi)
+    pfb.pfb_fir_stream_tmajor = pfb.pfb_fir_stream_tmajor_plain
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_fir_timing(gen, conv_runs, chan_runs):
+    """Times of the FIR pipelines and their two kernels; returns the
+    kernels' rows."""
+
+    dev = torch.device("cuda")
+    rows = {}
+    for name, fc, x, route in conv_runs:
+        if not name.startswith("real_f"):
+            continue
+        samples = x.numel()
+        out = x.shape[0] * (x.shape[1] - fc.filter_len + 1)
+        c0 = counts()
+        ms = time_ms(lambda: fc.apply_batched(x), inner=2)
+        calls = 3 + REPS * 2
+        per_call = {k: v / calls for k, v in launched(counts(), c0).items()}
+        with plain_kernels():
+            plain = time_ms(lambda: fc.apply_batched(x), inner=1, warm=1)
+        cols = conv_columns(fc, x.shape[0], x.shape[1])
+        n = fc.nfft
+        # where a call's time goes: framing into column planes, the block
+        # convolution (the route), unpacking the valid samples
+        nb = -(-(x.shape[1] - fc.filter_len + 1) // fc.num_out_per_block)
+        nb += nb & 1
+        v = fc._frames(x, nb)
+        stage = {"frame_ms": time_ms(lambda: fc._columns(v[:, 0::2], v[:, 1::2]), inner=2)}
+        pre, pim = fc._columns(v[:, 0::2], v[:, 1::2])
+        stage["block_conv_ms"] = time_ms(lambda: fc._block_conv(pre, pim), inner=2)
+        yr, yi = fc._block_conv(pre, pim)
+        stage["unpack_ms"] = time_ms(
+            lambda: fc._unpack_pairs(yr, yi, x.shape[0], nb // 2), inner=2)
+        del v, pre, pim, yr, yi
+        # the stream read once and the output written once; the two
+        # transforms and the multiply on every column
+        bnd = bound(4.0 * (samples + out), 2 * fft_flops(n, cols) + 6.0 * n * cols)
+        rec = {"phase": "fir_time", "pipeline": "fastconv", "run": name, "nfft": n,
+               "route": route, "ms": ms, "msamples_per_s": samples / ms / 1e3,
+               "bound_ms": bnd[0], "bound_by": bnd[1], "frac_bound": bnd[0] / ms,
+               "plain_ms": plain, "launches_per_call": per_call, **stage}
+        if route == "fused":
+            cplan, tb = D.conv_kernel_choice(n, cols, dev)
+            re, im = planes(n, cols, gen)
+            hfr, hfi = fc._spectrum(dev)
+            k_ms = time_ms(lambda: ck.zconv_tmajor(cplan, re, im, hfr, hfi))
+            p_ms = time_ms(lambda: ck.zconv_tmajor_plain(cplan, re, im, hfr, hfi), inner=1)
+            z = torch.complex(re, im)
+            hc = torch.complex(hfr, hfi)[:, None]
+            lib_ms = time_ms(lambda: torch.fft.ifft(torch.fft.fft(z, dim=0) * hc, dim=0))
+            kb = bound(16.0 * n * cols, 2 * fft_flops(n, cols) + 6.0 * n * cols)
+            rec.update(kernel_ms=k_ms, kernel_plain_ms=p_ms, kernel_bound_ms=kb[0],
+                       library_fft_mul_ifft_ms=lib_ms, library_calls=3, cols=cols, tb=tb)
+            if n == 2048:
+                rows["conv_fused"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                          library="torch.fft.fft, multiply, torch.fft.ifft "
+                                                  "(3 calls)",
+                                          shape=[n, cols], bound_ms=kb[0], bound_by=kb[1])
+            del re, im, z
+        emit(rec)
+    torch.backends.cudnn.allow_tf32 = False  # the conv1d yardstick in full f32
+    for ch, xr, xi, engine in chan_runs:
+        m, p = ch.m, ch.p
+        batch, frames = xr.shape[0], xr.shape[1] // m
+        st = ch.init_state((batch,))
+        c0 = counts()
+        ms = time_ms(lambda: ch.process_split_tmajor(st, xr, xi), inner=2)
+        calls = 3 + REPS * 2
+        per_call = {k: v / calls for k, v in launched(counts(), c0).items()}
+        with plain_kernels():
+            plain = time_ms(lambda: ch.process_split_tmajor(st, xr, xi), inner=1, warm=1)
+        samples = xr.numel()
+        # both input planes read once, both output planes written once
+        bnd = bound(16.0 * samples, 2 * (2.0 * p * samples) + fft_flops(m, batch * frames))
+        # where a step's time goes: the history concatenation, the two
+        # polyphase launches, the FFT over the phases
+        extr, exti, _, _ = ch._extend(st, xr, xi)
+        w = ch._weights(dev)
+        vr = pfb.pfb_fir_stream_tmajor(extr, w, frames)
+        vi = pfb.pfb_fir_stream_tmajor(exti, w, frames)
+        stage = {"history_cat_ms": time_ms(lambda: ch._extend(st, xr, xi), inner=2),
+                 "fft_ms": time_ms(lambda: pt.transform_ordered_split_tmajor(
+                     ch.plan, (vr, vi), pt.BACKWARD), inner=2)}
+        del extr, exti, vr, vi
+        rec = {"phase": "fir_time", "pipeline": "channelizer", "m": m, "p": p, "batch": batch,
+               "frames": frames, "engine": engine, "ms": ms,
+               "msamples_per_s": samples / ms / 1e3, "bound_ms": bnd[0], "bound_by": bnd[1],
+               "frac_bound": bnd[0] / ms, "plain_ms": plain, "launches_per_call": per_call,
+               **stage}
+        ext = torch.cat([st.hist_re, xr], dim=-1)
+        k_ms = time_ms(lambda: pfb.pfb_fir_stream_tmajor(ext, w, frames))
+        p_ms = time_ms(lambda: pfb.pfb_fir_stream_tmajor_plain(ext, w, frames), inner=1)
+        rws = torch.randn((batch, frames + p - 1, m), generator=gen, device="cuda")
+        id_ms = time_ms(lambda: pfb.pfb_fir(rws, w, frames))
+        # conv1d(groups=M) computes pfb_fir's function on channels-first rows
+        xin = rws.permute(0, 2, 1).contiguous()
+        wconv = w.t().contiguous().unsqueeze(1)
+        lib = torch.nn.functional.conv1d(xin, wconv, groups=m)
+        lib_err = rel_err(lib.permute(0, 2, 1), pfb.pfb_fir_plain(rws, w, frames))
+        lib_ms = time_ms(lambda: torch.nn.functional.conv1d(xin, wconv, groups=m))
+        kb = bound(4.0 * (ext.numel() + m * batch * frames), 2.0 * p * m * batch * frames)
+        rec.update(pfb_stream_ms=k_ms, pfb_stream_plain_ms=p_ms, pfb_rows_ms=id_ms,
+                   pfb_bound_ms=kb[0], library_conv1d_ms=lib_ms,
+                   library_conv1d_rel_err=lib_err)
+        if m == 4096:
+            rows["pfb_fir"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                   library="torch.nn.functional.conv1d(groups=M)",
+                                   rows_map_ms=id_ms, shape=[m, p, batch, frames],
+                                   bound_ms=kb[0], bound_by=kb[1])
+        emit(rec)
+        del ext, rws, xin, lib
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -649,9 +1043,13 @@ def main() -> int:
     errs = phase_kernels(gen)
     launches, per_shape = phase_main_path(gen)
     real_launches, real_shapes = phase_real_main_path(gen)
+    conv_launches, conv_runs = phase_fastconv(gen)
+    chan_launches, chan_runs = phase_channelizer(gen)
     rows = phase_timing(gen, per_shape)
     rows.update(phase_real_timing(gen, real_shapes))
-    for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split"):
+    rows.update(phase_fir_timing(gen, conv_runs, chan_runs))
+    for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split",
+                 "conv_fused", "pfb_fir"):
         check(name in rows, f"no timing row for {name}")
     check(launches["cfft_chain_tmajor"] > 0 and launches["cfft_combine_tmajor"] > 0,
           f"complex main path did not launch every path kernel: {launches}")
@@ -659,9 +1057,16 @@ def main() -> int:
                  "rfft_bwd_chain_tmajor_fused", "real_split_tmajor"):
         check(real_launches[name] > 0,
               f"real main path did not launch every path kernel: {real_launches}")
+    for name in ("zconv_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor"):
+        check(conv_launches[name] > 0,
+              f"FastConv path did not launch every path kernel: {conv_launches}")
+    for name in ("pfb_fir_stream_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor"):
+        check(chan_launches[name] > 0,
+              f"channelizer path did not launch every path kernel: {chan_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    # launches: the count over both main-path runs (each from zero)
+    # launches: the count over the four main-path runs (each from zero)
+    paths = (launches, real_launches, conv_launches, chan_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),
@@ -676,16 +1081,21 @@ def main() -> int:
                        ("rfft_chain_tmajor_fused", "rfft_bwd_chain_tmajor_fused")),
         "real_split": ("pffft_tpu_torch/csrc/real_split.cu",
                        "pffft_tpu/ops/pallas_fft.py:723", ("real_split_tmajor",)),
+        "conv_fused": ("pffft_tpu_torch/csrc/conv_fused.cu",
+                       "pffft_tpu/ops/conv_kernel.py:180", ("zconv_tmajor",)),
+        "pfb_fir": ("pffft_tpu_torch/csrc/pfb_fir.cu", "pffft_tpu/ops/pfb_kernel.py:85",
+                    ("pfb_fir", "pfb_fir_stream_tmajor")),
     }
     kernels = []
     for name, (src, rep, wrappers) in meta.items():
         row = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": sum(launches[w] + real_launches[w] for w in wrappers),
+                        "launches": sum(c[w] for c in paths for w in wrappers),
                         "max_abs_err": errs[name],
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "shape": row["shape"]})
+                        "library_ms": row["library_ms"], "shape": row["shape"],
+                        **({"library": row["library"]} if "library" in row else {})})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

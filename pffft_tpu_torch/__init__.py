@@ -7,10 +7,20 @@ transforms (backward(forward(x)) == N*x), canonical bin order, planar
 runs its plain PyTorch version.  It imports neither jax nor pffft_tpu.
 
 Ported so far: the f32 transform of time-major planes,
-:func:`transform_ordered_split_tmajor`, for complex and real plans.
+:func:`transform_ordered_split_tmajor`, for complex and real plans; FIR
+filtering by overlap-save, :mod:`conv` (``FastConv``, ``StreamingConv``);
+the polyphase channelizers, :mod:`channelizer`.
 """
 
-from . import fft, ops
+from . import channelizer, conv, fft, ops, runtime
+from .channelizer import (
+    Channelizer,
+    ChannelizerState,
+    OversampledChannelizer,
+    design_lowpass,
+    state_from_arrays,
+)
+from .conv import ConvFlags, FastConv, StreamingConv, fastconv_valid
 from .fft import transform_ordered_split_tmajor
 from .plan import (
     BACKWARD,
@@ -35,9 +45,21 @@ from .plan import (
 )
 
 __all__ = [
+    "channelizer",
+    "conv",
     "fft",
     "ops",
+    "runtime",
     "transform_ordered_split_tmajor",
+    "Channelizer",
+    "ChannelizerState",
+    "OversampledChannelizer",
+    "design_lowpass",
+    "state_from_arrays",
+    "ConvFlags",
+    "FastConv",
+    "StreamingConv",
+    "fastconv_valid",
     "BACKWARD",
     "COMPLEX",
     "FORWARD",

@@ -1,0 +1,277 @@
+"""Polyphase filter-bank channelizers on the card.
+
+Counterpart of ``pffft_tpu/channelizer.py``:
+
+  * :class:`Channelizer`, the critically sampled polyphase filter bank.
+    For frame k and channel c,
+
+        Y[k, c] = sum_j h[j] * x[k*M - j] * exp(+2i pi c j / M),
+
+    every channel mixed to baseband, filtered by the prototype h and
+    decimated by M.  It is computed as the weighted frames
+    v[k, phi] = sum_s hb[s, phi] * ext[(P + k - s)*M - phi] of the
+    history-prefixed stream ext (hb[s, phi] = h[s*M + phi]), then an
+    unscaled backward DFT over the M phases.
+  * :class:`OversampledChannelizer`, hop M/V: V interleaved critically
+    sampled passes and a phase table per residue.
+
+On the card the polyphase step is the kernel ``csrc/pfb_fir.cu`` reading
+the stream directly and writing v time-major [M, B*K]
+(``ops/pfb_kernel.pfb_fir_stream_tmajor``); the DFT over the phases is the
+port's time-major complex transform, backward and unscaled (the chain
+kernel for M <= 2048, kern2 above).  ``process_split_tmajor`` returns that
+[M, B*K] output as it is; ``process_split`` moves the channel axis back to
+[..., K, M].
+
+State is carried as in the reference: the last P*M input samples, planar.
+numpy input goes to the channelizer's ``device`` (default "cuda"); tensors
+stay where they are.  ``DDCChain`` needs the NCO mixer and is not ported
+yet (ROADMAP.md A8); float64 is not either (A6).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import fft as _fft
+from . import plan as _plan
+from .ops import pfb_kernel as _pfb
+
+__all__ = ["Channelizer", "OversampledChannelizer", "ChannelizerState", "design_lowpass",
+           "state_from_arrays"]
+
+
+def design_lowpass(num_taps: int, cutoff: float, window: str = "hamming") -> np.ndarray:
+    """Windowed-sinc FIR lowpass prototype (cutoff in cycles/sample),
+    float64 numpy, normalised to unit DC gain."""
+
+    n = np.arange(num_taps, dtype=np.float64) - (num_taps - 1) / 2.0
+    h = 2.0 * cutoff * np.sinc(2.0 * cutoff * n)
+    if window == "hamming":
+        w = np.hamming(num_taps)
+    elif window == "blackman":
+        w = np.blackman(num_taps)
+    elif window == "rect":
+        w = np.ones(num_taps)
+    else:
+        raise ValueError(f"unknown window {window!r}")
+    h *= w
+    return (h / h.sum()).astype(np.float64)
+
+
+def _planes(x, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A complex stream (numpy or tensor) as f32 planes."""
+
+    if isinstance(x, torch.Tensor):
+        x = x.to(torch.complex64)
+        return x.real, x.imag
+    x = np.asarray(x)
+    return _fft._as_plane(np.real(x), device), _fft._as_plane(np.imag(x), device)
+
+
+class ChannelizerState(NamedTuple):
+    """Streaming history: the last P*M input samples, planar f32."""
+
+    hist_re: torch.Tensor  # [..., P*M]
+    hist_im: torch.Tensor
+
+
+def state_from_arrays(hist_re, hist_im, device="cuda") -> ChannelizerState:
+    """The port's state from arrays, e.g. a reference ``ChannelizerState``
+    as numpy: the stream carries on from there."""
+
+    return ChannelizerState(_fft._as_plane(hist_re, device), _fft._as_plane(hist_im, device))
+
+
+class Channelizer:
+    """Critically sampled polyphase filter-bank channelizer.
+
+    num_channels M: the DFT length across the phases (any 2/3/5-smooth
+    size).  taps_per_channel P: polyphase depth; prototype length P*M.
+    """
+
+    def __init__(
+        self,
+        num_channels: int,
+        taps_per_channel: int = 8,
+        prototype: Optional[np.ndarray] = None,
+        dtype="float32",
+        device="cuda",
+    ):
+        m, p = int(num_channels), int(taps_per_channel)
+        self.dtype = np.dtype(dtype)
+        if self.dtype == np.float64:
+            raise NotImplementedError("float64 channelizers are not ported yet (ROADMAP.md A6)")
+        if prototype is None:
+            prototype = design_lowpass(p * m, 0.5 / m)
+        prototype = np.asarray(prototype, dtype=np.float64)
+        if prototype.size != p * m:
+            raise ValueError(f"prototype length {prototype.size} != P*M = {p * m}")
+        self.m = m
+        self.p = p
+        self.device = device
+        # polyphase branches: hb[s, phi] = h[s*M + phi]
+        self.weights = prototype.reshape(p, m).astype(self.dtype)
+        self._w: Dict[torch.device, torch.Tensor] = {}
+        self.plan = _plan.Plan.create(m, _plan.COMPLEX, dtype, strict=False)
+
+    @classmethod
+    def from_weights(cls, weights, dtype="float32", device="cuda") -> "Channelizer":
+        """A channelizer with polyphase weights [P, M] (hb[s, phi] =
+        h[s*M + phi]), e.g. a reference channelizer's ``weights``."""
+
+        w = np.asarray(weights)
+        if w.ndim != 2:
+            raise ValueError(f"weights must be [P, M]; got {w.shape}")
+        p, m = w.shape
+        return cls(m, p, prototype=w.reshape(-1), dtype=dtype, device=device)
+
+    def _weights(self, device: torch.device) -> torch.Tensor:
+        w = self._w.get(device)
+        if w is None:
+            w = self._w[device] = torch.from_numpy(self.weights).to(device)
+        return w
+
+    def init_state(self, channels_shape: Tuple[int, ...] = (), device=None) -> ChannelizerState:
+        z = torch.zeros((*channels_shape, self.p * self.m), dtype=torch.float32,
+                        device=self.device if device is None else device)
+        return ChannelizerState(hist_re=z, hist_im=z)
+
+    # ------------------------------------------------------------------
+    def _pfb_split_tmajor(self, extr: torch.Tensor, exti: torch.Tensor, k: int):
+        """ext planes [..., (P+K)*M] -> the channels ([M, B*K]) x2,
+        channel-major, columns frame-fastest."""
+
+        w = self._weights(extr.device)
+        vr = _pfb.pfb_fir_stream_tmajor(extr, w, k)
+        vi = _pfb.pfb_fir_stream_tmajor(exti, w, k)
+        return _fft.transform_ordered_split_tmajor(self.plan, (vr, vi), _plan.BACKWARD)
+
+    def _pfb_split(self, extr: torch.Tensor, exti: torch.Tensor, k: int):
+        """ext planes [..., (P+K)*M] -> ([..., K, M]) x2."""
+
+        lead = extr.shape[:-1]
+        return tuple(y.reshape(self.m, *lead, k).movedim(0, -1).contiguous()
+                     for y in self._pfb_split_tmajor(extr, exti, k))
+
+    def _extend(self, state: ChannelizerState, x_re, x_im):
+        """(ext_re, ext_im, K, state'): the history-prefixed planes."""
+
+        x_re, x_im = _fft._as_plane(x_re, self.device), _fft._as_plane(x_im, self.device)
+        if x_re.shape[-1] % self.m:
+            raise ValueError(
+                f"stream chunk length {x_re.shape[-1]} must be a multiple of M={self.m}")
+        extr = torch.cat([state.hist_re, x_re], dim=-1)
+        exti = torch.cat([state.hist_im, x_im], dim=-1)
+        hist = self.p * self.m
+        return (extr, exti, x_re.shape[-1] // self.m,
+                ChannelizerState(hist_re=extr[..., -hist:], hist_im=exti[..., -hist:]))
+
+    def process_split_tmajor(
+        self, state: ChannelizerState, x_re, x_im
+    ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ChannelizerState]:
+        """Channel-major stream step for time-major pipelines: planes
+        [..., L] x2 -> (([M, B*K]) x2, state'), with no transpose back
+        (columns run frame-fastest, batch-major over any leading dims)."""
+
+        extr, exti, k, st = self._extend(state, x_re, x_im)
+        return self._pfb_split_tmajor(extr, exti, k), st
+
+    def process_split(
+        self, state: ChannelizerState, x_re, x_im
+    ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ChannelizerState]:
+        """Split-format stream step: planes [..., L] x2 ->
+        (([..., L//M, M]) x2, state')."""
+
+        extr, exti, k, st = self._extend(state, x_re, x_im)
+        return self._pfb_split(extr, exti, k), st
+
+    def process(self, state: ChannelizerState, x) -> Tuple[torch.Tensor, ChannelizerState]:
+        """Stream step: x [..., L] complex (L % M == 0) ->
+        (Y [..., L//M, M] complex64, state').  Y[..., k, c] is channel c of
+        output frame k at rate fs/M."""
+
+        (yr, yi), st = self.process_split(state, *_planes(x, self.device))
+        return torch.complex(yr, yi), st
+
+    def one_shot(self, x) -> torch.Tensor:
+        """Zero history, process, drop state."""
+
+        dev = x.device if isinstance(x, torch.Tensor) else None
+        y, _ = self.process(self.init_state(tuple(x.shape[:-1]), dev), x)
+        return y
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"Channelizer(M={self.m}, P={self.p}, {self.dtype.name})"
+
+
+class OversampledChannelizer:
+    """Oversampled PFB channelizer: per-channel output rate V*fs/M.
+
+    Hop H = M/V (V | M).  For frame k and channel c,
+
+        Y[k, c] = sum_j h[j] * x[k*H - j] * exp(+2i pi c (j - k*H) / M),
+
+    the c-th DDC sampled at n = k*H: V interleaved critically sampled
+    passes (residue r = k mod V uses frames offset by r*H), each the
+    polyphase step of :class:`Channelizer`, times the phase table
+    e^{-2i pi c r H / M} of its residue.
+    """
+
+    def __init__(self, num_channels: int, oversample: int = 2,
+                 taps_per_channel: int = 8, prototype: Optional[np.ndarray] = None,
+                 dtype="float32", device="cuda"):
+        if num_channels % oversample:
+            raise ValueError("oversample must divide num_channels")
+        self.base = Channelizer(num_channels, taps_per_channel, prototype, dtype, device)
+        self.v = int(oversample)
+        self.hop = num_channels // self.v
+        m = num_channels
+        # phase[r, c] = exp(-2i pi c r H / M)
+        r = np.arange(self.v)[:, None]
+        c = np.arange(m)[None, :]
+        ang = -2.0 * np.pi * (r * self.hop % m) * c / m
+        self.ph_re = np.cos(ang).astype(np.float32)
+        self.ph_im = np.sin(ang).astype(np.float32)
+
+    @property
+    def m(self) -> int:
+        return self.base.m
+
+    def init_state(self, channels_shape: Tuple[int, ...] = (), device=None) -> ChannelizerState:
+        return self.base.init_state(channels_shape, device)
+
+    def process_split(self, state: ChannelizerState, x_re, x_im):
+        """Planes [..., L] (L % M == 0) -> ([..., V*L//M, M]) x2, state'.
+        Output frame k is stream time k*H (H = M/V)."""
+
+        b = self.base
+        extr, exti, k, st = b._extend(state, x_re, x_im)
+        lead = extr.shape[:-1]
+        dev = extr.device
+        ph_re = torch.from_numpy(self.ph_re).to(dev)
+        ph_im = torch.from_numpy(self.ph_im).to(dev)
+        yr = torch.empty((*lead, k, self.v, b.m), dtype=torch.float32, device=dev)
+        yi = torch.empty_like(yr)
+        for r in range(self.v):
+            off = r * self.hop
+            # residue r samples times k*M + r*H: shift the window right by
+            # off and zero-pad back to (P+K)*M (the pad is never read)
+            er, ei = extr, exti
+            if off:
+                er = F.pad(extr[..., off:], (0, off))
+                ei = F.pad(exti[..., off:], (0, off))
+            vr, vi = b._pfb_split(er, ei, k)
+            pr, pi = ph_re[r], ph_im[r]
+            yr[..., r, :] = vr * pr - vi * pi
+            yi[..., r, :] = vr * pi + vi * pr
+        # interleave residues: output frame k*V + r = residue r's frame k
+        return (yr.reshape(*lead, k * self.v, b.m), yi.reshape(*lead, k * self.v, b.m)), st
+
+    def process(self, state: ChannelizerState, x):
+        (yr, yi), st = self.process_split(state, *_planes(x, self.base.device))
+        return torch.complex(yr, yi), st

@@ -28,6 +28,13 @@ The engine picks the real route (the routes below):
     combine, then the split kernel; backward the split kernel, then kern2;
   * ``"stages"``: the pack view and the stage engine, with the split
     kernel, which covers any H.
+
+FastConv's overlap-save block pipeline has routes of its own
+(:func:`conv_route_mode`): ``"fused"``, the spectral-conv kernel
+(``csrc/conv_fused.cu``) where the chain's tile holds nfft, else
+``"tmajor"``, the routed forward transform, a multiply by the filter
+spectrum and the routed backward transform.  Its measured table,
+keyed by (compute capability, nfft), starts empty too.
 """
 
 from __future__ import annotations
@@ -55,6 +62,10 @@ __all__ = [
     "fused_real_bwd_route",
     "packed_fwd_route",
     "real_split_kernel_route",
+    "CONV_ROUTES",
+    "record_conv_route",
+    "conv_route_mode",
+    "conv_kernel_choice",
 ]
 
 ENGINES = ("stages", "chain", "kern2")
@@ -318,3 +329,71 @@ def real_split_kernel_route(plan: _plan.Plan, backward: bool):
         return None
     return lambda zr, zi: _pk.real_split_tmajor(
         zr, zi, _split.real_split_twiddle(plan, zr.device), backward=backward)
+
+
+# ---------------------------------------------------------------------------
+# Routes of the overlap-save block pipeline (reference ``conv_route_mode``)
+# ---------------------------------------------------------------------------
+
+CONV_ROUTES = ("fused", "tmajor")
+
+# (compute capability, nfft) -> route, measured on the card.
+_CONV_TABLE: dict = {}
+
+
+def record_conv_route(cap: Tuple[int, int], nfft: int, route: str) -> None:
+    """Record a measured FastConv route ('fused' or 'tmajor') at (compute
+    capability, nfft)."""
+
+    if route not in CONV_ROUTES:
+        raise ValueError(f"unknown conv route {route!r}; expected one of {CONV_ROUTES}")
+    _CONV_TABLE[(tuple(cap), int(nfft))] = route
+
+
+def conv_route_mode(nfft: int, force: Optional[str] = None,
+                    device=None) -> Optional[str]:
+    """'fused' | 'tmajor' | None: which block pipeline FastConv runs at
+    this block length.
+
+    ``force`` ('fused' or 'tmajor') overrides the rest; a forced 'fused'
+    where the kernel's tile cannot hold nfft raises ValueError.  Else an
+    engine forced with :func:`set_engine` other than the chain keeps the
+    fused kernel (which runs the chain) out; else the measured table; else
+    coverage: 'fused' where the chain's tile holds nfft, 'tmajor' where
+    some engine runs it, None otherwise."""
+
+    fused_ok = conv_kernel_choice(nfft, 1, device) is not None
+    if force is not None:
+        if force not in CONV_ROUTES:
+            raise ValueError(f"unknown conv route {force!r}; expected one of {CONV_ROUTES}")
+        if force == "fused" and not fused_ok:
+            raise ValueError(f"the fused conv kernel's tile cannot hold nfft={nfft}")
+        return force
+    plan = _plan.new_setup(nfft, _plan.COMPLEX, strict=False)
+    tmajor_ok = bool(available_engines(plan, 1, True, device))
+    if _FORCED not in (None, "chain"):
+        fused_ok = False
+    measured = _CONV_TABLE.get((capability(device), int(nfft)))
+    if measured == "fused" and fused_ok or measured == "tmajor" and tmajor_ok:
+        return measured
+    if fused_ok:
+        return "fused"
+    return "tmajor" if tmajor_ok else None
+
+
+def conv_kernel_choice(nfft: int, cols: int,
+                       device=None) -> Optional[Tuple[_plan.Plan, int]]:
+    """(chain plan, tile columns) of the fused spectral-conv kernel over
+    ``cols`` columns of length ``nfft``, or None where the chain's tile
+    cannot hold nfft.
+
+    The tile is the chain's (``chain_tile``).  The TPU's tile-waste rule
+    does not apply: the kernel masks the ragged last tile."""
+
+    if cols < 1:
+        return None
+    plan = _chain_plan(_plan.new_setup(nfft, _plan.COMPLEX, strict=False), device)
+    if plan is None:
+        return None
+    radices = [st.r for st in plan.stages if st.r != 1]
+    return plan, _pk.chain_tile(nfft, radices, device)

@@ -408,9 +408,13 @@ _SIGNATURES = {
     "pf_rfft_tmajor_fused_bwd": ("real_fused",
                                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_real_split_tmajor": ("real_split", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # ops/conv_kernel.zconv_tmajor, ops/pfb_kernel.pfb_fir(_stream_tmajor)
+    "pf_conv_fused_tmajor": ("conv_fused",
+                             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "pf_pfb_fir": ("pfb_fir", [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P]),
 }
 # Sources built on csrc/chain.cuh, whose tile limits chain_tile plans with.
-_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused")
+_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused", "conv_fused")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,215 @@
+"""The port's polyphase channelizers, pffft_tpu_torch.channelizer, and the
+polyphase FIR kernel's plain versions, against pffft_tpu on the same numpy
+inputs, including a reference state carried into the port mid-stream.
+
+On the CPU the kernel wrappers run their plain versions; the reference's
+Pallas kernel runs in interpret mode."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pffft_tpu import channelizer as rch
+from pffft_tpu.ops import pfb_kernel as rpfb
+import pffft_tpu_torch as pt
+from pffft_tpu_torch import channelizer as tch
+from pffft_tpu_torch.ops import pfb_kernel as tpfb
+
+# One intra-op thread: the suite runs in several worker processes.
+torch.set_num_threads(1)
+
+CPU = "cpu"
+# relative to max|ref|: f32 polyphase sums and FFTs on both sides, in
+# another order (and through another FFT engine) on each
+TOL = 1e-5
+SHAPES = [(8, 4), (16, 8), (12, 6), (64, 4)]
+
+
+def _rel(got, ref):
+    ref = np.asarray(ref)
+    return float(np.abs(np.asarray(got) - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _stream(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _pair(m, p):
+    """The reference channelizer and the port's, on the reference's weights."""
+
+    ref = rch.Channelizer(m, p)
+    return ref, tch.Channelizer.from_weights(np.asarray(ref.weights), device=CPU)
+
+
+# ---------------------------------------------------------------------------
+# The polyphase FIR's plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "k,p,m,lead",
+    [(16, 8, 128, ()), (64, 8, 256, (3,)), (24, 4, 384, (2, 2)), (128, 12, 128, (1,)),
+     (8, 1, 128, ())],
+)
+def test_pfb_fir_matches_reference_kernel(k, p, m, lead):
+    rng = np.random.default_rng(k * 1000 + p * 10 + m)
+    q = k + p - 1 + int(rng.integers(0, 3))  # extra tail rows are ignored
+    rows = rng.standard_normal((*lead, q, m)).astype(np.float32)
+    w = rng.standard_normal((p, m)).astype(np.float32)
+    want = np.asarray(rpfb.pfb_fir(jnp.asarray(rows), jnp.asarray(w), k, interpret=True))
+    rt, wt = torch.from_numpy(rows), torch.from_numpy(w)
+    for got in (tpfb.pfb_fir_plain(rt, wt, k), tpfb.pfb_fir(rt, wt, k)):
+        assert got.shape == want.shape
+        assert _rel(got.numpy(), want) <= 4e-6  # the reference test's own bound
+
+
+@pytest.mark.parametrize("m,p", SHAPES)
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_pfb_stream_map_matches_reference_polyphase(m, p, lead):
+    """The channelizer's map pair: v[phi, r*K + k] from the stream, equal to
+    the reference's time-major polyphase (``_polyphase_tmajor``)."""
+
+    rng = np.random.default_rng(m + p)
+    k = 6
+    ref = rch.Channelizer(m, p)
+    ext = rng.standard_normal((*lead, (p + k) * m)).astype(np.float32)
+    want = np.asarray(ref._polyphase_tmajor(jnp.asarray(ext), k)).reshape(m, -1)
+    w = torch.from_numpy(np.array(ref.weights))
+    et = torch.from_numpy(ext)
+    for got in (tpfb.pfb_fir_stream_tmajor_plain(et, w, k), tpfb.pfb_fir_stream_tmajor(et, w, k)):
+        assert got.shape == (m, max(1, int(np.prod(lead))) * k)
+        assert _rel(got.numpy(), want) <= 4e-6
+
+
+def test_pfb_wrappers_reject_bad_arguments():
+    w = torch.ones((4, 16))
+    with pytest.raises(ValueError, match="K \\+ P - 1"):
+        tpfb.pfb_fir(torch.ones((10, 16)), w, 8)
+    with pytest.raises(ValueError, match="columns"):
+        tpfb.pfb_fir(torch.ones((20, 8)), w, 8)
+    with pytest.raises(ValueError, match=r"\[P, M\]"):
+        tpfb.pfb_fir(torch.ones((20, 16)), torch.ones(16), 8)
+    with pytest.raises(ValueError, match="stream length"):
+        tpfb.pfb_fir_stream_tmajor(torch.ones(16 * 10), w, 8)
+    before = (tpfb.pfb_fir.launches, tpfb.pfb_fir_stream_tmajor.launches)
+    tpfb.pfb_fir_stream_tmajor(torch.ones(16 * 12), w, 8)  # the CPU launches nothing
+    assert (tpfb.pfb_fir.launches, tpfb.pfb_fir_stream_tmajor.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# Channelizer against the reference
+# ---------------------------------------------------------------------------
+
+
+def test_design_lowpass_is_bit_exact():
+    for taps, cut, win in ((32, 0.0625, "hamming"), (63, 0.1, "blackman"), (17, 0.2, "rect")):
+        assert np.array_equal(tch.design_lowpass(taps, cut, win),
+                              rch.design_lowpass(taps, cut, win))
+    with pytest.raises(ValueError, match="window"):
+        tch.design_lowpass(8, 0.1, "kaiser")
+
+
+@pytest.mark.parametrize("m,p", SHAPES)
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_channelizer_matches_reference(m, p, lead):
+    ref, ch = _pair(m, p)
+    x = _stream((*lead, 8 * m), m * p)
+    xj = jnp.asarray(x)
+    want, rst = ref.process(ref.init_state(lead), xj)
+    got, st = ch.process(ch.init_state(lead), x)
+    assert got.shape == want.shape == (*lead, 8, m) and got.dtype == torch.complex64
+    assert _rel(got.numpy(), want) <= TOL
+    np.testing.assert_array_equal(st.hist_re.numpy(), np.asarray(rst.hist_re))
+    (wr, wi), _ = ref.process_split(ref.init_state(lead), jnp.real(xj), jnp.imag(xj))
+    (gr, gi), _ = ch.process_split(ch.init_state(lead), x.real, x.imag)
+    assert _rel(gr.numpy(), wr) <= TOL and _rel(gi.numpy(), wi) <= TOL
+
+
+@pytest.mark.parametrize("m,p", SHAPES)
+def test_streaming_continues_from_a_reference_state(m, p):
+    """A reference state carried into the port mid-stream: the port goes on
+    exactly as the reference does."""
+
+    ref, ch = _pair(m, p)
+    lead = (2,)
+    x1, x2, x3 = (_stream((*lead, 4 * m), m + i) for i in range(3))
+    _, rst = ref.process(ref.init_state(lead), jnp.asarray(x1))
+    want2, rst = ref.process(rst, jnp.asarray(x2))
+    want3, _ = ref.process(rst, jnp.asarray(x3))
+    _, rst1 = ref.process(ref.init_state(lead), jnp.asarray(x1))
+    st = tch.state_from_arrays(np.asarray(rst1.hist_re), np.asarray(rst1.hist_im), CPU)
+    got2, st = ch.process(st, x2)
+    got3, _ = ch.process(st, x3)
+    assert _rel(got2.numpy(), want2) <= TOL
+    assert _rel(got3.numpy(), want3) <= TOL
+
+
+def test_two_chunks_equal_one():
+    _, ch = _pair(16, 8)
+    x = _stream((2, 16 * 12), 4)
+    y1, st = ch.process(ch.init_state((2,)), x[:, : 16 * 5])
+    y2, _ = ch.process(st, x[:, 16 * 5:])
+    yall, _ = ch.process(ch.init_state((2,)), x)
+    np.testing.assert_allclose(torch.cat([y1, y2], dim=-2).numpy(), yall.numpy(), atol=1e-6)
+
+
+def test_tmajor_entry_layout():
+    ref, ch = _pair(16, 4)
+    rng = np.random.default_rng(12)
+    xr = rng.standard_normal((3, 8 * 16)).astype(np.float32)
+    xi = rng.standard_normal((3, 8 * 16)).astype(np.float32)
+    (yr, yi), st = ch.process_split_tmajor(ch.init_state((3,)), xr, xi)
+    assert yr.shape == (16, 3 * 8)  # [M, B*K], frame-fastest
+    (br, bi), st2 = ch.process_split(ch.init_state((3,)), xr, xi)
+    np.testing.assert_array_equal(yr.reshape(16, 3, 8).permute(1, 2, 0).numpy(), br.numpy())
+    np.testing.assert_array_equal(yi.reshape(16, 3, 8).permute(1, 2, 0).numpy(), bi.numpy())
+    assert torch.equal(st.hist_im, st2.hist_im)
+    (wr, _), _ = ref.process_split_tmajor(ref.init_state((3,)), jnp.asarray(xr), jnp.asarray(xi))
+    assert _rel(yr.numpy(), wr) <= TOL
+
+
+def test_one_shot_and_default_prototype_match_reference():
+    ref = rch.Channelizer(16, 8)
+    ch = tch.Channelizer(16, 8, device=CPU)
+    np.testing.assert_array_equal(ch.weights, np.asarray(ref.weights))
+    x = _stream((16 * 10,), 7)
+    assert _rel(ch.one_shot(x).numpy(), ref.one_shot(x)) <= TOL
+    assert _rel(ch.one_shot(torch.from_numpy(x)).numpy(), ref.one_shot(x)) <= TOL
+
+
+@pytest.mark.parametrize("m,v", [(16, 2), (16, 4), (12, 3)])
+def test_oversampled_matches_reference(m, v):
+    p = 4
+    h = rch.design_lowpass(p * m, 0.5 / m)
+    ref = rch.OversampledChannelizer(m, v, p, prototype=h)
+    ch = tch.OversampledChannelizer(m, v, p, prototype=h, device=CPU)
+    assert ch.m == m
+    x1, x2 = _stream((2, 8 * m), m), _stream((2, 8 * m), m + 1)
+    want1, rst = ref.process(ref.init_state((2,)), jnp.asarray(x1))
+    want2, _ = ref.process(rst, jnp.asarray(x2))
+    got1, st = ch.process(ch.init_state((2,)), x1)
+    got2, _ = ch.process(st, x2)
+    assert got1.shape == want1.shape == (2, 8 * v, m)
+    assert _rel(got1.numpy(), want1) <= TOL
+    assert _rel(got2.numpy(), want2) <= TOL
+
+
+def test_channelizer_errors():
+    ch = tch.Channelizer(16, 4, device=CPU)
+    with pytest.raises(ValueError, match="multiple of M=16"):
+        ch.process(ch.init_state(), np.zeros(40, np.complex64))
+    with pytest.raises(ValueError, match="P\\*M"):
+        tch.Channelizer(16, 4, prototype=np.ones(10), device=CPU)
+    with pytest.raises(ValueError, match=r"\[P, M\]"):
+        tch.Channelizer.from_weights(np.ones(16), device=CPU)
+    with pytest.raises(ValueError, match="divide"):
+        tch.OversampledChannelizer(16, 3, device=CPU)
+    with pytest.raises(NotImplementedError, match="A6"):
+        tch.Channelizer(16, 4, dtype="float64", device=CPU)
+    assert pt.Channelizer is tch.Channelizer and pt.FastConv is pt.conv.FastConv
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            c = tch.Channelizer(16, 4)
+            c.process(c.init_state(device=CPU), np.zeros(32, np.complex64))

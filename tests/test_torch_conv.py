@@ -1,0 +1,328 @@
+"""The port's overlap-save FIR filtering, pffft_tpu_torch.conv, and its
+fused spectral-conv kernel's plain version, against pffft_tpu on the same
+numpy inputs; the conv routes and the error messages.
+
+On the CPU the kernel wrapper runs its plain version over the routes the
+card takes ("fused" for nfft <= 2048, "tmajor" above); the reference's
+Pallas kernel runs in interpret mode."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pffft_tpu as pf
+from pffft_tpu import conv as rconv
+from pffft_tpu import runtime as rruntime
+from pffft_tpu.ops import conv_kernel as rck
+from pffft_tpu.ops import pallas_fft as rpk
+import pffft_tpu_torch as pt
+from pffft_tpu_torch import conv as tconv
+from pffft_tpu_torch import runtime as truntime
+from pffft_tpu_torch.ops import conv_kernel as tck
+from pffft_tpu_torch.ops import dispatch as D
+from pffft_tpu_torch.ops import pallas_fft as tpk
+
+# One intra-op thread: the suite runs in several worker processes.
+torch.set_num_threads(1)
+
+CPU = "cpu"
+# the plain kernel vs the interpret-mode Pallas kernel, relative to max|ref|:
+# the same f32 stage chain on both sides, rounded in another order
+KERNEL_TOL = 2e-6
+# FastConv vs the reference, relative to max|ref|: two f32 FFT pipelines
+# (the reference's batch-major XLA engine, the port's time-major routes)
+TOL = 1e-5
+F_ = tconv.ConvFlags
+FLAG_SETS = {
+    "real": F_.NONE,
+    "correlation": F_.CORRELATION,
+    "cplx_inp_out": F_.CPLX_INP_OUT,
+    "cplx_single_fft": F_.CPLX_INP_OUT | F_.CPLX_SINGLE_FFT,
+    "cplx_filter": F_.CPLX_INP_OUT | F_.CPLX_FILTER,
+    "cplx_filter_correlation": F_.CPLX_FILTER | F_.CORRELATION,
+}
+
+
+def _rel(got, ref):
+    ref = np.asarray(ref)
+    return float(np.abs(np.asarray(got) - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _inputs(flags, flen, length, seed, lead=()):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal(flen).astype(np.float32)
+    if flags & F_.CPLX_FILTER:
+        h = (h + 1j * rng.standard_normal(flen)).astype(np.complex64)
+    x = rng.standard_normal((*lead, length)).astype(np.float32)
+    if flags & (F_.CPLX_INP_OUT | F_.CPLX_FILTER):
+        x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+    return h, x
+
+
+# ---------------------------------------------------------------------------
+# The kernel's plain version and the filter spectrum
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [64, 256, 480])
+@pytest.mark.parametrize("filt", ["complex", "real_two_frames"])
+def test_zconv_plain_matches_reference_kernel(n, filt):
+    rng = np.random.default_rng(n)
+    b = 256
+    h = rng.standard_normal(17)
+    if filt == "complex":
+        h = h + 1j * rng.standard_normal(17)
+    rplan = pf.new_setup(n, pf.COMPLEX, factors=rpk.thin_factors(n), strict=False)
+    hfr, hfi = rck.filter_spectrum(rplan, h)
+    re = rng.standard_normal((n, b)).astype(np.float32)
+    im = rng.standard_normal((n, b)).astype(np.float32)
+    er, ei = rck.zconv_pallas_tmajor(rplan, re, im, hfr, hfi, tb=128, interpret=True)
+    er, ei = np.asarray(er), np.asarray(ei)
+    tplan = D._thin_plan(n)
+    args = [torch.from_numpy(a) for a in (re, im, hfr, hfi)]
+    scale = max(np.abs(er).max(), np.abs(ei).max())
+    for fn in (tck.zconv_tmajor_plain, tck.zconv_tmajor):  # the wrapper takes the plain
+        gr, gi = fn(tplan, *args)                          # version on the CPU
+        assert np.abs(gr.numpy() - er).max() <= KERNEL_TOL * scale
+        assert np.abs(gi.numpy() - ei).max() <= KERNEL_TOL * scale
+
+
+@pytest.mark.parametrize("n", [64, 480, 8192])
+@pytest.mark.parametrize("cplx", [False, True])
+def test_filter_spectrum_is_bit_exact(n, cplx):
+    rng = np.random.default_rng(n + cplx)
+    h = rng.standard_normal(n // 2)
+    if cplx:
+        h = h + 1j * rng.standard_normal(n // 2)
+    ref = rck.filter_spectrum(pf.new_setup(n, pf.COMPLEX, strict=False), h)
+    got = tck.filter_spectrum(pt.new_setup(n, pt.COMPLEX, strict=False), h)
+    for g, r in zip(got, ref, strict=True):
+        assert g.dtype == np.float32 and np.array_equal(g, r)
+
+
+def test_cpu_wrapper_launches_nothing():
+    plan = D._thin_plan(64)
+    re = torch.zeros((64, 8))
+    hf = torch.zeros(64)
+    before = tck.zconv_tmajor.launches
+    tck.zconv_tmajor(plan, re, re, hf, hf)
+    assert tck.zconv_tmajor.launches == before
+
+
+# ---------------------------------------------------------------------------
+# FastConv against the reference
+# ---------------------------------------------------------------------------
+
+
+# pffastconv block negotiation (the reference's tests/test_fastconv.py table)
+@pytest.mark.parametrize(
+    "filter_len,block_len,expect_nfft",
+    [(16, 0, 32), (17, 0, 32), (33, 0, 64), (128, 0, 256), (4, 0, 32), (32, 1024, 1024),
+     (32, 1000, 1024)],
+)
+def test_block_negotiation(filter_len, block_len, expect_nfft):
+    assert tconv._negotiate_nfft(filter_len, block_len) == expect_nfft
+    assert tconv._negotiate_nfft(filter_len, block_len) == rconv._negotiate_nfft(
+        filter_len, block_len)
+    s = tconv.FastConv(np.ones(filter_len, np.float32), block_len=block_len, device=CPU)
+    r = rconv.FastConv(np.ones(filter_len, np.float32), block_len=block_len)
+    assert s.block_len == s.nfft == expect_nfft
+    assert (s.num_out_per_block, s.filter_span) == (r.num_out_per_block, r.filter_span)
+
+
+def _routes(fc):
+    """The default route, and the other one where the kernel covers nfft."""
+
+    default = D.conv_route_mode(fc.nfft)
+    return [None] + (["tmajor"] if default == "fused" else [])
+
+
+@pytest.mark.parametrize("flen", [4, 16, 53, 128, 1024, 4096])
+@pytest.mark.parametrize("name", list(FLAG_SETS))
+def test_fastconv_matches_reference(name, flen):
+    flags = FLAG_SETS[name]
+    h, x = _inputs(flags, flen, 3 * max(flen, 32) + 117, flen + int(flags))
+    ref = rconv.FastConv(h, flags=flags)
+    for flush in (True, False):
+        ry, rc = ref.apply(jnp.asarray(x), flush=flush)
+        fc = tconv.FastConv(h, flags=flags, device=CPU)
+        assert fc.nfft == ref.nfft and fc.num_out_per_block == ref.num_out_per_block
+        for route in _routes(fc):
+            fc._force_conv_kernel = route
+            y, consumed = fc.apply(x, flush=flush)
+            assert consumed == rc, (flush, route)
+            assert y.shape == (consumed,) and y.is_complex() == np.iscomplexobj(ry)
+            assert _rel(y.numpy(), ry) <= TOL, (flush, route)
+
+
+@pytest.mark.parametrize("name", ["real", "cplx_inp_out", "cplx_single_fft", "cplx_filter"])
+def test_apply_batched_matches_reference(name):
+    flags = FLAG_SETS[name]
+    h, x = _inputs(flags, 33, 700, 5, lead=(2, 3))
+    want = np.asarray(rconv.FastConv(h, flags=flags).apply_batched(jnp.asarray(x)))
+    got = tconv.FastConv(h, flags=flags, device=CPU).apply_batched(x)
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want) <= TOL
+
+
+def test_interleaved_float_input_is_a_complex_stream():
+    h, x = _inputs(F_.CPLX_INP_OUT, 20, 500, 6)
+    fc = tconv.FastConv(h, flags=F_.CPLX_INP_OUT, device=CPU)
+    inter = np.stack([x.real, x.imag], axis=-1).reshape(-1)
+    a, ca = fc.apply(x, flush=True)
+    b, cb = fc.apply(inter, flush=True)
+    assert ca == cb and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flen", [32, 128])
+def test_streaming_contract(flen):
+    """Chunked apply with the remainder carried == the one-shot result."""
+
+    rng = np.random.default_rng(flen)
+    x = rng.standard_normal(10000).astype(np.float32)
+    h = rng.standard_normal(flen).astype(np.float32)
+    fc = tconv.FastConv(h, device=CPU)
+    full, full_consumed = fc.apply(x, flush=True)
+    out, buf, pos = [], np.zeros(0, np.float32), 0
+    while pos < x.size:
+        buf = np.concatenate([buf, x[pos:pos + 1500]])
+        pos += 1500
+        y, consumed = fc.apply(buf, flush=pos >= x.size)
+        out.append(y.numpy())
+        buf = buf[consumed:]
+    stream = np.concatenate(out)
+    assert stream.shape[0] == full_consumed
+    np.testing.assert_allclose(stream, full.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("flen,block_len", [(17, 0), (65, 0), (65, 512)])
+def test_streaming_conv_matches_reference(flen, block_len):
+    rng = np.random.default_rng(flen + block_len)
+    h = rng.standard_normal(flen).astype(np.float32)
+    x = rng.standard_normal(6000).astype(np.float32)
+    ref = rconv.StreamingConv(h, block_len=block_len)
+    got = tconv.StreamingConv(h, block_len=block_len, device=CPU)
+    assert not got.native
+    pos = 0
+    while pos < x.size:
+        step = int(rng.integers(100, 900))
+        a, b = ref.push(x[pos:pos + step]), got.push(x[pos:pos + step])
+        assert isinstance(b, np.ndarray) and b.shape == a.shape
+        if a.size:
+            assert _rel(b, a) <= TOL
+        pos += step
+    a, b = ref.flush(), got.flush()
+    assert b.shape == a.shape
+    if a.size:
+        assert _rel(b, a) <= TOL
+
+
+def test_stream_framer_matches_reference():
+    rng = np.random.default_rng(9)
+    ref = rruntime.StreamFramer(frame_len=64, hop=40)
+    got = truntime.StreamFramer(frame_len=64, hop=40)
+    for n in (10, 100, 3, 250, 7):
+        chunk = rng.standard_normal(n).astype(np.float32)
+        assert got.push(chunk) == ref.push(chunk)
+        assert got.pending() == ref.pending()
+        np.testing.assert_array_equal(got.frames(), ref.frames())
+    np.testing.assert_array_equal(got.flush(), ref.flush())
+    assert got.pending() == ref.pending() == 0
+    assert got.flush().shape == (0, 64)
+    with pytest.raises(ValueError, match="hop"):
+        truntime.StreamFramer(frame_len=8, hop=9)
+
+
+def test_one_shot_helpers_match_reference():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 2, 1000)).astype(np.float32)
+    h = rng.standard_normal(17).astype(np.float32)
+    want = np.asarray(rconv.fastconv_valid(jnp.asarray(x), h))
+    got = tconv.fastconv_valid(x, h, device=CPU)
+    assert got.shape == want.shape == (3, 2, 1000 - 17 + 1)
+    assert _rel(got.numpy(), want) <= TOL
+    assert torch.equal(tconv.fastconv_valid(torch.from_numpy(x), h), got)  # tensor: stays
+    s = tconv.new_setup(h, block_len=512, device=CPU)
+    r = rconv.new_setup(h, block_len=512)
+    assert s.block_len == r.block_len == 512
+    y, consumed = tconv.apply(s, x[0, 0], flush=True)
+    ry, rc = rconv.apply(r, jnp.asarray(x[0, 0]), flush=True)
+    assert consumed == rc and _rel(y.numpy(), ry) <= TOL
+    assert tconv.new_setup(h, filter_len=9, device=CPU).filter_len == 9
+
+
+def test_short_input_consumes_nothing():
+    fc = tconv.FastConv(np.ones(32, np.float32), device=CPU)
+    y, consumed = fc.apply(np.zeros(fc.nfft - 1, np.float32), flush=False)
+    assert consumed == 0 and y.shape == (0,)
+    y, consumed = fc.apply(np.zeros(fc.nfft, np.float32), flush=False)
+    assert consumed == fc.num_out_per_block
+    fcx = tconv.FastConv(np.ones(8), flags=F_.CPLX_INP_OUT | F_.CPLX_SINGLE_FFT, device=CPU)
+    y, consumed = fcx.apply(np.zeros(3, np.complex64), flush=True)
+    assert consumed == 0 and y.shape == (0,) and y.is_complex()
+
+
+# ---------------------------------------------------------------------------
+# Routes and errors
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def clean_conv_state():
+    table = dict(D._CONV_TABLE)
+    yield
+    D._CONV_TABLE.clear()
+    D._CONV_TABLE.update(table)
+    D.set_engine(None)
+
+
+@pytest.mark.parametrize("nfft,route", [(32, "fused"), (128, "fused"), (2048, "fused"),
+                                        (4096, "tmajor"), (8192, "tmajor"), (32768, "tmajor")])
+def test_conv_route_follows_coverage(nfft, route):
+    assert D.conv_route_mode(nfft) == route
+    choice = D.conv_kernel_choice(nfft, 10)
+    if route == "fused":
+        plan, tb = choice
+        radices = [st.r for st in plan.stages if st.r != 1]
+        assert plan.n == nfft and tb == tpk.chain_tile(nfft, radices)
+    else:
+        assert choice is None
+    assert D.conv_kernel_choice(nfft, 0) is None
+
+
+def test_conv_route_table_force_and_engine(clean_conv_state):
+    assert D._CONV_TABLE == {}  # filled only from measurements on the card
+    D.record_conv_route((9, 0), 128, "tmajor")
+    assert D.conv_route_mode(128) == "tmajor"
+    assert D.conv_route_mode(128, "fused") == "fused"
+    D.record_conv_route((9, 0), 8192, "fused")  # not covered: coverage wins
+    assert D.conv_route_mode(8192) == "tmajor"
+    D.set_engine("stages")  # an engine other than the chain keeps the kernel out
+    assert D.conv_route_mode(256) == "tmajor"
+    D.set_engine(None)
+    with pytest.raises(ValueError, match="unknown conv route"):
+        D.record_conv_route((9, 0), 128, "xla")
+    with pytest.raises(ValueError, match="unknown conv route"):
+        D.conv_route_mode(128, "pallas")
+    with pytest.raises(ValueError, match="cannot hold nfft=4096"):
+        D.conv_route_mode(4096, "fused")
+
+
+def test_fastconv_errors():
+    with pytest.raises(NotImplementedError, match="A6"):
+        tconv.FastConv(np.ones(8), dtype="float64", device=CPU)
+    with pytest.raises(ValueError, match="1-D"):
+        tconv.FastConv(np.ones((2, 4)), device=CPU)
+    fc = tconv.FastConv(np.ones(8), device=CPU)
+    with pytest.raises(ValueError, match="set CPLX_INP_OUT"):
+        fc.apply(np.zeros(64, np.complex64))
+    with pytest.raises(ValueError, match="apply_batched"):
+        fc.apply(np.zeros((2, 64), np.float32))
+    with pytest.raises(ValueError, match="cannot hold"):
+        big = tconv.FastConv(np.ones(4096), device=CPU)
+        big._force_conv_kernel = "fused"
+        big.apply(np.zeros(9000, np.float32), flush=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tconv.FastConv(np.ones(8)).apply(np.zeros(64, np.float32))

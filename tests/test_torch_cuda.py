@@ -259,3 +259,147 @@ def test_real_transform_on_the_card_matches_oracle(cuda_device, n, engine, b):
     assert _rel(torch.complex(yr.double(), yi.double()), packed) <= ORACLE_TOL
     assert back.shape == (n, b) and _rel(back / n, x) <= ORACLE_TOL
     assert torch.equal(x, keep)
+
+
+# ---------------------------------------------------------------------------
+# FIR filtering: the fused conv kernel, the polyphase FIR kernel, FastConv
+# and the channelizer
+# ---------------------------------------------------------------------------
+
+from pffft_tpu_torch import channelizer as tch  # noqa: E402
+from pffft_tpu_torch import conv as tc  # noqa: E402
+from pffft_tpu_torch.ops import conv_kernel as ck  # noqa: E402
+from pffft_tpu_torch.ops import pfb_kernel as pfb  # noqa: E402
+
+
+def _spectrum(n, seed, dev, cplx):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal(n // 3 + 1)
+    if cplx:
+        h = h + 1j * rng.standard_normal(h.size)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in ck.filter_spectrum(D._thin_plan(n), h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128, 480, 2048])
+@pytest.mark.parametrize("b", [1024, 1000, 1001])  # aligned, ragged, odd (scalar loads)
+def test_conv_kernel_matches_plain(cuda_device, n, b):
+    plan = D._thin_plan(n)
+    re, im = _planes(n, b, n + b, cuda_device)
+    for cplx in (False, True):
+        hfr, hfi = _spectrum(n, n, cuda_device, cplx)
+        before = ck.zconv_tmajor.launches
+        got = ck.zconv_tmajor(plan, re, im, hfr, hfi)
+        _hold(got, ck.zconv_tmajor_plain(plan, re, im, hfr, hfi))
+        assert ck.zconv_tmajor.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 1000, 4096])
+@pytest.mark.parametrize("p", [1, 4, 8, 40])  # 40 takes the kernel's plain loop
+def test_pfb_kernel_matches_plain(cuda_device, m, p):
+    rng = np.random.default_rng(m + p)
+    k = 70
+    w = torch.from_numpy(rng.standard_normal((p, m)).astype(np.float32)).to(cuda_device)
+    rows = torch.from_numpy(
+        rng.standard_normal((3, k + p + 1, m)).astype(np.float32)).to(cuda_device)
+    ext = torch.from_numpy(
+        rng.standard_normal((3, (p + k) * m)).astype(np.float32)).to(cuda_device)
+    counts = (pfb.pfb_fir.launches, pfb.pfb_fir_stream_tmajor.launches)
+    _hold((pfb.pfb_fir(rows, w, k),), (pfb.pfb_fir_plain(rows, w, k),))
+    _hold((pfb.pfb_fir_stream_tmajor(ext, w, k),), (pfb.pfb_fir_stream_tmajor_plain(ext, w, k),))
+    assert (pfb.pfb_fir.launches, pfb.pfb_fir_stream_tmajor.launches) == (
+        counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.cuda
+def test_fir_kernels_reject_bad_arguments(cuda_device):
+    """Bad arguments raise; nothing falls back to the plain versions."""
+
+    plan = D._thin_plan(128)
+    re, im = _planes(128, 64, 8, cuda_device)
+    hfr, hfi = _spectrum(128, 1, cuda_device, False)
+    before = (ck.zconv_tmajor.launches, pfb.pfb_fir.launches)
+    with pytest.raises(ValueError, match="filter spectrum"):
+        ck.zconv_tmajor(plan, re, im, hfr[:64], hfi[:64])
+    with pytest.raises(ValueError, match="different devices|filter spectrum"):
+        ck.zconv_tmajor(plan, re, im, hfr.cpu(), hfi.cpu())
+    with pytest.raises(RuntimeError, match="fused conv kernel"):
+        ck.zconv_tmajor(plan, re, im, hfr, hfi, tb=256)  # a tile too large for one block
+    w = torch.ones((4, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        pfb.pfb_fir(torch.ones((64, 20), device=cuda_device).t(), w, 8)
+    with pytest.raises(ValueError, match="K \\+ P - 1"):
+        pfb.pfb_fir(torch.ones((10, 64), device=cuda_device), w, 8)
+    with pytest.raises(ValueError, match="weights on"):
+        pfb.pfb_fir_stream_tmajor(torch.ones((64 * 12,), device=cuda_device), w.cpu(), 8)
+    assert (ck.zconv_tmajor.launches, pfb.pfb_fir.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flen", [16, 1024, 4096])
+@pytest.mark.parametrize("flags", [tc.ConvFlags.NONE, tc.ConvFlags.CORRELATION,
+                                   tc.ConvFlags.CPLX_INP_OUT,
+                                   tc.ConvFlags.CPLX_INP_OUT | tc.ConvFlags.CPLX_SINGLE_FFT,
+                                   tc.ConvFlags.CPLX_INP_OUT | tc.ConvFlags.CPLX_FILTER])
+def test_fastconv_on_the_card_matches_oracle(cuda_device, flen, flags):
+    rng = np.random.default_rng(flen + int(flags))
+    cplx = bool(flags & tc.ConvFlags.CPLX_INP_OUT)
+    h = rng.standard_normal(flen)
+    if flags & tc.ConvFlags.CPLX_FILTER:
+        h = h + 1j * rng.standard_normal(flen)
+    x = rng.standard_normal((3, 5 * flen + 333))
+    if cplx:
+        x = x + 1j * rng.standard_normal(x.shape)
+    fc = tc.FastConv(h, flags=flags)
+    route = "fused" if fc.nfft <= 2048 else "tmajor"  # CPLX_SINGLE_FFT doubles nfft
+    assert D.conv_route_mode(fc.nfft, None, cuda_device) == route
+    xt = torch.from_numpy(x.astype(np.complex64 if cplx else np.float32)).to(cuda_device)
+    before = ck.zconv_tmajor.launches
+    y = fc.apply_batched(xt)
+    torch.cuda.synchronize()
+    assert ck.zconv_tmajor.launches == before + (1 if route == "fused" else 0)
+    # valid-mode y[i] = sum_j x[i + j] * c[j] (c = reversed h, or h for
+    # correlation) as a complex128 FFT convolution with g = reversed c
+    xd = xt.to(torch.complex128)
+    g = torch.from_numpy(np.asarray(h, np.complex128)).to(cuda_device)
+    if flags & tc.ConvFlags.CORRELATION:
+        g = g.flip(0)
+    nfull = xd.shape[-1] + flen - 1
+    full = torch.fft.ifft(torch.fft.fft(xd, nfull) * torch.fft.fft(g, nfull))
+    ref = full[..., flen - 1: xd.shape[-1]]
+    if not cplx:
+        ref = ref.real
+    assert 0 < y.shape[-1] <= ref.shape[-1]
+    assert _rel(y, ref[..., : y.shape[-1]]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p", [(16, 8), (1024, 8), (4096, 4)])
+def test_channelizer_on_the_card_matches_oracle(cuda_device, m, p):
+    rng = np.random.default_rng(m)
+    ch = tch.Channelizer(m, p)
+    k = 24
+    x = rng.standard_normal((2, 2 * k * m)) + 1j * rng.standard_normal((2, 2 * k * m))
+    xt = torch.from_numpy(x.astype(np.complex64)).to(cuda_device)
+    before = pfb.pfb_fir_stream_tmajor.launches
+    y1, st = ch.process(ch.init_state((2,)), xt[:, : k * m])
+    y2, _ = ch.process(st, xt[:, k * m:])
+    yall, _ = ch.process(ch.init_state((2,)), xt)
+    torch.cuda.synchronize()
+    assert pfb.pfb_fir_stream_tmajor.launches == before + 6
+    y = torch.cat([y1, y2], dim=-2)
+    assert _rel(y, yall) <= 1e-6
+    # oracle: the float64 polyphase sum, then an unscaled inverse DFT
+    h = torch.from_numpy(ch.weights.astype(np.float64)).to(cuda_device)  # [P, M]
+    xd = torch.cat([torch.zeros((2, p * m), dtype=torch.complex128, device=cuda_device),
+                    xt.to(torch.complex128)], dim=-1)
+    ks = torch.arange(2 * k, device=cuda_device)
+    ph = torch.arange(m, device=cuda_device)
+    v = torch.zeros((2, 2 * k, m), dtype=torch.complex128, device=cuda_device)
+    for s in range(p):
+        idx = (p + ks[:, None] - s) * m - ph[None, :]
+        v += xd[:, idx] * h[s]
+    ref = torch.fft.ifft(v, dim=-1) * m
+    assert _rel(y, ref) <= 1e-5
