@@ -31,10 +31,20 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      against a float64 polyphase and a complex128 inverse DFT, two chunks
      against one of twice the length, and one ``OversampledChannelizer``
      (V = 2) step; launch counts per step;
-  8. timing with CUDA events (median of 10 after warm-up), per band shape,
+  8. the batch-major complex path: ``transform_ordered_split`` and the
+     complex64 ``transform_ordered`` on [B, N] rows at the band shapes,
+     forward and backward, against a complex128 ``torch.fft.fft(dim=-1)``,
+     the unscaled round trip and the 140 dB carrier; ``transform`` +
+     ``zreorder`` against the ordered call; launch counts per route (the
+     fused two-stage kernel for N <= 16384, the chain / kern2 above);
+  9. the batch-major real path: ``rfft_packed`` / ``irfft_packed`` and
+     ``transform_ordered_split`` on REAL plans at the real band shapes as
+     [B, N] signals, against a complex128 ``torch.fft.rfft``; the
+     batch-major split kernel once per call and direction;
+ 10. timing with CUDA events (median of 10 after warm-up), per band shape,
      per kernel and per FIR pipeline, beside the bound, the plain version
      and a library yardstick (torch.fft, conv1d);
-  9. the ``kernels`` line, the card line, and the final ``ok`` line.
+ 11. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 repository checkout.  It imports neither jax nor pffft_tpu.
@@ -58,8 +68,10 @@ from pffft_tpu_torch import conv as C
 from pffft_tpu_torch.ops import _build
 from pffft_tpu_torch.ops import conv_kernel as ck
 from pffft_tpu_torch.ops import dispatch as D
+from pffft_tpu_torch.ops import fused_stage as fs
 from pffft_tpu_torch.ops import pallas_fft as pk
 from pffft_tpu_torch.ops import pfb_kernel as pfb
+from pffft_tpu_torch.ops import real_kernel as rk
 from pffft_tpu_torch.ops import split as S
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -78,7 +90,9 @@ SEED = 1234
 WRAPPERS = (pk.cfft_chain_tmajor, pk.cfft_combine_tmajor, pk.stream_copy,
             pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
             pk.rfft_bwd_chain_tmajor_fused, pk.real_split_tmajor, ck.zconv_tmajor,
-            pfb.pfb_fir, pfb.pfb_fir_stream_tmajor)
+            pfb.pfb_fir, pfb.pfb_fir_stream_tmajor, fs.cfft_fused2, rk.real_split)
+# the fused two-stage kernel on two-stage plans (N, max_factor)
+FUSED2_PLANS = ((1024, 32), (1536, 48), (2400, 64), (4096, 64))
 # FastConv: a 16-channel real stream of 2^22 samples (256 MB), filtered by
 # design_lowpass(F, 0.1) at F = 64, 1024 and 4096 (nfft 128, 2048, 8192)
 CONV_ROWS, CONV_LEN, CONV_TAPS = 16, 1 << 22, (64, 1024, 4096)
@@ -203,7 +217,8 @@ def phase_kernels(gen):
 
     dev = torch.device("cuda")
     errs = {name: 0.0 for name in ("chain", "combine", "chain_packed", "real_fused",
-                                   "real_split", "conv_fused", "pfb_fir")}
+                                   "real_split", "conv_fused", "pfb_fir", "fused2",
+                                   "real_split_bmajor")}
 
     def hold(name, kern, plain, case, dirs=(False, True)):
         for bwd in dirs:
@@ -340,6 +355,47 @@ def phase_kernels(gen):
     for m in (64, 1000, 4096):
         for p in (1, 4, 8):
             pfb_case(m, p, 3, 70)
+
+    def fused2_case(plan, n, b, orders=(True, False)):
+        re, im = planes(b, n, gen)  # batch-major rows [B, N]
+        for ordered in orders:
+            hold("fused2",
+                 lambda bwd: fs.cfft_fused2(plan, re, im, backward=bwd, ordered=ordered),
+                 lambda bwd: fs.cfft_fused2_plain(plan, re, im, backward=bwd,
+                                                  ordered=ordered),
+                 {"n": n, "b": b, "ordered": ordered, "factors": list(plan.factors),
+                  "tb": fs.fused2_tile(n, dev)})
+
+    def split_b_case(h, b):
+        tw = real_tw(h)
+        zr, zi = planes(b, h, gen)
+        hold("real_split_bmajor",
+             lambda bwd: rk.real_split(zr, zi, tw, backward=bwd),
+             lambda bwd: rk.real_split_plain(zr, zi, tw, backward=bwd),
+             {"h": h, "b": b})
+
+    # the batch-major paths' kernel calls, shape for shape: B9 ordered on
+    # each band plan it covers (a real plan's at its length N/2), B9's
+    # internal-order store on the two-stage plan of the internal-order run,
+    # B6 on every real shape
+    for n, b in BAND:
+        plan = pt.new_setup(n)
+        if D.select_engine(plan, b, False, dev) == "fused2":
+            fused2_case(plan, n, b, (True,))
+    fused2_case(pt.new_setup(4096, max_factor=64), 4096, 4096, (False,))
+    for n, b in REAL_BAND:
+        plan = pt.new_setup(n, pt.REAL)
+        if D.select_engine(plan, b, False, dev) == "fused2":
+            fused2_case(plan, n // 2, b, (True,))
+        split_b_case(n // 2, b)
+    # two-stage plans in both output orders, a ragged last tile (B=13) and
+    # an odd batch; small and non-power-of-two H at odd batches
+    for n, mf in FUSED2_PLANS:
+        for b in (13, 1001):
+            fused2_case(pt.new_setup(n, max_factor=mf), n, b)
+    for h in (16, 48, 4096, 3 << 14):
+        for b in (33, 1001):
+            split_b_case(h, b)
     re, im = planes(1024, 16384, gen)
     cr, ci = pk.stream_copy(re, im)
     torch.cuda.synchronize()
@@ -368,8 +424,9 @@ def conv_columns(fc, rows: int, length: int) -> int:
     return -(-(rows * nb // 2) // 4) * 4
 
 
-def carrier_db(n: int) -> float:
-    """Smallest carrier dynamic range over the test_pffft.c carrier sweep."""
+def carrier_db(n: int, bmajor: bool = False) -> float:
+    """Smallest carrier dynamic range over the test_pffft.c carrier sweep,
+    through the time-major planes or (``bmajor``) the complex64 rows."""
 
     ks = list(range(0, n, max(1, n // 16)))
     cols = []
@@ -380,8 +437,12 @@ def carrier_db(n: int) -> float:
         cols.append(amp * np.exp(1j * phi))
     x = np.stack(cols, axis=1).astype(np.complex64)
     plan = pt.new_setup(n)
-    yr, yi = pt.transform_ordered_split_tmajor(plan, (x.real, x.imag), device="cuda")
-    y = yr.cpu().numpy().astype(np.float64) + 1j * yi.cpu().numpy()
+    if bmajor:
+        y = pt.transform_ordered(plan, x.T.copy(), device="cuda").cpu().numpy().T
+        y = y.astype(np.complex128)
+    else:
+        yr, yi = pt.transform_ordered_split_tmajor(plan, (x.real, x.imag), device="cuda")
+        y = yr.cpu().numpy().astype(np.float64) + 1j * yi.cpu().numpy()
     worst = np.inf
     for j, k in enumerate(ks):
         p = np.abs(y[:, j]) ** 2
@@ -433,9 +494,10 @@ def phase_main_path(gen):
     return launches, per_shape
 
 
-def real_carrier_db(n: int) -> float:
+def real_carrier_db(n: int, bmajor: bool = False) -> float:
     """Smallest carrier dynamic range over the test_pffft.c real carrier
-    sweep (cosines at bins 0 .. N/2; the packed bin0 is DC + i*Nyquist)."""
+    sweep (cosines at bins 0 .. N/2; the packed bin0 is DC + i*Nyquist),
+    through the time-major planes or (``bmajor``) the [K, N] rows."""
 
     ks = list(range(0, n // 2 + 1, max(1, n // 16)))
     cols = []
@@ -444,9 +506,14 @@ def real_carrier_db(n: int) -> float:
         cols.append(amp * np.cos((j % 4) * 0.125 * np.pi
                                  + 2.0 * np.pi * (k / n) * np.arange(n, dtype=np.float64)))
     x = np.stack(cols, axis=1).astype(np.float32)
-    yr, yi = pt.transform_ordered_split_tmajor(pt.new_setup(n, pt.REAL), x, device="cuda")
-    yr = yr.cpu().numpy().astype(np.float64)
-    yi = yi.cpu().numpy().astype(np.float64)
+    plan = pt.new_setup(n, pt.REAL)
+    if bmajor:
+        y = pt.rfft_packed(plan, x.T.copy(), device="cuda").cpu().numpy().T
+        yr, yi = y.real.astype(np.float64), y.imag.astype(np.float64)
+    else:
+        yr, yi = pt.transform_ordered_split_tmajor(plan, x, device="cuda")
+        yr = yr.cpu().numpy().astype(np.float64)
+        yi = yi.cpu().numpy().astype(np.float64)
     h = n // 2
     power = np.empty((h + 1, len(ks)))
     power[0], power[h] = yr[0] ** 2, yi[0] ** 2
@@ -717,6 +784,234 @@ def phase_timing(gen, per_shape):
     emit({"phase": "host", "n": n, "b": b,
           "public_call_us": (time.perf_counter() - t0) / calls * 1e6,
           "chain_wrapper_event_us": kernel_ms * 1e3})
+    return rows
+
+
+def bmajor_route(plan, b: int):
+    """(engine, wrappers launched by one call) of a batch-major transform:
+    the fused two-stage kernel, or the time-major chain / kern2 between two
+    transposes."""
+
+    dev = torch.device("cuda")
+    engine = D.select_engine(plan, b, False, dev)
+    if engine == "fused2":
+        return engine, {"cfft_fused2": 1}
+    check(engine == "tmajor", f"N={plan.n}: batch-major engine {engine}")
+    if D.select_engine(plan, b, True, dev) == "kern2":
+        return engine, {"cfft_chain_tmajor": 1, "cfft_combine_tmajor": 1}
+    return engine, {"cfft_chain_tmajor": 1}
+
+
+def sample_rows(b: int) -> torch.Tensor:
+    return torch.arange(0, b, max(1, b // 8), device="cuda")
+
+
+def phase_bmajor_main(gen):
+    """The batch-major complex API at the band shapes as [B, N] rows;
+    returns the launch counts and the shapes with their engines."""
+
+    reset_counts()
+    per_shape = []
+    for n, b in BAND:
+        plan = pt.new_setup(n)
+        engine, per_call = bmajor_route(plan, b)
+        re, im = planes(b, n, gen)
+        c0 = counts()
+        yr, yi = pt.transform_ordered_split(plan, (re, im))
+        br, bi = pt.transform_ordered_split(plan, (yr, yi), pt.BACKWARD)
+        c1 = counts()
+        z = torch.complex(re, im)
+        y = pt.transform_ordered(plan, z)
+        back = pt.transform_ordered(plan, y, pt.BACKWARD)
+        torch.cuda.synchronize()
+        c2 = counts()
+        rows = sample_rows(b)
+        ref = torch.fft.fft(z[rows].to(torch.complex128), dim=-1)
+        e_split = rel_err(torch.complex(yr[rows].double(), yi[rows].double()), ref)
+        e_cplx = rel_err(y[rows].to(torch.complex128), ref)
+        e_rt = max(rel_err(br / n, re), rel_err(bi / n, im), rel_err(back / n, z))
+        split_l, cplx_l = launched(c1, c0), launched(c2, c1)
+        finite = bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()
+                      and torch.isfinite(torch.view_as_real(y)).all())
+        emit({"phase": "bmajor", "n": n, "b": b, "engine": engine,
+              "split_fwd_rel_err": e_split, "complex_fwd_rel_err": e_cplx,
+              "roundtrip_rel_err": e_rt, "finite": finite,
+              "split_launches": split_l, "complex_launches": cplx_l})
+        check(finite and yr.shape == (b, n) and y.shape == (b, n)
+              and y.dtype == torch.complex64 and back.dtype == torch.complex64,
+              f"batch-major N={n}: output not finite/shaped/typed")
+        check(max(e_split, e_cplx) <= ORACLE_TOL, f"batch-major N={n}: forward error "
+                                                  f"{e_split}, {e_cplx}")
+        check(e_rt <= ROUND_TRIP_TOL, f"batch-major N={n}: round-trip error {e_rt}")
+        want = {k: 2 * v for k, v in per_call.items()}
+        check(split_l == want and cplx_l == want,
+              f"batch-major N={n}: launches {split_l}, {cplx_l}, expected {want}")
+        per_shape.append((n, b, engine))
+        del re, im, yr, yi, br, bi, z, y, back
+    # the internal order: transform + zreorder against the ordered call, on
+    # the default plan (the ordered kernel call, then a reorder) and on a
+    # two-stage plan (the kernel stores the internal order itself)
+    n, b = 4096, 4096
+    x = torch.complex(*planes(b, n, gen))
+    for plan in (pt.new_setup(n), pt.new_setup(n, max_factor=64)):
+        c0 = counts()
+        ordered = pt.transform_ordered(plan, x)
+        internal = pt.transform(plan, x)
+        back = pt.transform(plan, internal, pt.BACKWARD)
+        torch.cuda.synchronize()
+        delta = launched(counts(), c0)
+        e_order = rel_err(pt.zreorder(plan, internal), ordered)
+        e_rt = rel_err(back / n, x)
+        emit({"phase": "bmajor", "internal_n": n, "b": b, "factors": list(plan.factors),
+              "zreorder_vs_ordered_rel_err": e_order, "roundtrip_rel_err": e_rt,
+              "launches": delta})
+        check(e_order <= KERNEL_TOL and e_rt <= ROUND_TRIP_TOL,
+              f"batch-major internal order {plan.factors}: {e_order}, {e_rt}")
+        check(delta == {"cfft_fused2": 3},
+              f"batch-major internal order {plan.factors}: launches {delta}")
+    del x, ordered, internal, back
+    for n in (1024, 4096, 16384, 65536):
+        db = carrier_db(n, bmajor=True)
+        emit({"phase": "bmajor", "carrier_n": n, "dynamic_range_db": db})
+        check(db >= CARRIER_DB, f"batch-major N={n}: carrier dynamic range {db} dB")
+    launches = counts()
+    emit({"phase": "bmajor", "launches": launches})
+    return launches, per_shape
+
+
+def phase_bmajor_real_main(gen):
+    """The batch-major real API at the real band shapes as [B, N] signals;
+    returns the launch counts and the shapes with their engines."""
+
+    reset_counts()
+    per_shape = []
+    for n, b in REAL_BAND:
+        plan, h = pt.new_setup(n, pt.REAL), n // 2
+        engine, per_call = bmajor_route(plan, b)
+        x = torch.randn((b, n), generator=gen, device="cuda")
+        c = [counts()]
+        s = pt.rfft_packed(plan, x)
+        c.append(counts())
+        back = pt.irfft_packed(plan, s)
+        c.append(counts())
+        sr, si = pt.transform_ordered_split(plan, x)
+        c.append(counts())
+        back2 = pt.transform_ordered_split(plan, (sr, si), pt.BACKWARD)
+        torch.cuda.synchronize()
+        c.append(counts())
+        deltas = [launched(c[i + 1], c[i]) for i in range(4)]
+        rows = sample_rows(b)
+        ref = torch.fft.rfft(x[rows].double(), dim=-1)
+        packed = ref[:, :h].clone()
+        packed[:, 0] = torch.complex(ref[:, 0].real, ref[:, h].real)
+        e_cplx = rel_err(s[rows].to(torch.complex128), packed)
+        e_split = rel_err(torch.complex(sr[rows].double(), si[rows].double()), packed)
+        e_rt = max(rel_err(back / n, x), rel_err(back2 / n, x))
+        finite = bool(torch.isfinite(torch.view_as_real(s)).all()
+                      and torch.isfinite(back).all() and torch.isfinite(back2).all())
+        emit({"phase": "bmajor_real", "n": n, "b": b, "engine": engine,
+              "complex_fwd_rel_err": e_cplx, "split_fwd_rel_err": e_split,
+              "roundtrip_rel_err": e_rt, "finite": finite,
+              "launches_rfft_irfft_split_fwd_bwd": deltas})
+        check(finite and s.shape == (b, h) and s.dtype == torch.complex64
+              and sr.shape == (b, h) and back.shape == (b, n) and back2.shape == (b, n),
+              f"batch-major real N={n}: output not finite/shaped/typed")
+        check(max(e_cplx, e_split) <= ORACLE_TOL,
+              f"batch-major real N={n}: forward error {e_cplx}, {e_split}")
+        check(e_rt <= ROUND_TRIP_TOL, f"batch-major real N={n}: round-trip error {e_rt}")
+        want = {"real_split": 1, **per_call}
+        check(all(d == want for d in deltas),
+              f"batch-major real N={n}: launches {deltas}, expected {want} per call")
+        per_shape.append((n, b, engine))
+        del x, s, back, sr, si, back2
+    for n in (2048, 32768, 131072):
+        db = real_carrier_db(n, bmajor=True)
+        emit({"phase": "bmajor_real", "carrier_n": n, "dynamic_range_db": db})
+        check(db >= CARRIER_DB, f"batch-major real N={n}: carrier dynamic range {db} dB")
+    launches = counts()
+    emit({"phase": "bmajor_real", "launches": launches})
+    return launches, per_shape
+
+
+def phase_bmajor_timing(gen, per_shape, real_shapes):
+    """Times of the batch-major public calls per band shape, their copies
+    and kernels apart; returns the two batch-major kernels' rows."""
+
+    dev = torch.device("cuda")
+    rows = {}
+    for n, b, engine in per_shape:
+        plan = pt.new_setup(n)
+        re, im = planes(b, n, gen)
+        z = torch.complex(re, im)
+        nbytes = 16.0 * n * b
+        bnd = bound(nbytes, fft_flops(n, b))
+        lib_ms = time_ms(lambda: torch.fft.fft(z, dim=-1))
+        rec = {"phase": "bmajor_time", "n": n, "b": b, "engine": engine,
+               "split_fwd_ms": time_ms(lambda: pt.transform_ordered_split(plan, (re, im))),
+               "split_bwd_ms": time_ms(
+                   lambda: pt.transform_ordered_split(plan, (re, im), pt.BACKWARD)),
+               "complex_fwd_ms": time_ms(lambda: pt.transform_ordered(plan, z)),
+               "to_split_ms": time_ms(lambda: S.to_split(z)),
+               "from_split_ms": time_ms(lambda: S.from_split((re, im))),
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
+        rec["frac_bound_split_fwd"] = bnd[0] / rec["split_fwd_ms"]
+        if engine == "fused2":
+            k_ms = time_ms(lambda: fs.cfft_fused2(plan, re, im))
+            rec.update(fused2_ms=k_ms, fused2_bwd_ms=time_ms(
+                lambda: fs.cfft_fused2(plan, re, im, backward=True)),
+                tb=fs.fused2_tile(n, dev))
+            if n == 4096:
+                p_ms = time_ms(lambda: fs.cfft_fused2_plain(plan, re, im), inner=1)
+                rows["fused2"] = dict(ms=k_ms, bwd_ms=rec["fused2_bwd_ms"], plain_ms=p_ms,
+                                      library_ms=lib_ms, shape=[b, n], bound_ms=bnd[0],
+                                      bound_by=bnd[1])
+                rec["fused2_plain_ms"] = p_ms
+        else:
+            # the "tmajor" route: a transposing copy each way around kern2
+            rec["transpose_ms"] = time_ms(lambda: (re.T.contiguous(), im.T.contiguous()))
+        emit(rec)
+        del re, im, z
+    for n, b, engine in real_shapes:
+        plan, h = pt.new_setup(n, pt.REAL), n // 2
+        x = torch.randn((b, n), generator=gen, device="cuda")
+        s = pt.rfft_packed(plan, x)
+        sr, si = pt.transform_ordered_split(plan, x)
+        tw = S.real_split_twiddle(plan, dev)
+        zr, zi = S.pack_real_input_split(x)
+        # one read of the [B, N] signal, one write of the two [B, H] planes
+        bnd = bound(8.0 * n * b, fft_flops(h, b) + 16.0 * h * b)
+        lib_fwd = time_ms(lambda: torch.fft.rfft(x, dim=-1))
+        spec = torch.fft.rfft(x, dim=-1)
+        lib_bwd = time_ms(lambda: torch.fft.irfft(spec, n=n, dim=-1))
+        del spec
+        rec = {"phase": "bmajor_real_time", "n": n, "b": b, "engine": engine,
+               "rfft_packed_ms": time_ms(lambda: pt.rfft_packed(plan, x)),
+               "irfft_packed_ms": time_ms(lambda: pt.irfft_packed(plan, s)),
+               "split_fwd_ms": time_ms(lambda: pt.transform_ordered_split(plan, x)),
+               "split_bwd_ms": time_ms(
+                   lambda: pt.transform_ordered_split(plan, (sr, si), pt.BACKWARD)),
+               "pack_ms": time_ms(lambda: S.pack_real_input_split(x)),
+               "interleave_ms": time_ms(lambda: S.interleave_to_real_split(sr, si)),
+               "from_split_ms": time_ms(lambda: S.from_split((sr, si))),
+               "split_kernel_fwd_ms": time_ms(lambda: rk.real_split(zr, zi, tw)),
+               "split_kernel_bwd_ms": time_ms(
+                   lambda: rk.real_split(sr, si, tw, backward=True)),
+               "bound_ms": bnd[0], "bound_by": bnd[1],
+               "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd}
+        rec["frac_bound_split_fwd"] = bnd[0] / rec["split_fwd_ms"]
+        if engine == "fused2":
+            rec["fused2_ms"] = time_ms(lambda: fs.cfft_fused2(plan, zr, zi))
+        if (b, h) == (2048, 4096):
+            # four planes of [B, H]: two read, two written
+            kb = bound(16.0 * h * b, 16.0 * h * b)
+            p_ms = time_ms(lambda: rk.real_split_plain(zr, zi, tw))
+            rows["real_split_bmajor"] = dict(
+                ms=rec["split_kernel_fwd_ms"], bwd_ms=rec["split_kernel_bwd_ms"],
+                plain_ms=p_ms, library_ms=None, shape=[b, h], bound_ms=kb[0],
+                bound_by=kb[1])
+            rec["split_kernel_plain_ms"] = p_ms
+        emit(rec)
+        del x, s, sr, si, zr, zi
     return rows
 
 
@@ -1045,11 +1340,14 @@ def main() -> int:
     real_launches, real_shapes = phase_real_main_path(gen)
     conv_launches, conv_runs = phase_fastconv(gen)
     chan_launches, chan_runs = phase_channelizer(gen)
+    bm_launches, bm_shapes = phase_bmajor_main(gen)
+    bmr_launches, bmr_shapes = phase_bmajor_real_main(gen)
     rows = phase_timing(gen, per_shape)
     rows.update(phase_real_timing(gen, real_shapes))
     rows.update(phase_fir_timing(gen, conv_runs, chan_runs))
+    rows.update(phase_bmajor_timing(gen, bm_shapes, bmr_shapes))
     for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split",
-                 "conv_fused", "pfb_fir"):
+                 "conv_fused", "pfb_fir", "fused2", "real_split_bmajor"):
         check(name in rows, f"no timing row for {name}")
     check(launches["cfft_chain_tmajor"] > 0 and launches["cfft_combine_tmajor"] > 0,
           f"complex main path did not launch every path kernel: {launches}")
@@ -1063,10 +1361,17 @@ def main() -> int:
     for name in ("pfb_fir_stream_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor"):
         check(chan_launches[name] > 0,
               f"channelizer path did not launch every path kernel: {chan_launches}")
+    for name in ("cfft_fused2", "cfft_chain_tmajor", "cfft_combine_tmajor"):
+        check(bm_launches[name] > 0,
+              f"batch-major path did not launch every path kernel: {bm_launches}")
+    for name in ("cfft_fused2", "real_split", "cfft_chain_tmajor", "cfft_combine_tmajor"):
+        check(bmr_launches[name] > 0,
+              f"batch-major real path did not launch every path kernel: {bmr_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    # launches: the count over the four main-path runs (each from zero)
-    paths = (launches, real_launches, conv_launches, chan_launches)
+    # launches: the count over the six main-path runs (each from zero)
+    paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
+             bmr_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),
@@ -1085,6 +1390,10 @@ def main() -> int:
                        "pffft_tpu/ops/conv_kernel.py:180", ("zconv_tmajor",)),
         "pfb_fir": ("pffft_tpu_torch/csrc/pfb_fir.cu", "pffft_tpu/ops/pfb_kernel.py:85",
                     ("pfb_fir", "pfb_fir_stream_tmajor")),
+        "fused2": ("pffft_tpu_torch/csrc/fused2.cu", "pffft_tpu/ops/fused_stage.py:168",
+                   ("cfft_fused2",)),
+        "real_split_bmajor": ("pffft_tpu_torch/csrc/real_split_bmajor.cu",
+                              "pffft_tpu/ops/real_kernel.py:144", ("real_split",)),
     }
     kernels = []
     for name, (src, rep, wrappers) in meta.items():

@@ -6,10 +6,14 @@ transforms (backward(forward(x)) == N*x), canonical bin order, planar
 ``csrc/``, built with nvcc on first use; on the CPU every kernel wrapper
 runs its plain PyTorch version.  It imports neither jax nor pffft_tpu.
 
-Ported so far: the f32 transform of time-major planes,
-:func:`transform_ordered_split_tmajor`, for complex and real plans; FIR
-filtering by overlap-save, :mod:`conv` (``FastConv``, ``StreamingConv``);
-the polyphase channelizers, :mod:`channelizer`.
+Ported so far: the f32 transforms, complex and real, on batch-major
+arrays [..., N] (the pffft.h parity API: :func:`transform_ordered`,
+:func:`transform`, :func:`zreorder`, the ``zconvolve`` functions, the
+split-format and in-place forms, ``cfft`` / ``rfft_packed`` and the
+spectrum and frequency helpers) and on time-major planes,
+:func:`transform_ordered_split_tmajor`; FIR filtering by overlap-save,
+:mod:`conv` (``FastConv``, ``StreamingConv``); the polyphase
+channelizers, :mod:`channelizer`.
 """
 
 from . import channelizer, conv, fft, ops, runtime
@@ -21,7 +25,29 @@ from .channelizer import (
     state_from_arrays,
 )
 from .conv import ConvFlags, FastConv, StreamingConv, fastconv_valid
-from .fft import transform_ordered_split_tmajor
+from .fft import (
+    cfft,
+    fftfreq,
+    fftshift,
+    icfft,
+    ifftshift,
+    irfft_packed,
+    rfft_packed,
+    rfftfreq,
+    spectrum_pack,
+    spectrum_unpack,
+    transform,
+    transform_ordered,
+    transform_ordered_split,
+    transform_ordered_split_inplace,
+    transform_ordered_split_tmajor,
+    transform_split,
+    transform_split_inplace,
+    zconvolve_accumulate,
+    zconvolve_no_accu,
+    zconvolve_split,
+    zreorder,
+)
 from .plan import (
     BACKWARD,
     COMPLEX,
@@ -50,7 +76,27 @@ __all__ = [
     "fft",
     "ops",
     "runtime",
+    "transform",
+    "transform_ordered",
+    "zreorder",
+    "zconvolve_accumulate",
+    "zconvolve_no_accu",
+    "transform_split",
+    "transform_ordered_split",
     "transform_ordered_split_tmajor",
+    "transform_split_inplace",
+    "transform_ordered_split_inplace",
+    "zconvolve_split",
+    "cfft",
+    "icfft",
+    "rfft_packed",
+    "irfft_packed",
+    "spectrum_unpack",
+    "spectrum_pack",
+    "fftfreq",
+    "rfftfreq",
+    "fftshift",
+    "ifftshift",
     "Channelizer",
     "ChannelizerState",
     "OversampledChannelizer",

@@ -1,8 +1,25 @@
 """Public transforms of the port.
 
-Counterpart of ``pffft_tpu/fft.py``.  The ported path is the f32 transform
-of time-major planes, :func:`transform_ordered_split_tmajor`, for complex
-and real plans.
+Counterpart of ``pffft_tpu/fft.py``, the pffft.h parity surface:
+
+    transform(plan, x, direction)          <-> pffft_transform (internal order)
+    transform_ordered(plan, x, direction)  <-> pffft_transform_ordered
+    zreorder(plan, z, direction)           <-> pffft_zreorder
+    zconvolve_accumulate / zconvolve_no_accu
+
+on batch-major arrays [..., N] (any leading dims), with the complex API in
+complex dtypes (``torch.complex64`` in and out, planar inside), the split
+API on (re, im) planes, and the time-major planes [N, B] of
+:func:`transform_ordered_split_tmajor`.  Transforms are unscaled:
+backward(forward(x)) == N * x.  Real spectra are N/2 complex bins with
+pffft's packed bin0 = DC + i*Nyquist.
+
+torch tensors stay on their device; numpy input goes to ``device``
+(default "cuda").  The caller's tensors are not modified, except by the
+``_inplace`` forms, which write the result into the caller's planes (the C
+API's input == output aliasing).  Plans must be ``Plan`` objects (Bluestein
+plans are not ported, ROADMAP.md A9) of dtype float32 (float64 is ROADMAP.md
+A6).
 """
 
 from __future__ import annotations
@@ -15,21 +32,67 @@ import torch
 from . import plan as _plan
 from .ops import dispatch as _dispatch
 from .ops import split as _split
+from .ops import stages as _stages
 from .plan import BACKWARD, FORWARD, Plan
 
-__all__ = ["transform_ordered_split_tmajor"]
+__all__ = [
+    "transform",
+    "transform_ordered",
+    "zreorder",
+    "zconvolve_accumulate",
+    "zconvolve_no_accu",
+    "transform_split",
+    "transform_ordered_split",
+    "transform_ordered_split_tmajor",
+    "transform_split_inplace",
+    "transform_ordered_split_inplace",
+    "zconvolve_split",
+    "cfft",
+    "icfft",
+    "rfft_packed",
+    "irfft_packed",
+    "spectrum_unpack",
+    "spectrum_pack",
+    "fftfreq",
+    "rfftfreq",
+    "fftshift",
+    "ifftshift",
+]
 
 
-def _as_plane(x, device: Optional[str]) -> torch.Tensor:
-    """A contiguous f32 tensor: torch tensors stay on their device, numpy
-    arrays go to ``device`` (default "cuda")."""
+def _to_device(x, device: Optional[str], dtype) -> torch.Tensor:
+    """``x`` as a contiguous tensor of ``dtype``: torch tensors stay on
+    their device, numpy arrays go to ``device`` (default "cuda")."""
 
     if isinstance(x, torch.Tensor):
-        return x.to(torch.float32).contiguous()
+        return x.to(dtype).contiguous()
     dev = torch.device(device or "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+    np_dtype = np.complex64 if dtype == torch.complex64 else np.float32
+    return torch.from_numpy(np.require(x, np_dtype, ("C", "W"))).to(dev)
+
+
+def _as_plane(x, device: Optional[str]) -> torch.Tensor:
+    """A contiguous f32 tensor (see :func:`_to_device`)."""
+
+    return _to_device(x, device, torch.float32)
+
+
+def _as_complex(x, device: Optional[str]) -> torch.Tensor:
+    """A contiguous complex64 tensor (see :func:`_to_device`)."""
+
+    return _to_device(x, device, torch.complex64)
+
+
+def _as_tensor(x, device: Optional[str]) -> torch.Tensor:
+    """torch tensors as they are; numpy arrays as complex64 or f32 tensors
+    on ``device``."""
+
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    return _to_device(arr, device, torch.complex64 if np.iscomplexobj(arr) else torch.float32)
 
 
 def _check_pair(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -38,6 +101,329 @@ def _check_pair(re: torch.Tensor, im: torch.Tensor) -> None:
             f"re and im planes differ: {tuple(re.shape)} on {re.device}, "
             f"{tuple(im.shape)} on {im.device}"
         )
+
+
+def _check_plan(plan, name: str) -> None:
+    if not isinstance(plan, Plan):
+        raise TypeError(
+            f"unsupported plan type {type(plan).__name__} for {name} "
+            f"(Bluestein and CZT plans are not ported yet, ROADMAP.md A9)")
+    if plan.dtype != np.float32:
+        raise NotImplementedError("float64 plans are not ported yet (ROADMAP.md A6)")
+
+
+def _check_len(plan: Plan, x, backward: bool) -> None:
+    expect = plan.n
+    if plan.is_real:
+        expect = plan.spectrum_size if backward else plan.n
+    if x.shape[-1] != expect:
+        raise ValueError(
+            f"input last-axis length {x.shape[-1]} does not match plan "
+            f"(N={plan.n}, {plan.kind.value}): expected {expect}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Core implementations on planes
+# ---------------------------------------------------------------------------
+
+
+def _real_forward_planar(plan: Plan, x: torch.Tensor):
+    """[..., N] real -> the packed spectrum planes [..., N/2] x2: the pack
+    copy, the length-N/2 complex transform, the split kernel."""
+
+    zr, zi = _split.pack_real_input_split(x)
+    zr, zi = _dispatch.cfft_dispatch(plan, zr, zi, time_major=False)
+    return _dispatch.real_split_bmajor_route(plan, False)(zr, zi)
+
+
+def _real_backward_planar(plan: Plan, sr: torch.Tensor, si: torch.Tensor) -> torch.Tensor:
+    """The packed spectrum planes [..., N/2] x2 -> [..., N] real, unscaled:
+    the split kernel, the backward transform, the interleave copy."""
+
+    zr, zi = _dispatch.real_split_bmajor_route(plan, True)(sr, si)
+    wr, wi = _dispatch.cfft_dispatch(plan, zr, zi, backward=True, time_major=False)
+    return _split.interleave_to_real_split(wr, wi)
+
+
+def _complex_planar(plan: Plan, re: torch.Tensor, im: torch.Tensor, backward: bool,
+                    ordered: bool):
+    """Complex planes [..., N] through the batch-major dispatcher.  Not
+    ordered: a forward spectrum comes out, a backward one goes in, in the
+    plan's internal order."""
+
+    if backward and not ordered:
+        re = _stages.reorder_spectrum(re, plan.factors, to_canonical=True)
+        im = _stages.reorder_spectrum(im, plan.factors, to_canonical=True)
+    return _dispatch.cfft_dispatch(plan, re, im, backward=backward, time_major=False,
+                                   ordered=ordered)
+
+
+def _split_call(plan: Plan, x, d, ordered: bool, device: Optional[str], name: str):
+    """The split-format transform: planes in, planes (or a real signal) out."""
+
+    _check_plan(plan, name)
+    backward = d == BACKWARD
+    if plan.is_real and not backward:
+        x = _as_plane(x, device)
+        _check_len(plan, x, False)
+        return _real_forward_planar(plan, x)
+    re, im = (_as_plane(a, device) for a in x)
+    _check_pair(re, im)
+    _check_len(plan, re, backward)
+    if plan.is_real:
+        return _real_backward_planar(plan, re, im)
+    return _complex_planar(plan, re, im, backward, ordered)
+
+
+def _complex_call(plan: Plan, x, d, ordered: bool, device: Optional[str], name: str):
+    """The complex-dtype transform: the split transform between
+    ``to_split`` and ``from_split``."""
+
+    _check_plan(plan, name)
+    backward = d == BACKWARD
+    if plan.is_real and not backward:
+        return _split.from_split(_split_call(plan, x, d, True, device, name))
+    z = _as_complex(x, device)
+    _check_len(plan, z, backward)
+    out = _split_call(plan, _split.to_split(z), d, ordered, device, name)
+    return out if plan.is_real else _split.from_split(out)
+
+
+# ---------------------------------------------------------------------------
+# Public API: complex dtypes
+# ---------------------------------------------------------------------------
+
+
+def transform_ordered(plan: Plan, x, direction=FORWARD, *, device: Optional[str] = None):
+    """pffft_transform_ordered parity: canonical spectrum order.
+
+    REAL forward:  [..., N] real      -> [..., N/2] complex64 (packed bin0)
+    REAL backward: [..., N/2] complex -> [..., N] real (unscaled, = N*x)
+    COMPLEX:       [..., N] complex   -> [..., N] complex64
+    """
+
+    d = _plan._coerce_direction(direction)
+    return _complex_call(plan, x, d, True, device, "transform_ordered")
+
+
+def transform(plan: Plan, x, direction=FORWARD, *, device: Optional[str] = None):
+    """pffft_transform parity: the plan's internal (unordered) z-layout.
+
+    For complex plans the internal layout is the last Stockham stage's
+    transpose-free order (``ops/stages.reorder_spectrum``); for real plans
+    it coincides with canonical order.  Use :func:`zreorder` to map to and
+    from canonical order; the ``zconvolve`` functions work in it."""
+
+    d = _plan._coerce_direction(direction)
+    return _complex_call(plan, x, d, False, device, "transform")
+
+
+def zreorder(plan: Plan, z, direction=FORWARD, *, device: Optional[str] = None):
+    """pffft_zreorder parity.  FORWARD: internal -> canonical; BACKWARD:
+    canonical -> internal.  Real plans: the identity."""
+
+    d = _plan._coerce_direction(direction)
+    if plan.is_real:
+        return z
+    return _stages.reorder_spectrum(_as_tensor(z, device), plan.factors,
+                                    to_canonical=(d == FORWARD))
+
+
+def _zmul(plan: Plan, a: torch.Tensor, b: torch.Tensor, scaling) -> torch.Tensor:
+    """Pointwise spectral product; bin0 of a real spectrum holds two real
+    values (DC, Nyquist), which multiply component-wise."""
+
+    ab = a * b
+    if plan.is_real:
+        ab[..., 0] = torch.complex(a[..., 0].real * b[..., 0].real,
+                                   a[..., 0].imag * b[..., 0].imag)
+    return ab * float(np.asarray(scaling, plan.dtype))
+
+
+def zconvolve_no_accu(plan: Plan, dft_a, dft_b, scaling=1.0, *,
+                      device: Optional[str] = None):
+    """pffft_zconvolve_no_accu parity: (a*b)*scaling, in internal layout."""
+
+    return _zmul(plan, _as_complex(dft_a, device), _as_complex(dft_b, device), scaling)
+
+
+def zconvolve_accumulate(plan: Plan, dft_a, dft_b, dft_ab, scaling=1.0, *,
+                         device: Optional[str] = None):
+    """pffft_zconvolve_accumulate parity: ab + (a*b)*scaling."""
+
+    return _as_complex(dft_ab, device) + _zmul(
+        plan, _as_complex(dft_a, device), _as_complex(dft_b, device), scaling)
+
+
+def cfft(plan: Plan, x, *, device: Optional[str] = None):
+    """Forward complex FFT, canonical order (numpy convention, unscaled)."""
+
+    return transform_ordered(plan, x, FORWARD, device=device)
+
+
+def icfft(plan: Plan, x, *, device: Optional[str] = None):
+    """Unscaled inverse complex FFT: icfft(cfft(x)) == N * x."""
+
+    return transform_ordered(plan, x, BACKWARD, device=device)
+
+
+def rfft_packed(plan: Plan, x, *, device: Optional[str] = None):
+    """Forward real FFT with pffft bin0 packing: [..., N] -> [..., N/2]."""
+
+    return transform_ordered(plan, x, FORWARD, device=device)
+
+
+def irfft_packed(plan: Plan, s, *, device: Optional[str] = None):
+    """Unscaled inverse of rfft_packed: [..., N/2] -> [..., N] (= N * x)."""
+
+    return transform_ordered(plan, s, BACKWARD, device=device)
+
+
+def spectrum_unpack(s, *, device: Optional[str] = None):
+    """Packed real spectrum [..., H] -> standard rfft layout [..., H+1]
+    (DC ... Nyquist as separate bins, numpy.fft.rfft convention)."""
+
+    s = _as_complex(s, device)
+    dc = s[..., :1].real.to(s.dtype)
+    nyq = s[..., :1].imag.to(s.dtype)
+    return torch.cat([dc, s[..., 1:], nyq], dim=-1)
+
+
+def spectrum_pack(r, *, device: Optional[str] = None):
+    """Standard rfft layout [..., H+1] -> pffft packed layout [..., H]."""
+
+    r = _as_complex(r, device)
+    out = r[..., :-1].clone()
+    out[..., 0] = torch.complex(r[..., 0].real, r[..., -1].real)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Public API: split format (planar re/im)
+# ---------------------------------------------------------------------------
+
+
+def transform_ordered_split(plan: Plan, x, direction=FORWARD, *,
+                            device: Optional[str] = None):
+    """Split-format transform_ordered.
+
+    REAL forward:  x [..., N] real          -> (re, im) [..., N/2]
+    REAL backward: x = (re, im) [..., N/2]  -> [..., N] real
+    COMPLEX:       x = (re, im) [..., N]    -> (re, im) [..., N]
+    """
+
+    d = _plan._coerce_direction(direction)
+    return _split_call(plan, x, d, True, device, "transform_ordered_split")
+
+
+def transform_split(plan: Plan, x, direction=FORWARD, *, device: Optional[str] = None):
+    """Split-format transform (internal/unordered z-layout)."""
+
+    d = _plan._coerce_direction(direction)
+    return _split_call(plan, x, d, False, device, "transform_split")
+
+
+def _write_back(x, out):
+    """The result written into the caller's plane tensors, which are
+    returned; numpy planes cannot alias a tensor, so the result is."""
+
+    if not all(isinstance(a, torch.Tensor) for a in x):
+        return out
+    for dst, src in zip(x, out, strict=True):
+        dst.copy_(src)
+    return tuple(x)
+
+
+def transform_ordered_split_inplace(plan: Plan, x, direction=FORWARD, *,
+                                    device: Optional[str] = None):
+    """In-place :func:`transform_ordered_split`: complex planes get the
+    result written into them and are returned (pffft_transform_ordered with
+    input == output).  Real plans change the shape, so they fall back to
+    the pure call."""
+
+    out = transform_ordered_split(plan, x, direction, device=device)
+    return out if plan.is_real else _write_back(x, out)
+
+
+def transform_split_inplace(plan: Plan, x, direction=FORWARD, *,
+                            device: Optional[str] = None):
+    """In-place variant of :func:`transform_split` (internal layout)."""
+
+    out = transform_split(plan, x, direction, device=device)
+    return out if plan.is_real else _write_back(x, out)
+
+
+def zconvolve_split(plan: Plan, a, b, scaling=1.0, accumulate=None, *,
+                    device: Optional[str] = None):
+    """Split-format pointwise spectral product (internal layout), with the
+    real-packing DC/Nyquist component-wise fixup.
+
+    a, b: (re, im) pairs; optional ``accumulate`` = (re, im) to add into.
+    Returns (re, im)."""
+
+    ar, ai = (_as_plane(t, device) for t in a)
+    br, bi = (_as_plane(t, device) for t in b)
+    cr, ci = _split.split_mul((ar, ai), (br, bi))
+    if plan.is_real:
+        cr = _split._set_bin0(cr, ar[..., 0] * br[..., 0])
+        ci = _split._set_bin0(ci, ai[..., 0] * bi[..., 0])
+    s = float(np.asarray(scaling, plan.dtype))
+    cr, ci = cr * s, ci * s
+    if accumulate is not None:
+        cr = cr + _as_plane(accumulate[0], device)
+        ci = ci + _as_plane(accumulate[1], device)
+    return cr, ci
+
+
+# ---------------------------------------------------------------------------
+# Frequency grids (host-side numpy, plan and axis bookkeeping) and shifts
+# ---------------------------------------------------------------------------
+
+
+def fftfreq(n: int, d: float = 1.0) -> np.ndarray:
+    """Bin center frequencies of a length-n complex transform (np.fft.fftfreq)."""
+
+    n = int(n)
+    k = np.empty(n, dtype=np.float64)
+    half = (n - 1) // 2 + 1
+    k[:half] = np.arange(half)
+    k[half:] = np.arange(-(n // 2), 0)
+    return k / (n * d)
+
+
+def rfftfreq(n: int, d: float = 1.0) -> np.ndarray:
+    """Bin center frequencies of spectrum_unpack output (np.fft.rfftfreq):
+    n//2 + 1 non-negative bins."""
+
+    n = int(n)
+    return np.arange(n // 2 + 1, dtype=np.float64) / (n * d)
+
+
+def _shift(x, axes, device: Optional[str], sign: int):
+    x = _as_tensor(x, device)
+    if axes is None:
+        axes = tuple(range(x.ndim))
+    elif isinstance(axes, int):
+        axes = (axes,)
+    return torch.roll(x, [sign * (x.shape[a] // 2) for a in axes], list(axes))
+
+
+def fftshift(x, axes=None, *, device: Optional[str] = None):
+    """Move the zero-frequency bin to the center (np.fft.fftshift)."""
+
+    return _shift(x, axes, device, 1)
+
+
+def ifftshift(x, axes=None, *, device: Optional[str] = None):
+    """Inverse of fftshift (exact for odd lengths too)."""
+
+    return _shift(x, axes, device, -1)
+
+
+# ---------------------------------------------------------------------------
+# Time-major planes [N, B]
+# ---------------------------------------------------------------------------
 
 
 def _real_forward_tmajor(plan: Plan, x: torch.Tensor):

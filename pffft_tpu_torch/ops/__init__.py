@@ -1,5 +1,5 @@
-"""Engines of the port: plain stage engine, CUDA kernel wrappers, dispatch."""
+"""Engines of the port: plain stage engines, CUDA kernel wrappers, dispatch."""
 
-from . import dispatch, pallas_fft, split
+from . import dispatch, fused_stage, pallas_fft, real, real_kernel, split, stages
 
-__all__ = ["dispatch", "pallas_fft", "split"]
+__all__ = ["dispatch", "fused_stage", "pallas_fft", "real", "real_kernel", "split", "stages"]

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("stockham_chain", "combine", "stream_copy", "chain_packed", "real_fused",
-           "real_split", "conv_fused", "pfb_fir")
+           "real_split", "conv_fused", "pfb_fir", "fused2", "real_split_bmajor")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,7 +1,7 @@
-"""Engine dispatch for the time-major transforms.
+"""Engine dispatch for the transforms, time-major and batch-major.
 
-Counterpart of ``pffft_tpu/ops/dispatch.py``.  Engines, with the reference's
-names beside them:
+Counterpart of ``pffft_tpu/ops/dispatch.py``.  Engines of time-major
+planes [N, B], with the reference's names beside them:
 
   * ``"stages"`` (reference ``"xla"``): the einsum stage engine,
     ``ops/split.cfft_stages_split_tmajor``, for shapes no kernel covers.
@@ -17,6 +17,26 @@ table keyed by (compute capability, N, time_major) overrides it; it
 starts empty and is filled by :func:`record_engine` from measurements on
 the card.  On the CPU the capability is the H100's (9, 0), so the tests
 walk the routes the card takes.
+
+Engines of batch-major planes [..., N] (reference ``time_major=False``):
+
+  * ``"fused2"``: the fused two-stage kernel (``csrc/fused2.cu``, B9) on
+    whole rows, where its tile holds N (N <= 16384).  Its arithmetic is
+    the thin chain whatever the plan, so an ordered call runs it on any
+    plan; it stores an internal order itself only for the caller's own
+    two-stage plan (:func:`_kernel_stores_internal`).
+  * ``"tmajor"``: ``pallas_fft.cfft_pallas``, a transpose each way around
+    the time-major dispatcher (chain or kern2, as :func:`select_engine`
+    picks for time-major planes).
+  * ``"stages"``: the batch-major stage engine,
+    ``ops/split.cfft_plan_split``.
+
+The default follows coverage: "fused2", else "tmajor", else "stages".
+The reference's ``batch % 64`` gate on "fused2" is not carried over: the
+kernel masks a ragged last tile.  A real plan's batch-major transform
+runs the length-H complex transform through these engines, then the
+batch-major split kernel (``csrc/real_split_bmajor.cu``, B6,
+:func:`real_split_bmajor_route`), which covers any H and B.
 
 A REAL plan's transform runs the same engines at its engine length
 H = N/2, chosen by the same rules from a table of its own
@@ -46,8 +66,11 @@ import numpy as np
 import torch
 
 from .. import plan as _plan
+from . import fused_stage as _fs
 from . import pallas_fft as _pk
+from . import real_kernel as _rk
 from . import split as _split
+from . import stages as _stages
 
 __all__ = [
     "available_engines",
@@ -62,13 +85,17 @@ __all__ = [
     "fused_real_bwd_route",
     "packed_fwd_route",
     "real_split_kernel_route",
+    "real_split_bmajor_route",
     "CONV_ROUTES",
     "record_conv_route",
     "conv_route_mode",
     "conv_kernel_choice",
 ]
 
-ENGINES = ("stages", "chain", "kern2")
+ENGINES = ("stages", "chain", "kern2")           # time-major planes
+BMAJOR_ENGINES = ("fused2", "tmajor", "stages")  # batch-major planes
+# engines in the order coverage tries them, per layout (time_major key)
+_COVERAGE = {True: ("chain", "kern2", "stages"), False: BMAJOR_ENGINES}
 
 _FORCED: Optional[str] = None
 
@@ -88,18 +115,8 @@ def capability(device: Optional[torch.device]) -> Tuple[int, int]:
     return _SM90
 
 
-@functools.lru_cache(maxsize=64)
-def _thin_plan(n: int) -> Optional[_plan.Plan]:
-    """The chain kernel's plan for length n: the radix-16/8-first chain.
-
-    The ordered spectrum does not depend on the factorization, so the
-    chain may run its own plan for any caller plan of the same length."""
-
-    factors = _pk.thin_factors(n, radix16=True)
-    if factors is None:
-        return None
-    p = _plan.new_setup(n, _plan.COMPLEX, factors=factors, strict=False)
-    return p if _pk.supported(p) else None
+# The chain kernel's plan for length n (the radix-16/8-first chain).
+_thin_plan = _pk.thin_plan
 
 
 def _chain_plan(plan: _plan.Plan, device=None) -> Optional[_plan.Plan]:
@@ -199,12 +216,22 @@ def cfft_kern2_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *,
     return _pk.cfft_combine_tmajor(last, ar.reshape(n, b), ai.reshape(n, b))
 
 
-def available_engines(plan: _plan.Plan, batch: int, time_major: bool = True,
-                      device=None) -> Tuple[str, ...]:
-    """Engines that can run ``plan`` on time-major planes [N, batch]."""
+def _fused2_covers(plan: _plan.Plan, device=None) -> bool:
+    """Whether the "fused2" engine runs ``plan``: f32, with an engine
+    length the kernel's tile holds."""
 
-    if not time_major:
-        return ()
+    return plan.dtype == np.float32 and _fs.fused2_tile(plan.engine_n, device) is not None
+
+
+def _kernel_stores_internal(plan: _plan.Plan) -> bool:
+    """Whether B9 stores ``plan``'s internal order itself: the caller's
+    own complex two-stage plan.  Other internal-order calls reorder the
+    ordered result."""
+
+    return not plan.is_real and _fs.supported(plan)
+
+
+def _tmajor_engines(plan: _plan.Plan, batch: int, device=None) -> Tuple[str, ...]:
     out = ["stages"] if plan.local_split is None else []
     if _chain_plan(plan, device) is not None:
         out.append("chain")
@@ -213,33 +240,72 @@ def available_engines(plan: _plan.Plan, batch: int, time_major: bool = True,
     return tuple(out)
 
 
+def available_engines(plan: _plan.Plan, batch: int, time_major: bool = True,
+                      device=None) -> Tuple[str, ...]:
+    """Engines that can run ``plan`` on time-major planes [N, batch], or
+    on batch-major planes [batch, N] when ``time_major`` is False."""
+
+    if time_major:
+        return _tmajor_engines(plan, batch, device)
+    out = ["stages"]
+    if _fused2_covers(plan, device):
+        out.append("fused2")
+    if {"chain", "kern2"} & set(_tmajor_engines(plan, batch, device)):
+        out.append("tmajor")
+    return tuple(out)
+
+
 def set_engine(name: Optional[str]) -> None:
-    """Force an engine for every call ('stages', 'chain', 'kern2', or None)."""
+    """Force an engine for every call (one of :data:`ENGINES`, or None).
+
+    A forced engine that cannot run a call raises ValueError there: the
+    time-major engines serve no batch-major call, and the reverse."""
 
     global _FORCED
-    if name is not None and name not in ENGINES:
+    if name is not None and name not in ENGINES + BMAJOR_ENGINES:
         raise ValueError(f"unknown engine {name!r}")
     _FORCED = name
+
+
+def _check_layout_engine(engine: str, time_major: bool) -> None:
+    if engine not in ENGINES + BMAJOR_ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine not in _COVERAGE[time_major]:
+        raise ValueError(f"engine {engine!r} does not serve "
+                         f"{'time' if time_major else 'batch'}-major planes")
 
 
 def record_engine(cap: Tuple[int, int], n: int, engine: str,
                   time_major: bool = True) -> None:
     """Record a measured engine choice for complex plans at (compute
-    capability, N)."""
+    capability, N, layout)."""
 
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
+    _check_layout_engine(engine, time_major)
     _MEASURED_TABLE[(tuple(cap), int(n), bool(time_major))] = engine
 
 
 def record_engine_real(cap: Tuple[int, int], n: int, engine: str,
                        time_major: bool = True) -> None:
     """Record a measured engine choice for real plans at (compute
-    capability, engine length n = N/2).  Complex plans never read it."""
+    capability, engine length n = N/2, layout).  Complex plans never read
+    it."""
 
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
+    _check_layout_engine(engine, time_major)
     _MEASURED_TABLE_REAL[(tuple(cap), int(n), bool(time_major))] = engine
+
+
+def _choose(plan: _plan.Plan, batch: int, time_major: bool, device,
+            avail: Tuple[str, ...]) -> str:
+    """The measured table's engine, else the first by coverage."""
+
+    table = _MEASURED_TABLE_REAL if plan.is_real else _MEASURED_TABLE
+    measured = table.get((capability(device), plan.engine_n, bool(time_major)))
+    if measured is not None and measured in avail:
+        return measured
+    for engine in _COVERAGE[time_major]:
+        if engine in avail:
+            return engine
+    raise ValueError(f"no engine runs plan {plan} (time_major={time_major})")
 
 
 def select_engine(plan: _plan.Plan, batch: int, time_major: bool = True,
@@ -252,24 +318,55 @@ def select_engine(plan: _plan.Plan, batch: int, time_major: bool = True,
                 f"(batch={batch}, time_major={time_major}); available: {avail}"
             )
         return _FORCED
-    table = _MEASURED_TABLE_REAL if plan.is_real else _MEASURED_TABLE
-    measured = table.get((capability(device), plan.engine_n, bool(time_major)))
-    if measured is not None and measured in avail:
-        return measured
-    for engine in ("chain", "kern2", "stages"):
-        if engine in avail:
-            return engine
-    raise ValueError(f"no engine runs plan {plan} (time_major={time_major})")
+    return _choose(plan, batch, time_major, device, avail)
+
+
+def _cfft_bmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
+                 backward: bool, ordered: bool):
+    """Complex FFT of batch-major planes [..., N] (see :func:`cfft_dispatch`)."""
+
+    lead, n = re.shape[:-1], re.shape[-1]
+    batch = re.numel() // n if n else 0
+    engine = select_engine(plan, batch, False, re.device)
+    if engine == "stages":
+        return _split.cfft_plan_split(plan, re, im, backward=backward, ordered=ordered)
+    re2, im2 = re.reshape(-1, n), im.reshape(-1, n)
+    in_kernel = False  # the kernel stored the internal order itself
+    if engine == "fused2":
+        in_kernel = not ordered and _kernel_stores_internal(plan)
+        rr, ri = _fs.cfft_fused2(plan, re2, im2, backward=backward, ordered=not in_kernel)
+    else:
+        # "tmajor": the time-major route the dispatcher picks for [N, batch]
+        tm = _choose(plan, batch, True, re.device, _tmajor_engines(plan, batch, re.device))
+        rr, ri = _pk.cfft_pallas(
+            plan, re2, im2, backward=backward,
+            tmajor=lambda r, i: _cfft_tmajor(plan, r, i, backward=backward, engine=tm))
+    if not ordered and not in_kernel:
+        rr = _stages.reorder_spectrum(rr, plan.factors, to_canonical=False)
+        ri = _stages.reorder_spectrum(ri, plan.factors, to_canonical=False)
+    return rr.reshape(*lead, n), ri.reshape(*lead, n)
 
 
 def cfft_dispatch(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
-                  backward: bool = False, time_major: bool = True):
-    """Complex FFT of planes [N, B] through the selected engine."""
+                  backward: bool = False, time_major: bool = True,
+                  ordered: bool = True):
+    """Complex FFT through the selected engine: time-major planes [N, B],
+    or batch-major planes [..., N] when ``time_major`` is False.
+
+    Unscaled.  ``ordered=False`` (batch-major only) writes a forward
+    spectrum in the plan's internal order (``stages.reorder_spectrum``);
+    a backward input is always in canonical order."""
 
     if not time_major:
-        raise NotImplementedError(
-            "batch-major planes are not ported yet (ROADMAP.md A4)")
+        return _cfft_bmajor(plan, re, im, backward=backward, ordered=ordered or backward)
+    if not ordered:
+        raise ValueError("time-major transforms are ordered")
     engine = select_engine(plan, re.shape[-1], True, re.device)
+    return _cfft_tmajor(plan, re, im, backward=backward, engine=engine)
+
+
+def _cfft_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
+                 backward: bool, engine: str):
     if engine == "chain":
         return _pk.cfft_chain_tmajor(_chain_plan(plan, re.device), re, im,
                                      backward=backward)
@@ -319,6 +416,23 @@ def packed_fwd_route(plan: _plan.Plan, batch: int, device=None):
     if not _real_f32(plan) or select_engine(plan, batch, True, device) != "kern2":
         return None
     return lambda y: cfft_kern2_tmajor_packed(plan, y)
+
+
+def real_split_bmajor_route(plan: _plan.Plan, backward: bool):
+    """Callable (zr, zi) [..., H] -> the split step through the batch-major
+    split kernel for a real f32 plan (the kernel covers any H and B), else
+    None."""
+
+    if not _real_f32(plan):
+        return None
+
+    def run(zr, zi):
+        lead, h = zr.shape[:-1], zr.shape[-1]
+        tw = _split.real_split_twiddle(plan, zr.device)
+        sr, si = _rk.real_split(zr.reshape(-1, h), zi.reshape(-1, h), tw, backward=backward)
+        return sr.reshape(*lead, h), si.reshape(*lead, h)
+
+    return run
 
 
 def real_split_kernel_route(plan: _plan.Plan, backward: bool):

@@ -14,6 +14,11 @@ CUDA C++ under ``pffft_tpu_torch/csrc/``:
     ``rfft_bwd_pallas_tmajor_fused``)
   * ``real_split_tmajor``   -> ``real_split.cu`` (``real_split_tmajor_pallas``)
 
+``cfft_pallas`` is the batch-major convenience: one transpose each way
+around ``cfft_chain_tmajor``, or around the time-major route the
+dispatcher's batch-major "tmajor" engine gives it.  The batch-major kernels are in
+``ops/fused_stage.py`` (B9) and ``ops/real_kernel.py`` (B6).
+
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises.  Each counts its
 launches in a plain int attribute, ``<wrapper>.launches``, incremented
@@ -35,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,9 +52,12 @@ from . import split as _split
 __all__ = [
     "supported",
     "thin_factors",
+    "thin_plan",
+    "tile_elems",
     "chain_tile",
     "chain_max_n",
     "cfft_chain_tmajor",
+    "cfft_pallas",
     "cfft_combine_tmajor",
     "stream_copy",
     "cfft_chain_tmajor_packed",
@@ -349,6 +357,21 @@ def thin_factors(n: int, radix16: bool = True) -> Optional[Tuple[int, ...]]:
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=64)
+def thin_plan(n: int) -> Optional[_plan.Plan]:
+    """The chain kernels' plan for length n: the radix-16/8-first chain, or
+    None when n is not 2/3/5-smooth.
+
+    The ordered spectrum does not depend on the factorization, so a chain
+    kernel may run this plan for any caller plan of the same length."""
+
+    factors = thin_factors(n, radix16=True)
+    if factors is None:
+        return None
+    p = _plan.new_setup(n, _plan.COMPLEX, factors=factors, strict=False)
+    return p if supported(p) else None
+
+
 def smem_per_block(device: Optional[torch.device] = None) -> int:
     """Opt-in shared memory per block: read from the card for a CUDA
     device, the sm_90 value (232,448 bytes) otherwise."""
@@ -359,22 +382,27 @@ def smem_per_block(device: Optional[torch.device] = None) -> int:
     return _SM90_SMEM_OPTIN
 
 
+def tile_elems(radices: Sequence[int] = (2,),
+               device: Optional[torch.device] = None) -> int:
+    """Complex values one block of a csrc/chain.cuh kernel holds with stage
+    ``radices``: the block's registers (kMaxThreads threads x kElems
+    values, rounded down to whole butterflies per radix), capped by one
+    float2 buffer in shared memory."""
+
+    per_thread = min(r * (_CHAIN_ELEMS // r) for r in radices)
+    return min(_CHAIN_MAX_THREADS * per_thread, smem_per_block(device) // 8)
+
+
 def chain_tile(n: int, radices: Sequence[int] = (2,),
                device: Optional[torch.device] = None) -> Optional[int]:
     """Batch columns per block of the chain kernel for engine length ``n``
     with stage ``radices`` (a power of two, at most 32), or None when no
-    tile of at least 8 columns fits.
+    tile [n, tb] of at least 8 columns fits :func:`tile_elems`."""
 
-    The tile [n, tb] must fit one float2 buffer in shared memory and the
-    block's registers (kMaxThreads threads x kElems values, rounded down
-    to whole butterflies per radix)."""
-
-    per_thread = min(r * (_CHAIN_ELEMS // r) for r in radices)
-    reg_elems = _CHAIN_MAX_THREADS * per_thread
-    smem_elems = smem_per_block(device) // 8
+    cap = tile_elems(radices, device)
     tb = _CHAIN_MAX_TB
     while tb >= _CHAIN_MIN_TB:
-        if n * tb <= reg_elems and n * tb <= smem_elems:
+        if n * tb <= cap:
             return tb
         tb //= 2
     return None
@@ -408,13 +436,17 @@ _SIGNATURES = {
     "pf_rfft_tmajor_fused_bwd": ("real_fused",
                                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_real_split_tmajor": ("real_split", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # ops/fused_stage.cfft_fused2, ops/real_kernel.real_split
+    "pf_fused2": ("fused2", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "pf_real_split_bmajor": ("real_split_bmajor",
+                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # ops/conv_kernel.zconv_tmajor, ops/pfb_kernel.pfb_fir(_stream_tmajor)
     "pf_conv_fused_tmajor": ("conv_fused",
                              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_pfb_fir": ("pfb_fir", [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P]),
 }
 # Sources built on csrc/chain.cuh, whose tile limits chain_tile plans with.
-_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused", "conv_fused")
+_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused", "conv_fused", "fused2")
 
 
 @functools.lru_cache(maxsize=None)
@@ -526,6 +558,20 @@ def cfft_chain_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
 
 
 cfft_chain_tmajor.launches = 0
+
+
+def cfft_pallas(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
+                backward: bool = False, tb: Optional[int] = None,
+                tmajor: Optional[Callable] = None):
+    """Batch-major convenience: [B, N] planes, one transpose each way
+    around :func:`cfft_chain_tmajor`, or around ``tmajor(re, im)`` on the
+    time-major [N, B] planes where given (the dispatcher's time-major
+    route).  Returns contiguous [B, N] planes."""
+
+    if tmajor is None:
+        tmajor = lambda r, i: cfft_chain_tmajor(plan, r, i, backward=backward, tb=tb)
+    rr, ri = tmajor(re.T.contiguous(), im.T.contiguous())
+    return rr.T.contiguous(), ri.T.contiguous()
 
 
 def cfft_combine_tmajor(last_stage, re: torch.Tensor, im: torch.Tensor, *,

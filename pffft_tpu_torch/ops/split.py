@@ -1,20 +1,22 @@
-"""Split-format (planar re/im) stage engine and real steps, time-major.
+"""Split-format (planar re/im) stage engine and real steps.
 
 Counterpart of ``pffft_tpu/ops/split.py``'s ``"xla"`` engine in its
 ``"4mul"`` form: each Stockham stage is an elementwise twiddle multiply and
 a dense [r, r] DFT-matrix contraction (``torch.einsum``).  The dispatcher
-sends here the shapes that no CUDA kernel covers.
+sends here the shapes that no CUDA kernel covers.  Both layouts are here:
+time-major planes [N, B] (:func:`cfft_stages_split_tmajor`) and batch-major
+planes [..., N] (:func:`cfft_stages_split`, :func:`cfft_plan_split`).
 
-The real transform's steps on planes [H, B] (H = N/2) are here too: the
-pack of a real [N, B] signal into the length-H complex input, the split
-steps (REAL_FINALIZE forward, REAL_PREPROCESS backward) and the interleave
-back to [N, B].  They are plain torch ops; the split twiddles are passed as
-a pair of f32 tensors [H] on the data's device, :func:`real_split_twiddle`.
+The real transform's steps are here too, in both layouts: the pack of a
+real signal into the half-length complex input, the split steps
+(REAL_FINALIZE forward, REAL_PREPROCESS backward) and the interleave back.
+They are plain torch ops; the split twiddles are passed as a pair of f32
+tensors [H] on the data's device, :func:`real_split_twiddle`.
 
 The contractions run in full fp32: reduced-precision products (TF32) give
-relative errors of 1e-5 to 1e-3 and break the 140 dB carrier bound, so
-:func:`cfft_stages_split_tmajor` turns TF32 off and the matmul precision to
-"highest" for its duration.
+relative errors of 1e-5 to 1e-3 and break the 140 dB carrier bound, so the
+stage engines turn TF32 off and the matmul precision to "highest" for
+their duration.
 """
 
 from __future__ import annotations
@@ -26,12 +28,56 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import plan as _plan
+
+SplitPair = Tuple[torch.Tensor, torch.Tensor]
+
 # Above this many elements a twiddle table is factored into split tables
 # T[k, i] = A[k_hi, i] * B[k_lo, i] (k = k_hi * _TW_SPLIT_LO + k_lo), with
 # KB-sized constants in place of an l*r-sized table; exponents reduce
 # exactly in integers, so A*B == T up to one extra rounding.
 _TW_SPLIT_MIN = 1 << 21
 _TW_SPLIT_LO = 128
+
+
+# ---------------------------------------------------------------------------
+# Planar complex arithmetic
+# ---------------------------------------------------------------------------
+
+
+def to_split(x: torch.Tensor) -> SplitPair:
+    """Complex tensor [..., N] -> contiguous (re, im) planes, in one copy."""
+
+    t = torch.view_as_real(x.resolve_conj()).movedim(-1, 0).contiguous()
+    return t[0], t[1]
+
+
+def from_split(p: SplitPair, cdtype=None) -> torch.Tensor:
+    """(re, im) planes -> complex tensor (``cdtype`` converts it)."""
+
+    z = torch.complex(*p)
+    return z.to(cdtype) if cdtype is not None else z
+
+
+def split_mul(a: SplitPair, b: SplitPair) -> SplitPair:
+    """(a.re + i a.im) * (b.re + i b.im), elementwise."""
+
+    ar, ai = a
+    br, bi = b
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def split_conj_mul(a: SplitPair, b: SplitPair) -> SplitPair:
+    """a * conj(b), elementwise."""
+
+    ar, ai = a
+    br, bi = b
+    return ar * br + ai * bi, ai * br - ar * bi
+
+
+# ---------------------------------------------------------------------------
+# Stage engine
+# ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=4096)
@@ -175,8 +221,87 @@ def cfft_stages_split_tmajor(
     return ar.reshape(n, b), ai.reshape(n, b)
 
 
+def cfft_stages_split(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    stages: Sequence,
+    *,
+    backward: bool,
+    ordered: bool,
+) -> SplitPair:
+    """Staged complex FFT over the last axis, planar: [..., N] x2 -> [..., N] x2.
+
+    Batch-major mirror of :func:`cfft_stages_split_tmajor`, the same
+    Stockham stages and tables.  Unscaled.  ``ordered`` gives canonical bin
+    order; otherwise the last stage leaves the internal order (flat index
+    l*r_last + t holds bin t*L + l, ``stages.reorder_spectrum``)."""
+
+    lead = re.shape[:-1]
+    n = re.shape[-1]
+    b = int(np.prod(lead)) if lead else 1
+    ar = re.reshape(b, 1, n)
+    ai = im.reshape(b, 1, n)
+    nstages = len(stages)
+    with _full_fp32():
+        for idx, st in enumerate(stages):
+            l, r, m = st.l, st.r, st.m
+            if r == 1:
+                continue
+            consts = _device_consts(st, backward, re.device)
+            ar = ar.reshape(b, l, r, m)
+            ai = ai.reshape(b, l, r, m)
+            if l > 1:
+                ar, ai = _apply_twiddle(ar, ai, consts[2], 1)
+            last = idx == nstages - 1
+            sub = "blrm,rt->bltm" if (last and not ordered) else "blrm,rt->btlm"
+            ar, ai = _contract_stage(ar, ai, consts, sub)
+            ar, ai = ar.reshape(b, l * r, m), ai.reshape(b, l * r, m)
+    return ar.reshape(*lead, n), ai.reshape(*lead, n)
+
+
+@functools.lru_cache(maxsize=64)
+def _ordered_chain(n: int, dtype: str) -> _plan.Plan:
+    """The port's default stage chain for length n (radix <= 5)."""
+
+    return _plan.new_setup(n, _plan.COMPLEX, dtype=dtype, strict=False)
+
+
+def cfft_plan_split(
+    plan: _plan.Plan,
+    re: torch.Tensor,
+    im: torch.Tensor,
+    *,
+    backward: bool,
+    ordered: bool,
+) -> SplitPair:
+    """Plan-level complex FFT over the last axis, planar, batch-major.
+
+    A plan with a ``local_split`` (the reference's four-step plans, which
+    reach the port only through ``plan_from_reference`` / ``load_plan``)
+    has factors (n1, n2) and the ordinary two-stage layout contract: its
+    ordered output does not depend on the factorization, so it runs the
+    port's default chain; its internal order is the k1-major order of
+    (n1, n2).  As in the reference's four-step, ``ordered=False`` means
+    internal-order output forward and internal-order input backward."""
+
+    if plan.local_split is None:
+        return cfft_stages_split(re, im, plan.stages, backward=backward, ordered=ordered)
+    from . import stages as _stages
+
+    chain = _ordered_chain(plan.engine_n, plan.dtype.name).stages
+    if backward and not ordered:
+        re = _stages.reorder_spectrum(re, plan.factors, to_canonical=True)
+        im = _stages.reorder_spectrum(im, plan.factors, to_canonical=True)
+    ar, ai = cfft_stages_split(re, im, chain, backward=backward, ordered=True)
+    if ordered or backward:
+        return ar, ai
+    return (_stages.reorder_spectrum(ar, plan.factors, to_canonical=False),
+            _stages.reorder_spectrum(ai, plan.factors, to_canonical=False))
+
+
 # ---------------------------------------------------------------------------
-# Real transform steps, time-major planes [H, B] (H = N/2)
+# Real transform steps, time-major planes [H, B] and batch-major [..., H]
+# (H = N/2).  One body per step, along ``axis`` 0 (time-major) or -1.
 # ---------------------------------------------------------------------------
 
 
@@ -198,6 +323,88 @@ def _mirror(h: int, device) -> torch.Tensor:
     return (h - torch.arange(h, device=device)) % h
 
 
+def _mirrored(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x[(H - k) % H] along ``axis``."""
+
+    return x.index_select(axis, _mirror(x.shape[axis], x.device))
+
+
+def _twiddle_along(real_twiddle, axis: int):
+    wr, wi = real_twiddle
+    return (wr[:, None], wi[:, None]) if axis == 0 else (wr, wi)
+
+
+def _bin0(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return x.select(axis, 0)
+
+
+def _forward_split(zr, zi, real_twiddle, axis: int):
+    """REAL_FINALIZE in the even/odd form along ``axis``."""
+
+    cr, ci = _mirrored(zr, axis), -_mirrored(zi, axis)
+    er, ei = 0.5 * (zr + cr), 0.5 * (zi + ci)
+    orr, oi = 0.5 * (zi - ci), -0.5 * (zr - cr)
+    wr, wi = _twiddle_along(real_twiddle, axis)
+    xr = er + wr * orr - wi * oi
+    xi = ei + wr * oi + wi * orr
+    _bin0(xr, axis).copy_(_bin0(zr, axis) + _bin0(zi, axis))
+    _bin0(xi, axis).copy_(_bin0(zr, axis) - _bin0(zi, axis))
+    return xr, xi
+
+
+def _backward_split(sr, si, real_twiddle, axis: int):
+    """REAL_PREPROCESS in the even/odd form along ``axis``; returns 2*Z."""
+
+    xar = sr
+    xai = si.clone()
+    _bin0(xai, axis).zero_()
+    xbr = _mirrored(sr, axis)
+    _bin0(xbr, axis).copy_(_bin0(si, axis))
+    xbi = _mirrored(xai, axis)
+    er, ei = xar + xbr, xai - xbi
+    dr, di = xar - xbr, xai + xbi
+    wr, wi = _twiddle_along(real_twiddle, axis)
+    orr = wr * dr + wi * di
+    oi = wr * di - wi * dr
+    return er - oi, ei + orr
+
+
+def _forward_split_flat(zr, zi, real_twiddle, axis: int):
+    """REAL_FINALIZE in the flat form, one fused expression per output over
+    Z[k] and Z[(H - k) % H]: the arithmetic, in the same order, of the split
+    kernels (csrc/real.cuh ``real_finalize``)."""
+
+    wr, wi = _twiddle_along(real_twiddle, axis)
+    a = 0.5 * (1.0 + wi)
+    b = 0.5 * wr
+    c = 0.5 * (1.0 - wi)
+    fr, fi = _mirrored(zr, axis), _mirrored(zi, axis)
+    xr = a * zr + b * zi + c * fr + b * fi
+    xi = -b * zr + a * zi + b * fr - c * fi
+    _bin0(xr, axis).copy_(_bin0(zr, axis) + _bin0(zi, axis))
+    _bin0(xi, axis).copy_(_bin0(zr, axis) - _bin0(zi, axis))
+    return xr, xi
+
+
+def _backward_split_flat(sr, si, real_twiddle, axis: int):
+    """REAL_PREPROCESS in the flat form, the arithmetic of the split
+    kernels (csrc/real.cuh ``real_prep``); returns 2*Z."""
+
+    wr, wi = _twiddle_along(real_twiddle, axis)
+    xar = sr
+    xai = si.clone()
+    _bin0(xai, axis).zero_()
+    xbr = _mirrored(sr, axis)
+    _bin0(xbr, axis).copy_(_bin0(si, axis))
+    xbi = _mirrored(si, axis)
+    _bin0(xbi, axis).zero_()
+    p = 1.0 + wi
+    q = 1.0 - wi
+    zr = p * xar - wr * xai + q * xbr - wr * xbi
+    zi = wr * xar + p * xai - wr * xbr - q * xbi
+    return zr, zi
+
+
 def pack_real_input_split_tmajor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N, B] real -> planar [N/2, B] x2, z[m] = x[2m] + i x[2m+1].
 
@@ -212,80 +419,33 @@ def pack_real_input_split_tmajor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
 def _reverse_conj_split_tmajor(zr, zi) -> Tuple[torch.Tensor, torch.Tensor]:
     """y[k] = conj(z[(H - k) mod H]) along axis 0."""
 
-    idx = _mirror(zr.shape[0], zr.device)
-    return zr[idx], -zi[idx]
+    return _mirrored(zr, 0), -_mirrored(zi, 0)
 
 
 def real_forward_split_planar_tmajor(zr, zi, real_twiddle):
     """REAL_FINALIZE in the even/odd form: the length-H transform Z [H, B]
     x2 -> the packed real spectrum, bin0 = DC + i*Nyquist."""
 
-    cr, ci = _reverse_conj_split_tmajor(zr, zi)
-    er, ei = 0.5 * (zr + cr), 0.5 * (zi + ci)
-    orr, oi = 0.5 * (zi - ci), -0.5 * (zr - cr)
-    wr, wi = (w[:, None] for w in real_twiddle)
-    xr = er + wr * orr - wi * oi
-    xi = ei + wr * oi + wi * orr
-    xr[0] = zr[0] + zi[0]
-    xi[0] = zr[0] - zi[0]
-    return xr, xi
+    return _forward_split(zr, zi, real_twiddle, 0)
 
 
 def real_backward_split_planar_tmajor(sr, si, real_twiddle):
     """REAL_PREPROCESS in the even/odd form: the packed spectrum [H, B] x2
     -> 2*Z, the input of the backward length-H transform."""
 
-    idx = _mirror(sr.shape[0], sr.device)
-    xar = sr
-    xai = si.clone()
-    xai[0] = 0.0
-    xbr = sr[idx]
-    xbr[0] = si[0]
-    xbi = xai[idx]
-    er, ei = xar + xbr, xai - xbi
-    dr, di = xar - xbr, xai + xbi
-    wr, wi = (w[:, None] for w in real_twiddle)
-    orr = wr * dr + wi * di
-    oi = wr * di - wi * dr
-    return er - oi, ei + orr
+    return _backward_split(sr, si, real_twiddle, 0)
 
 
 def real_forward_split_planar_tmajor_flat(zr, zi, real_twiddle):
-    """REAL_FINALIZE in the flat form, one fused expression per output over
-    Z[k] and Z[(H - k) % H]: the arithmetic, in the same order, of the split
-    kernels (csrc/real.cuh ``real_finalize``)."""
+    """REAL_FINALIZE in the flat form on [H, B] planes (csrc/real.cuh)."""
 
-    wr, wi = (w[:, None] for w in real_twiddle)
-    a = 0.5 * (1.0 + wi)
-    b = 0.5 * wr
-    c = 0.5 * (1.0 - wi)
-    idx = _mirror(zr.shape[0], zr.device)
-    fr, fi = zr[idx], zi[idx]
-    xr = a * zr + b * zi + c * fr + b * fi
-    xi = -b * zr + a * zi + b * fr - c * fi
-    xr[0] = zr[0] + zi[0]
-    xi[0] = zr[0] - zi[0]
-    return xr, xi
+    return _forward_split_flat(zr, zi, real_twiddle, 0)
 
 
 def real_backward_split_planar_tmajor_flat(sr, si, real_twiddle):
-    """REAL_PREPROCESS in the flat form, the arithmetic of the split
-    kernels (csrc/real.cuh ``real_prep``); returns 2*Z."""
+    """REAL_PREPROCESS in the flat form on [H, B] planes; returns 2*Z."""
 
-    wr, wi = (w[:, None] for w in real_twiddle)
-    idx = _mirror(sr.shape[0], sr.device)
-    xar = sr
-    xai = si.clone()
-    xai[0] = 0.0
-    xbr = sr[idx]
-    xbr[0] = si[0]
-    xbi = si[idx]
-    xbi[0] = 0.0
-    p = 1.0 + wi
-    q = 1.0 - wi
-    zr = p * xar - wr * xai + q * xbr - wr * xbi
-    zi = wr * xar + p * xai - wr * xbr - q * xbi
-    return zr, zi
+    return _backward_split_flat(sr, si, real_twiddle, 0)
 
 
 def interleave_to_real_split_tmajor(wr, wi) -> torch.Tensor:
@@ -294,3 +454,59 @@ def interleave_to_real_split_tmajor(wr, wi) -> torch.Tensor:
 
     h, b = wr.shape
     return torch.cat([wr, wi], dim=1).reshape(2 * h, b)
+
+
+def _reverse_conj_split(zr, zi) -> SplitPair:
+    """y[k] = conj(z[(H - k) mod H]) along the last axis."""
+
+    return _mirrored(zr, -1), -_mirrored(zi, -1)
+
+
+def _set_bin0(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A copy of x with x[..., 0] = v."""
+
+    out = x.clone()
+    out[..., 0] = v
+    return out
+
+
+def pack_real_input_split(x: torch.Tensor) -> SplitPair:
+    """[..., N] real -> contiguous planar [..., N/2] x2, z[m] = x[2m] + i x[2m+1].
+
+    One copy: the even and odd samples de-interleaved into two planes."""
+
+    lead = x.shape[:-1]
+    t = x.reshape(*lead, x.shape[-1] // 2, 2).movedim(-1, 0).contiguous()
+    return t[0], t[1]
+
+
+def real_forward_split_planar(zr, zi, real_twiddle) -> SplitPair:
+    """REAL_FINALIZE on [..., H] planes, the even/odd form (pffft bin0
+    packing: DC + i*Nyquist)."""
+
+    return _forward_split(zr, zi, real_twiddle, -1)
+
+
+def real_backward_split_planar(sr, si, real_twiddle) -> SplitPair:
+    """REAL_PREPROCESS on [..., H] planes, the even/odd form; returns 2*Z."""
+
+    return _backward_split(sr, si, real_twiddle, -1)
+
+
+def real_forward_split_planar_flat(zr, zi, real_twiddle) -> SplitPair:
+    """REAL_FINALIZE on [..., H] planes in the flat form (csrc/real.cuh)."""
+
+    return _forward_split_flat(zr, zi, real_twiddle, -1)
+
+
+def real_backward_split_planar_flat(sr, si, real_twiddle) -> SplitPair:
+    """REAL_PREPROCESS on [..., H] planes in the flat form; returns 2*Z."""
+
+    return _backward_split_flat(sr, si, real_twiddle, -1)
+
+
+def interleave_to_real_split(wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+    """Planar [..., H] x2 -> [..., N] real: x[2m] = re, x[2m+1] = im (one copy)."""
+
+    lead = wr.shape[:-1]
+    return torch.stack([wr, wi], dim=-1).reshape(*lead, 2 * wr.shape[-1])

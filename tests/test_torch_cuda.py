@@ -16,7 +16,9 @@ import torch
 import pffft_tpu_torch as pt
 from pffft_tpu_torch.ops import _build
 from pffft_tpu_torch.ops import dispatch as D
+from pffft_tpu_torch.ops import fused_stage as fs
 from pffft_tpu_torch.ops import pallas_fft as pk
+from pffft_tpu_torch.ops import real_kernel as rk
 
 # CUDA kernel vs its plain version, relative to max|plain|: nvcc contracts
 # a*b+c into FMAs, which round once where the plain version rounds twice
@@ -403,3 +405,136 @@ def test_channelizer_on_the_card_matches_oracle(cuda_device, m, p):
         v += xd[:, idx] * h[s]
     ref = torch.fft.ifft(v, dim=-1) * m
     assert _rel(y, ref) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The batch-major transforms: the fused two-stage kernel (B9), the
+# batch-major split kernel (B6), and the public API on the card
+# ---------------------------------------------------------------------------
+
+def _rows(b, n, seed, dev):
+    return tuple(t.t().contiguous() for t in _planes(n, b, seed, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mf", [(1024, 32), (1536, 48), (2400, 64), (4096, 64), (96, 16),
+                                  (16384, 128)])
+@pytest.mark.parametrize("b", [13, 1000, 1001])  # ragged last tile, aligned, odd
+def test_fused2_kernel_matches_plain(cuda_device, n, mf, b):
+    plan = pt.new_setup(n, max_factor=mf, strict=False)
+    assert fs.supported(plan)
+    re, im = _rows(b, n, n + b, cuda_device)
+    for ordered in (True, False):
+        for backward in (False, True):
+            before = fs.cfft_fused2.launches
+            _hold(fs.cfft_fused2(plan, re, im, backward=backward, ordered=ordered),
+                  fs.cfft_fused2_plain(plan, re, im, backward=backward, ordered=ordered))
+            assert fs.cfft_fused2.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_fused2_kernel_scalar_path(cuda_device):
+    """N % 4 != 0 (a derived length no public plan has) and a misaligned
+    view take the kernel's scalar loads and stores."""
+
+    plan = pt.new_setup(90, factors=(10, 9), strict=False)
+    re, im = _rows(37, 90, 1, cuda_device)
+    _hold(fs.cfft_fused2(plan, re, im, ordered=False),
+          fs.cfft_fused2_plain(plan, re, im, ordered=False))
+    plan = pt.new_setup(1024, max_factor=32)
+    base = _planes(1, 1024 * 9 + 1, 2, cuda_device)
+    re, im = (t.view(-1)[1:].reshape(9, 1024) for t in base)
+    _hold(fs.cfft_fused2(plan, re, im), fs.cfft_fused2_plain(plan, re, im))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 48, 4096, 3 * (1 << 14)])
+@pytest.mark.parametrize("b", [1, 7, 33])
+def test_bmajor_split_kernel_matches_plain(cuda_device, h, b):
+    tw = _real_tw(h, cuda_device)
+    zr, zi = _rows(b, h, h + b, cuda_device)
+    for backward in (False, True):
+        before = rk.real_split.launches
+        _hold(rk.real_split(zr, zi, tw, backward=backward),
+              rk.real_split_plain(zr, zi, tw, backward=backward))
+        assert rk.real_split.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [pt.new_setup(1024), pt.new_setup(16),
+                                  pt.new_setup(2048, pt.REAL)],
+                         ids=["1024-five-stage", "16", "real-2048"])
+def test_fused2_ordered_kernel_takes_any_plan(cuda_device, plan):
+    n = plan.engine_n
+    re, im = _rows(13, n, n, cuda_device)
+    for backward in (False, True):
+        before = fs.cfft_fused2.launches
+        _hold(fs.cfft_fused2(plan, re, im, backward=backward),
+              fs.cfft_fused2_plain(plan, re, im, backward=backward))
+        assert fs.cfft_fused2.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_refused_bmajor_launches_raise(cuda_device, monkeypatch):
+    """A tile too large for one block is refused before launch and raises;
+    the counter does not move."""
+
+    plan = pt.new_setup(4096, max_factor=64)
+    re, im = _rows(64, 4096, 3, cuda_device)
+    before = fs.cfft_fused2.launches
+    monkeypatch.setattr(fs, "fused2_tile", lambda *a, **k: 64)  # a tile plan gone wrong
+    with pytest.raises(RuntimeError, match="fused two-stage kernel"):
+        fs.cfft_fused2(plan, re, im)
+    assert fs.cfft_fused2.launches == before
+    with pytest.raises(ValueError, match="contiguous float32"):
+        rk.real_split(re.t(), im.t(), _real_tw(64, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,engine", [(96, "fused2"), (2400, "fused2"), (16384, "fused2"),
+                                      (65536, "tmajor")])
+def test_bmajor_transform_on_the_card_matches_oracle(cuda_device, n, engine):
+    plan = pt.new_setup(n)
+    assert D.select_engine(plan, 15, time_major=False, device=cuda_device) == engine
+    re, im = (t.reshape(3, 5, n) for t in _rows(15, n, n, cuda_device))
+    x = torch.complex(re, im)
+    keep = x.clone()
+    before = fs.cfft_fused2.launches
+    y = pt.transform_ordered(plan, x)
+    back = pt.icfft(plan, y)
+    torch.cuda.synchronize()
+    assert fs.cfft_fused2.launches == before + (2 if engine == "fused2" else 0)
+    assert y.dtype == torch.complex64 and y.shape == x.shape
+    ref = torch.fft.fft(x.to(torch.complex128), dim=-1)
+    assert _rel(y.to(torch.complex128), ref) <= ORACLE_TOL
+    assert _rel(back / n, x) <= ORACLE_TOL
+    assert torch.equal(x, keep)
+    sr, si = pt.transform_ordered_split(plan, (re, im))
+    assert _rel(torch.complex(sr, si).to(torch.complex128), ref) <= ORACLE_TOL
+    # internal order and back
+    z = pt.transform(plan, x)
+    assert _rel(pt.zreorder(plan, z).to(torch.complex128), ref) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,engine", [(192, "fused2"), (2048, "fused2"), (32768, "fused2"),
+                                      (131072, "tmajor")])
+def test_bmajor_real_transform_on_the_card_matches_oracle(cuda_device, n, engine):
+    plan = pt.new_setup(n, pt.REAL)
+    assert D.select_engine(plan, 6, time_major=False, device=cuda_device) == engine
+    x = _rows(6, n, n, cuda_device)[0].reshape(2, 3, n)
+    counts = lambda: (rk.real_split.launches, fs.cfft_fused2.launches)
+    c0 = counts()
+    s = pt.rfft_packed(plan, x)
+    c1 = counts()
+    back = pt.irfft_packed(plan, s)
+    torch.cuda.synchronize()
+    c2 = counts()
+    b9 = 1 if engine == "fused2" else 0
+    assert (c1[0] - c0[0], c1[1] - c0[1]) == (1, b9)
+    assert (c2[0] - c1[0], c2[1] - c1[1]) == (1, b9)
+    ref = torch.fft.rfft(x.double(), dim=-1)
+    packed = ref[..., : n // 2].clone()
+    packed[..., 0] = torch.complex(ref[..., 0].real, ref[..., n // 2].real)
+    assert s.shape == (2, 3, n // 2) and _rel(s.to(torch.complex128), packed) <= ORACLE_TOL
+    assert back.shape == x.shape and _rel(back / n, x) <= ORACLE_TOL

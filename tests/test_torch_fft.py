@@ -122,7 +122,8 @@ def test_engine_follows_coverage(n, engine):
 
 def test_unported_dtypes_have_only_the_stage_engine():
     assert D.available_engines(pt.new_setup(1024, dtype="float64"), 8) == ("stages",)
-    assert D.available_engines(pt.new_setup(1024), 8, time_major=False) == ()
+    assert D.available_engines(pt.new_setup(1024, dtype="float64"), 8,
+                               time_major=False) == ("stages",)
 
 
 @pytest.mark.parametrize("engine", D.ENGINES)
