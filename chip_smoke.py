@@ -41,10 +41,22 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      ``transform_ordered_split`` on REAL plans at the real band shapes as
      [B, N] signals, against a complex128 ``torch.fft.rfft``; the
      batch-major split kernel once per call and direction;
- 10. timing with CUDA events (median of 10 after warm-up), per band shape,
+ 10. B10, the in-kernel ksplit, through its entry point
+     ``dispatch.cfft_ksplit2_tmajor`` (no route picks it) at (N, B) = (4096,
+     4096), (8192, 2048) and (16384, 1024), forward and backward, against a
+     complex128 ``torch.fft.fft(dim=0)``, the unscaled round trip and the
+     140 dB carrier; two launches per shape;
+ 11. the ``"ksplit"`` engine, forced with ``set_engine``, through the public
+     time-major call: complex at (2048, 8192) and (4096, 4096), real at N =
+     4096 and 8192; the chain once per call (and the split kernel for real);
+ 12. float64 plans, complex and real, time-major and batch-major, at (N, B)
+     = (4096, 2048) and (65536, 128) (64 MB per f64 plane) against complex128
+     ``torch.fft``, the 215 dB carrier, one float64 FastConv run; no f32
+     kernel may launch;
+ 13. timing with CUDA events (median of 10 after warm-up), per band shape,
      per kernel and per FIR pipeline, beside the bound, the plain version
      and a library yardstick (torch.fft, conv1d);
- 11. the ``kernels`` line, the card line, and the final ``ok`` line.
+ 14. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 repository checkout.  It imports neither jax nor pffft_tpu.
@@ -90,7 +102,8 @@ SEED = 1234
 WRAPPERS = (pk.cfft_chain_tmajor, pk.cfft_combine_tmajor, pk.stream_copy,
             pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
             pk.rfft_bwd_chain_tmajor_fused, pk.real_split_tmajor, ck.zconv_tmajor,
-            pfb.pfb_fir, pfb.pfb_fir_stream_tmajor, fs.cfft_fused2, rk.real_split)
+            pfb.pfb_fir, pfb.pfb_fir_stream_tmajor, fs.cfft_fused2, rk.real_split,
+            D.cfft_ksplit2_tmajor)
 # the fused two-stage kernel on two-stage plans (N, max_factor)
 FUSED2_PLANS = ((1024, 32), (1536, 48), (2400, 64), (4096, 64))
 # FastConv: a 16-channel real stream of 2^22 samples (256 MB), filtered by
@@ -100,6 +113,15 @@ CONV_ROWS, CONV_LEN, CONV_TAPS = 16, 1 << 22, (64, 1024, 4096)
 FLAG_ROWS, FLAG_LEN, FLAG_TAPS = 4, 1 << 20, 1024
 # the channelizer: (M, P, batch, frames per step), 64 MB per plane per step
 CHAN_CONFIGS = ((4096, 8, 4, 1024), (1024, 8, 16, 1024))
+# B10 at the band shapes its tile holds, with the default conf (2048, N/2048)
+KSPLIT2_BAND = ((4096, 4096), (8192, 2048), (16384, 1024))
+# the "ksplit" engine: complex (N, B) and real (N, B)
+KSPLIT_BAND = ((2048, 8192), (4096, 4096))
+KSPLIT_REAL_BAND = ((4096, 4096), (8192, 2048))
+# float64 plans: (N, B), a 64 MB float64 plane
+F64_SHAPES = ((4096, 2048), (65536, 128))
+F64_TOL = 1e-12      # vs the complex128 oracle, relative to max|oracle|
+F64_CARRIER_DB = 215.0
 
 
 def emit(obj) -> None:
@@ -218,7 +240,7 @@ def phase_kernels(gen):
     dev = torch.device("cuda")
     errs = {name: 0.0 for name in ("chain", "combine", "chain_packed", "real_fused",
                                    "real_split", "conv_fused", "pfb_fir", "fused2",
-                                   "real_split_bmajor")}
+                                   "real_split_bmajor", "ksplit2")}
 
     def hold(name, kern, plain, case, dirs=(False, True)):
         for bwd in dirs:
@@ -396,6 +418,23 @@ def phase_kernels(gen):
     for h in (16, 48, 4096, 3 << 14):
         for b in (33, 1001):
             split_b_case(h, b)
+    def ksplit2_case(n, b, conf=None):
+        plan = pt.new_setup(n, strict=False)
+        mplan, last = D._build_ksplit(n, *(conf or (2048, n // 2048)))
+        re, im = planes(n, b, gen)
+        hold("ksplit2",
+             lambda bwd: D.cfft_ksplit2_tmajor(plan, re, im, backward=bwd, conf=conf),
+             lambda bwd: D.ksplit2_tmajor_plain(mplan, last, re, im, backward=bwd),
+             {"n": n, "b": b, "m": mplan.engine_n, "r": last.r,
+              "tb": D.ksplit2_tile(mplan, last.r, dev)})
+
+    # B10 at the shapes its phase gives it, and at small, non-power-of-two
+    # and radix-16/32 splits with ragged and odd batches (scalar loads)
+    for n, b in KSPLIT2_BAND:
+        ksplit2_case(n, b)
+    for n, conf in ((640, (128, 5)), (384, (128, 3)), (2048, (128, 16)), (4096, (128, 32))):
+        for b in (1024, 1000, 1001):
+            ksplit2_case(n, b, conf)
     re, im = planes(1024, 16384, gen)
     cr, ci = pk.stream_copy(re, im)
     torch.cuda.synchronize()
@@ -424,9 +463,11 @@ def conv_columns(fc, rows: int, length: int) -> int:
     return -(-(rows * nb // 2) // 4) * 4
 
 
-def carrier_db(n: int, bmajor: bool = False) -> float:
+def carrier_db(n: int, bmajor: bool = False, run=None, dtype: str = "float32") -> float:
     """Smallest carrier dynamic range over the test_pffft.c carrier sweep,
-    through the time-major planes or (``bmajor``) the complex64 rows."""
+    through the time-major planes or (``bmajor``) the complex rows, on a
+    plan of ``dtype``; ``run(plan, re, im)`` replaces the public time-major
+    call."""
 
     ks = list(range(0, n, max(1, n // 16)))
     cols = []
@@ -435,13 +476,16 @@ def carrier_db(n: int, bmajor: bool = False) -> float:
         phi = (j % 4) * 0.125 * np.pi + 2.0 * np.pi * ((k if k < n / 2 else k - n) / n) \
             * np.arange(n, dtype=np.float64)
         cols.append(amp * np.exp(1j * phi))
-    x = np.stack(cols, axis=1).astype(np.complex64)
-    plan = pt.new_setup(n)
+    x = np.stack(cols, axis=1).astype(np.complex64 if dtype == "float32" else np.complex128)
+    plan = pt.new_setup(n, dtype=dtype)
     if bmajor:
         y = pt.transform_ordered(plan, x.T.copy(), device="cuda").cpu().numpy().T
         y = y.astype(np.complex128)
     else:
-        yr, yi = pt.transform_ordered_split_tmajor(plan, (x.real, x.imag), device="cuda")
+        if run is None:
+            run = lambda p, re, im: pt.transform_ordered_split_tmajor(p, (re, im))
+        yr, yi = run(plan, *(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                             for a in (x.real, x.imag)))
         y = yr.cpu().numpy().astype(np.float64) + 1j * yi.cpu().numpy()
     worst = np.inf
     for j, k in enumerate(ks):
@@ -494,10 +538,11 @@ def phase_main_path(gen):
     return launches, per_shape
 
 
-def real_carrier_db(n: int, bmajor: bool = False) -> float:
+def real_carrier_db(n: int, bmajor: bool = False, dtype: str = "float32") -> float:
     """Smallest carrier dynamic range over the test_pffft.c real carrier
     sweep (cosines at bins 0 .. N/2; the packed bin0 is DC + i*Nyquist),
-    through the time-major planes or (``bmajor``) the [K, N] rows."""
+    through the time-major planes or (``bmajor``) the [K, N] rows, on a
+    plan of ``dtype``."""
 
     ks = list(range(0, n // 2 + 1, max(1, n // 16)))
     cols = []
@@ -505,8 +550,8 @@ def real_carrier_db(n: int, bmajor: bool = False) -> float:
         amp = 1.0 if j % 3 == 0 else 1.1
         cols.append(amp * np.cos((j % 4) * 0.125 * np.pi
                                  + 2.0 * np.pi * (k / n) * np.arange(n, dtype=np.float64)))
-    x = np.stack(cols, axis=1).astype(np.float32)
-    plan = pt.new_setup(n, pt.REAL)
+    x = np.stack(cols, axis=1).astype(dtype)
+    plan = pt.new_setup(n, pt.REAL, dtype=dtype)
     if bmajor:
         y = pt.rfft_packed(plan, x.T.copy(), device="cuda").cpu().numpy().T
         yr, yi = y.real.astype(np.float64), y.imag.astype(np.float64)
@@ -1326,6 +1371,233 @@ def phase_fir_timing(gen, conv_runs, chan_runs):
     return rows
 
 
+def sampled_oracle(re, im, cols):
+    """complex128 ``torch.fft.fft(dim=0)`` of the sampled columns."""
+
+    return torch.fft.fft(torch.complex(re[:, cols].double(), im[:, cols].double()), dim=0)
+
+
+def phase_ksplit2(gen):
+    """B10 through its entry point at the band shapes its tile holds (no
+    route of the dispatcher picks it, as in the reference); returns the
+    launch counts."""
+
+    reset_counts()
+    for n, b in KSPLIT2_BAND:
+        plan = pt.new_setup(n)
+        re, im = planes(n, b, gen)
+        c0 = counts()
+        yr, yi = D.cfft_ksplit2_tmajor(plan, re, im)
+        br, bi = D.cfft_ksplit2_tmajor(plan, yr, yi, backward=True)
+        torch.cuda.synchronize()
+        delta = launched(counts(), c0)
+        cols = sample_rows(b)
+        e_fwd = rel_err(torch.complex(yr[:, cols].double(), yi[:, cols].double()),
+                        sampled_oracle(re, im, cols))
+        y = torch.complex(yr[:, cols].double(), yi[:, cols].double())
+        e_bwd = rel_err(torch.complex(br[:, cols].double(), bi[:, cols].double()),
+                        torch.fft.ifft(y, dim=0) * n)
+        e_rt = max(rel_err(br / n, re), rel_err(bi / n, im))
+        finite = bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()
+                      and torch.isfinite(br).all() and torch.isfinite(bi).all())
+        emit({"phase": "ksplit2", "n": n, "b": b, "conf": [2048, n // 2048],
+              "fwd_rel_err": e_fwd, "bwd_rel_err": e_bwd, "roundtrip_rel_err": e_rt,
+              "finite": finite, "launches": delta})
+        check(finite and yr.shape == (n, b), f"ksplit2 N={n}: output not finite/shaped")
+        check(max(e_fwd, e_bwd) <= ORACLE_TOL, f"ksplit2 N={n}: oracle error {e_fwd}, {e_bwd}")
+        check(e_rt <= ROUND_TRIP_TOL, f"ksplit2 N={n}: round-trip error {e_rt}")
+        check(delta == {"cfft_ksplit2_tmajor": 2}, f"ksplit2 N={n}: launches {delta}")
+        del re, im, yr, yi, br, bi
+    for n, _ in KSPLIT2_BAND:
+        db = carrier_db(n, run=lambda p, re, im: D.cfft_ksplit2_tmajor(p, re, im))
+        emit({"phase": "ksplit2", "carrier_n": n, "dynamic_range_db": db})
+        check(db >= CARRIER_DB, f"ksplit2 N={n}: carrier dynamic range {db} dB")
+    launches = counts()
+    emit({"phase": "ksplit2", "launches": launches})
+    return launches
+
+
+def phase_ksplit2_timing(gen):
+    """B10 beside kern2 on the same planes, the plain version, the bound and
+    ``torch.fft.fft(dim=0)``, per band shape; returns B10's row."""
+
+    dev = torch.device("cuda")
+    rows = {}
+    for n, b in KSPLIT2_BAND:
+        plan = pt.new_setup(n)
+        re, im = planes(n, b, gen)
+        mplan, last = D._build_ksplit(n, 2048, n // 2048)
+        z = torch.complex(re, im)
+        bnd = bound(16.0 * n * b, fft_flops(n, b))
+        rec = {"phase": "ksplit2_time", "n": n, "b": b, "conf": [2048, n // 2048],
+               "tb": D.ksplit2_tile(mplan, last.r, dev),
+               "ksplit2_ms": time_ms(lambda: D.cfft_ksplit2_tmajor(plan, re, im)),
+               "ksplit2_bwd_ms": time_ms(
+                   lambda: D.cfft_ksplit2_tmajor(plan, re, im, backward=True)),
+               "kern2_ms": time_ms(lambda: D.cfft_kern2_tmajor(plan, re, im)),
+               "kern2_conf": list(D._kern2_conf(n, dev)),
+               "plain_ms": time_ms(lambda: D.ksplit2_tmajor_plain(mplan, last, re, im),
+                                   inner=1),
+               "library_ms": time_ms(lambda: torch.fft.fft(z, dim=0)),
+               "bound_ms": bnd[0], "bound_by": bnd[1]}
+        rec["frac_bound"] = bnd[0] / rec["ksplit2_ms"]
+        emit(rec)
+        if n == 4096:
+            rows["ksplit2"] = dict(ms=rec["ksplit2_ms"], bwd_ms=rec["ksplit2_bwd_ms"],
+                                   plain_ms=rec["plain_ms"], library_ms=rec["library_ms"],
+                                   kern2_ms=rec["kern2_ms"], shape=[n, b], bound_ms=bnd[0],
+                                   bound_by=bnd[1])
+        del re, im, z
+    return rows
+
+
+def phase_ksplit(gen):
+    """The "ksplit" engine (never a default) forced through the public
+    time-major call, complex and real; returns the launch counts."""
+
+    dev = torch.device("cuda")
+    reset_counts()
+    times = []
+    D.set_engine("ksplit")
+    try:
+        for n, b in KSPLIT_BAND:
+            plan = pt.new_setup(n)
+            check(D.select_engine(plan, b, True, dev) == "ksplit", f"ksplit N={n}: engine")
+            re, im = planes(n, b, gen)
+            c0 = counts()
+            yr, yi = pt.transform_ordered_split_tmajor(plan, (re, im))
+            c1 = counts()
+            br, bi = pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD)
+            torch.cuda.synchronize()
+            fwd, bwd = launched(c1, c0), launched(counts(), c1)
+            cols = sample_rows(b)
+            e_fwd = rel_err(torch.complex(yr[:, cols].double(), yi[:, cols].double()),
+                            sampled_oracle(re, im, cols))
+            e_rt = max(rel_err(br / n, re), rel_err(bi / n, im))
+            emit({"phase": "ksplit", "n": n, "b": b, "conf": list(D._ksplit_conf(n, dev)),
+                  "fwd_rel_err": e_fwd, "roundtrip_rel_err": e_rt, "fwd_launches": fwd,
+                  "bwd_launches": bwd})
+            check(e_fwd <= ORACLE_TOL and e_rt <= ROUND_TRIP_TOL,
+                  f"ksplit N={n}: errors {e_fwd}, {e_rt}")
+            want = {"cfft_chain_tmajor": 1}
+            check(fwd == want and bwd == want, f"ksplit N={n}: launches {fwd}, {bwd}")
+            times.append((n, b, lambda plan=plan, re=re, im=im:
+                          pt.transform_ordered_split_tmajor(plan, (re, im))))
+        for n, b in KSPLIT_REAL_BAND:
+            plan = pt.new_setup(n, pt.REAL)
+            x = torch.randn((n, b), generator=gen, device="cuda")
+            c0 = counts()
+            yr, yi = pt.transform_ordered_split_tmajor(plan, x)
+            c1 = counts()
+            back = pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD)
+            torch.cuda.synchronize()
+            fwd, bwd = launched(c1, c0), launched(counts(), c1)
+            cols = sample_rows(b)
+            ref = torch.fft.rfft(x[:, cols].double(), dim=0)
+            packed = ref[: n // 2].clone()
+            packed[0] = torch.complex(ref[0].real, ref[n // 2].real)
+            e_fwd = rel_err(torch.complex(yr[:, cols].double(), yi[:, cols].double()), packed)
+            e_rt = rel_err(back / n, x)
+            emit({"phase": "ksplit", "real_n": n, "b": b,
+                  "conf": list(D._ksplit_conf(n // 2, dev)), "fwd_rel_err": e_fwd,
+                  "roundtrip_rel_err": e_rt, "fwd_launches": fwd, "bwd_launches": bwd})
+            check(e_fwd <= ORACLE_TOL and e_rt <= ROUND_TRIP_TOL,
+                  f"ksplit real N={n}: errors {e_fwd}, {e_rt}")
+            want = {"cfft_chain_tmajor": 1, "real_split_tmajor": 1}
+            check(fwd == want and bwd == want, f"ksplit real N={n}: launches {fwd}, {bwd}")
+        launches = counts()
+        for n, b, fn in times:
+            emit({"phase": "ksplit_time", "n": n, "b": b, "fwd_ms": time_ms(fn)})
+    finally:
+        D.set_engine(None)
+    emit({"phase": "ksplit", "launches": launches})
+    return launches
+
+
+def phase_f64(gen):
+    """Float64 plans through the public calls, against complex128
+    ``torch.fft``, with their times; no f32 kernel may launch."""
+
+    c0 = counts()
+    f64 = {"dtype": torch.float64, "device": "cuda", "generator": gen}
+    for n, b in F64_SHAPES:
+        plan = pt.new_setup(n, dtype="float64")
+        rplan = pt.new_setup(n, pt.REAL, dtype="float64")
+        re, im = torch.randn((n, b), **f64), torch.randn((n, b), **f64)
+        z = torch.complex(re, im)
+        zb = z.T.contiguous()
+        ref = torch.fft.fft(z, dim=0)
+        yr, yi = pt.transform_ordered_split_tmajor(plan, (re, im))
+        y = torch.complex(yr, yi)
+        br, bi = pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD)
+        yb = pt.transform_ordered(plan, zb)
+        bb = pt.transform_ordered(plan, yb, pt.BACKWARD)
+        x = re
+        rref = torch.fft.rfft(x, dim=0)
+        packed = rref[: n // 2].clone()
+        packed[0] = torch.complex(rref[0].real, rref[n // 2].real)
+        sr, si = pt.transform_ordered_split_tmajor(rplan, x)
+        xb = pt.transform_ordered_split_tmajor(rplan, (sr, si), pt.BACKWARD)
+        s = pt.rfft_packed(rplan, x.T.contiguous())
+        xb2 = pt.irfft_packed(rplan, s)
+        torch.cuda.synchronize()
+        errs = {
+            "tmajor_fwd": rel_err(y, ref),
+            "tmajor_bwd": rel_err(torch.complex(br, bi), torch.fft.ifft(y, dim=0) * n),
+            "tmajor_roundtrip": rel_err(torch.complex(br, bi) / n, z),
+            "bmajor_fwd": rel_err(yb, ref.T),
+            "bmajor_bwd": rel_err(bb, torch.fft.ifft(yb, dim=-1) * n),
+            "real_tmajor_fwd": rel_err(torch.complex(sr, si), packed),
+            "real_tmajor_roundtrip": rel_err(xb / n, x),
+            "real_bmajor_fwd": rel_err(s, packed.T),
+            "real_bmajor_roundtrip": rel_err(xb2 / n, x.T),
+        }
+        typed = (yr.dtype == sr.dtype == xb.dtype == xb2.dtype == torch.float64
+                 and yb.dtype == s.dtype == torch.complex128)
+        emit({"phase": "f64", "n": n, "b": b, "typed": typed,
+              **{k + "_rel_err": v for k, v in errs.items()}})
+        check(typed, f"f64 N={n}: output dtypes")
+        check(max(errs.values()) <= F64_TOL, f"f64 N={n}: errors {errs}")
+        # complex: two f64 planes read and written; real: the [N, B] signal
+        # read, two [N/2, B] planes written
+        cb = bound(32.0 * n * b, fft_flops(n, b))
+        rb = bound(16.0 * n * b, fft_flops(n // 2, b) + 16.0 * (n // 2) * b)
+        rec = {"phase": "f64_time", "n": n, "b": b, "engine": D.select_engine(plan, b),
+               "tmajor_fwd_ms": time_ms(lambda: pt.transform_ordered_split_tmajor(
+                   plan, (re, im)), inner=2),
+               "bmajor_fwd_ms": time_ms(lambda: pt.transform_ordered(plan, zb), inner=2),
+               "real_tmajor_fwd_ms": time_ms(lambda: pt.transform_ordered_split_tmajor(
+                   rplan, x), inner=2),
+               "library_tmajor_ms": time_ms(lambda: torch.fft.fft(z, dim=0)),
+               "library_bmajor_ms": time_ms(lambda: torch.fft.fft(zb, dim=-1)),
+               "library_real_tmajor_ms": time_ms(lambda: torch.fft.rfft(x, dim=0)),
+               "bound_ms": cb[0], "bound_by": cb[1], "real_bound_ms": rb[0]}
+        emit(rec)
+        del re, im, z, zb, ref, y, yr, yi, br, bi, yb, bb, rref, packed, sr, si, xb, s, xb2
+    for n in (4096, 65536):
+        dbs = {"tmajor": carrier_db(n, dtype="float64"),
+               "bmajor": carrier_db(n, bmajor=True, dtype="float64"),
+               "real_tmajor": real_carrier_db(n, dtype="float64"),
+               "real_bmajor": real_carrier_db(n, bmajor=True, dtype="float64")}
+        emit({"phase": "f64", "carrier_n": n, "dynamic_range_db": dbs})
+        check(min(dbs.values()) >= F64_CARRIER_DB, f"f64 N={n}: carrier dynamic range {dbs}")
+    # one float64 FastConv run: the "tmajor" route on the stage engine
+    h = pt.design_lowpass(FLAG_TAPS, 0.1)
+    fc = C.FastConv(h, dtype="float64")
+    x = torch.randn((FLAG_ROWS, FLAG_LEN), **f64)
+    y = fc.apply_batched(x)
+    torch.cuda.synchronize()
+    err = max(rel_err(y[r], conv_oracle(x[r], h)) for r in (0, FLAG_ROWS - 1))
+    ms = time_ms(lambda: fc.apply_batched(x), inner=1)
+    emit({"phase": "f64", "fastconv": list(x.shape), "taps": FLAG_TAPS, "nfft": fc.nfft,
+          "dtype": str(y.dtype), "oracle_rel_err": err, "ms": ms})
+    check(y.dtype == torch.float64 and y.shape == (FLAG_ROWS, FLAG_LEN - FLAG_TAPS + 1)
+          and err <= F64_TOL, f"f64 FastConv: {y.dtype} {tuple(y.shape)}, error {err}")
+    delta = launched(counts(), c0)
+    emit({"phase": "f64", "f32_kernel_launches": delta})
+    check(delta == {}, f"float64 calls launched f32 kernels: {delta}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1342,12 +1614,16 @@ def main() -> int:
     chan_launches, chan_runs = phase_channelizer(gen)
     bm_launches, bm_shapes = phase_bmajor_main(gen)
     bmr_launches, bmr_shapes = phase_bmajor_real_main(gen)
+    ks2_launches = phase_ksplit2(gen)
+    ksplit_launches = phase_ksplit(gen)
+    phase_f64(gen)
     rows = phase_timing(gen, per_shape)
     rows.update(phase_real_timing(gen, real_shapes))
     rows.update(phase_fir_timing(gen, conv_runs, chan_runs))
     rows.update(phase_bmajor_timing(gen, bm_shapes, bmr_shapes))
+    rows.update(phase_ksplit2_timing(gen))
     for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split",
-                 "conv_fused", "pfb_fir", "fused2", "real_split_bmajor"):
+                 "conv_fused", "pfb_fir", "fused2", "real_split_bmajor", "ksplit2"):
         check(name in rows, f"no timing row for {name}")
     check(launches["cfft_chain_tmajor"] > 0 and launches["cfft_combine_tmajor"] > 0,
           f"complex main path did not launch every path kernel: {launches}")
@@ -1367,11 +1643,16 @@ def main() -> int:
     for name in ("cfft_fused2", "real_split", "cfft_chain_tmajor", "cfft_combine_tmajor"):
         check(bmr_launches[name] > 0,
               f"batch-major real path did not launch every path kernel: {bmr_launches}")
+    check(ks2_launches["cfft_ksplit2_tmajor"] > 0, f"B10's path did not launch it: {ks2_launches}")
+    for name in ("cfft_chain_tmajor", "real_split_tmajor"):
+        check(ksplit_launches[name] > 0,
+              f"ksplit path did not launch every path kernel: {ksplit_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    # launches: the count over the six main-path runs (each from zero)
+    # launches: the count over the eight main-path runs (each from zero); the
+    # float64 phase launches none
     paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
-             bmr_launches)
+             bmr_launches, ks2_launches, ksplit_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),
@@ -1394,6 +1675,8 @@ def main() -> int:
                    ("cfft_fused2",)),
         "real_split_bmajor": ("pffft_tpu_torch/csrc/real_split_bmajor.cu",
                               "pffft_tpu/ops/real_kernel.py:144", ("real_split",)),
+        "ksplit2": ("pffft_tpu_torch/csrc/ksplit2.cu", "pffft_tpu/ops/dispatch.py:278",
+                    ("cfft_ksplit2_tmajor",)),
     }
     kernels = []
     for name, (src, rep, wrappers) in meta.items():

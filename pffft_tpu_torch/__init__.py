@@ -6,14 +6,15 @@ transforms (backward(forward(x)) == N*x), canonical bin order, planar
 ``csrc/``, built with nvcc on first use; on the CPU every kernel wrapper
 runs its plain PyTorch version.  It imports neither jax nor pffft_tpu.
 
-Ported so far: the f32 transforms, complex and real, on batch-major
-arrays [..., N] (the pffft.h parity API: :func:`transform_ordered`,
-:func:`transform`, :func:`zreorder`, the ``zconvolve`` functions, the
-split-format and in-place forms, ``cfft`` / ``rfft_packed`` and the
-spectrum and frequency helpers) and on time-major planes,
-:func:`transform_ordered_split_tmajor`; FIR filtering by overlap-save,
-:mod:`conv` (``FastConv``, ``StreamingConv``); the polyphase
-channelizers, :mod:`channelizer`.
+Ported so far: the transforms of float32 and float64 plans, complex and
+real, on batch-major arrays [..., N] (the pffft.h parity API:
+:func:`transform_ordered`, :func:`transform`, :func:`zreorder`, the
+``zconvolve`` functions, the split-format and in-place forms, ``cfft`` /
+``rfft_packed`` and the spectrum and frequency helpers) and on time-major
+planes, :func:`transform_ordered_split_tmajor`; FIR filtering by
+overlap-save, :mod:`conv` (``FastConv``, ``StreamingConv``, float32 and
+float64); the polyphase channelizers, :mod:`channelizer` (float32).  Every
+kernel is f32; float64 plans run the einsum stage engine.
 """
 
 from . import channelizer, conv, fft, ops, runtime

@@ -26,7 +26,9 @@ kernel for M <= 2048, kern2 above).  ``process_split_tmajor`` returns that
 State is carried as in the reference: the last P*M input samples, planar.
 numpy input goes to the channelizer's ``device`` (default "cuda"); tensors
 stay where they are.  ``DDCChain`` needs the NCO mixer and is not ported
-yet (ROADMAP.md A8); float64 is not either (A6).
+yet (ROADMAP.md A8).  Float64 is not either (A6): the reference's float64
+FIR is its XLA multiply-accumulate path, which needs a torch counterpart
+of its own.
 """
 
 from __future__ import annotations

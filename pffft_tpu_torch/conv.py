@@ -27,7 +27,9 @@ forward transform, a multiply by Hf and the routed backward transform.
 serves the whole batch.
 
 numpy input goes to the setup's ``device`` (default "cuda"); tensors stay
-where they are.  float64 is not ported yet (ROADMAP.md A6).
+where they are.  A float64 setup computes in float64 and complex128 and
+always takes the ``"tmajor"`` route, whose transforms run the stage engine:
+the fused kernel is f32 only, as the reference's is.
 """
 
 from __future__ import annotations
@@ -76,18 +78,25 @@ def _negotiate_nfft(filter_len: int, block_len: int) -> int:
     return nfft
 
 
-def _as_tensor(x, device) -> torch.Tensor:
-    """complex64 or float32: tensors stay on their device, numpy arrays go
-    to ``device``."""
+def _as_tensor(x, device, dtype=np.float32) -> torch.Tensor:
+    """A tensor of real ``dtype`` (float32 or float64) or of its complex
+    counterpart: tensors stay on their device, numpy arrays go to
+    ``device``."""
 
+    f64 = np.dtype(dtype) == np.float64
     if not isinstance(x, torch.Tensor):
         a = np.asarray(x)
-        a = a.astype(np.complex64 if np.iscomplexobj(a) else np.float32)
+        if np.iscomplexobj(a):
+            a = a.astype(np.complex128 if f64 else np.complex64)
+        else:
+            a = a.astype(np.float64 if f64 else np.float32)
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
         x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return x.to(torch.complex64 if x.is_complex() else torch.float32)
+    if x.is_complex():
+        return x.to(torch.complex128 if f64 else torch.complex64)
+    return x.to(torch.float64 if f64 else torch.float32)
 
 
 class FastConv:
@@ -111,10 +120,8 @@ class FastConv:
         if h.ndim != 1 or h.size < 1:
             raise ValueError("filter_coeffs must be a 1-D array")
         self.dtype = np.dtype(dtype)
-        if self.dtype == np.float64:
-            raise NotImplementedError("float64 FastConv is not ported yet (ROADMAP.md A6)")
-        if self.dtype != np.float32:
-            raise ValueError(f"unsupported dtype {self.dtype}; use float32")
+        if self.dtype not in (np.float32, np.float64):
+            raise ValueError(f"unsupported dtype {self.dtype}; use float32 or float64")
         filter_len = int(h.size)
 
         self.flags = flags
@@ -136,7 +143,7 @@ class FastConv:
         # effective filter span in scalar positions within a block
         self.filter_span = 2 * filter_len - 1 if cplx_factor == 2 else filter_len
         # the block plan of the "tmajor" route
-        self.plan = _plan.new_setup(nfft, _plan.COMPLEX, strict=False)
+        self.plan = _plan.new_setup(nfft, _plan.COMPLEX, dtype=self.dtype, strict=False)
         # time-arranged filter: y[m] = sum_j x[m+j] * c[j] (c = reversed h,
         # or h for correlation) is the circular convolution with g, where
         # g[(nfft - cplx_factor*j) % nfft] = c[j] (pffastconv_new_setup)
@@ -158,7 +165,8 @@ class FastConv:
         return u
 
     def _spectrum(self, device: torch.device):
-        """Hf = FFT(g) / nfft as f32 planes [nfft] on ``device``."""
+        """Hf = FFT(g) / nfft as planes [nfft] of the setup's dtype on
+        ``device``."""
 
         hf = self._hf.get(device)
         if hf is None:
@@ -172,7 +180,8 @@ class FastConv:
         route of ``dispatch.conv_route_mode``."""
 
         dev = re.device
-        mode = _dispatch.conv_route_mode(self.nfft, self._force_conv_kernel, dev)
+        mode = ("tmajor" if self.dtype == np.float64
+                else _dispatch.conv_route_mode(self.nfft, self._force_conv_kernel, dev))
         if mode is None:
             raise ValueError(f"no conv route runs nfft={self.nfft}")
         hfr, hfi = self._spectrum(dev)
@@ -203,7 +212,7 @@ class FastConv:
         colsp = -(-cols // 4) * 4
         planes = []
         for f in (fr, fi):
-            p = torch.empty((nfft, colsp), dtype=torch.float32, device=f.device)
+            p = torch.empty((nfft, colsp), dtype=f.dtype, device=f.device)
             p[:, cols:].zero_()
             p[:, :cols].view(nfft, r, c).copy_(f.permute(2, 0, 1))
             planes.append(p)
@@ -219,7 +228,7 @@ class FastConv:
         """Block outputs of R*h column pairs -> the valid samples
         [R, 2h, u] of the frames (even frames from re, odd from im)."""
 
-        out = torch.empty((r, h, 2, self.num_out_per_block), dtype=torch.float32,
+        out = torch.empty((r, h, 2, self.num_out_per_block), dtype=yr.dtype,
                           device=yr.device)
         out[:, :, 0] = self._keep(yr, r, h)
         out[:, :, 1] = self._keep(yi, r, h)
@@ -253,7 +262,7 @@ class FastConv:
 
     # ------------------------------------------------------------------
     def _as_stream(self, x) -> torch.Tensor:
-        x = _as_tensor(x, self.device)
+        x = _as_tensor(x, self.device, self.dtype)
         if (self.cplx_stream or self.cplx_filter) and not x.is_complex():
             # interleaved float view [..., 2L] -> complex [..., L]
             x = x.reshape(*x.shape[:-1], -1, 2)
@@ -400,7 +409,7 @@ class StreamingConv:
 
     def _run(self, frames: np.ndarray) -> np.ndarray:
         s = self.setup
-        f = _as_tensor(frames, s.device)
+        f = _as_tensor(frames, s.device, s.dtype)
         k = f.shape[0]
         if k % 2:
             f = F.pad(f, (0, 0, 0, 1))

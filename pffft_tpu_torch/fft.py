@@ -18,8 +18,10 @@ torch tensors stay on their device; numpy input goes to ``device``
 (default "cuda").  The caller's tensors are not modified, except by the
 ``_inplace`` forms, which write the result into the caller's planes (the C
 API's input == output aliasing).  Plans must be ``Plan`` objects (Bluestein
-plans are not ported, ROADMAP.md A9) of dtype float32 (float64 is ROADMAP.md
-A6).
+plans are not ported, ROADMAP.md A9).  A float64 plan takes and gives
+float64 planes and complex128 arrays, and runs the stage engine
+(``ops/dispatch.py``); a real float64 plan's split steps are the torch
+steps of ``ops/split.py``, in float64.
 """
 
 from __future__ import annotations
@@ -60,6 +62,11 @@ __all__ = [
 ]
 
 
+# numpy dtype of each torch dtype the converters make
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+              torch.complex64: np.complex64, torch.complex128: np.complex128}
+
+
 def _to_device(x, device: Optional[str], dtype) -> torch.Tensor:
     """``x`` as a contiguous tensor of ``dtype``: torch tensors stay on
     their device, numpy arrays go to ``device`` (default "cuda")."""
@@ -69,30 +76,42 @@ def _to_device(x, device: Optional[str], dtype) -> torch.Tensor:
     dev = torch.device(device or "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
-    np_dtype = np.complex64 if dtype == torch.complex64 else np.float32
-    return torch.from_numpy(np.require(x, np_dtype, ("C", "W"))).to(dev)
+    return torch.from_numpy(np.require(x, _NP_DTYPES[dtype], ("C", "W"))).to(dev)
 
 
-def _as_plane(x, device: Optional[str]) -> torch.Tensor:
-    """A contiguous f32 tensor (see :func:`_to_device`)."""
+def _real_dtype(plan: Optional[Plan]) -> torch.dtype:
+    """The planes' dtype of ``plan`` (float32 without a plan)."""
 
-    return _to_device(x, device, torch.float32)
-
-
-def _as_complex(x, device: Optional[str]) -> torch.Tensor:
-    """A contiguous complex64 tensor (see :func:`_to_device`)."""
-
-    return _to_device(x, device, torch.complex64)
+    return torch.float64 if plan is not None and plan.dtype == np.float64 else torch.float32
 
 
-def _as_tensor(x, device: Optional[str]) -> torch.Tensor:
-    """torch tensors as they are; numpy arrays as complex64 or f32 tensors
-    on ``device``."""
+def _complex_dtype(plan: Optional[Plan]) -> torch.dtype:
+    """The complex dtype of ``plan`` (complex64 without a plan)."""
+
+    return torch.complex128 if _real_dtype(plan) == torch.float64 else torch.complex64
+
+
+def _as_plane(x, device: Optional[str], plan: Optional[Plan] = None) -> torch.Tensor:
+    """A contiguous tensor of the plan's real dtype (see :func:`_to_device`)."""
+
+    return _to_device(x, device, _real_dtype(plan))
+
+
+def _as_complex(x, device: Optional[str], plan: Optional[Plan] = None) -> torch.Tensor:
+    """A contiguous tensor of the plan's complex dtype (see :func:`_to_device`)."""
+
+    return _to_device(x, device, _complex_dtype(plan))
+
+
+def _as_tensor(x, device: Optional[str], plan: Optional[Plan] = None) -> torch.Tensor:
+    """torch tensors as they are; numpy arrays as tensors of the plan's
+    complex or real dtype on ``device``."""
 
     if isinstance(x, torch.Tensor):
         return x
     arr = np.asarray(x)
-    return _to_device(arr, device, torch.complex64 if np.iscomplexobj(arr) else torch.float32)
+    return _to_device(arr, device,
+                      _complex_dtype(plan) if np.iscomplexobj(arr) else _real_dtype(plan))
 
 
 def _check_pair(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -108,8 +127,6 @@ def _check_plan(plan, name: str) -> None:
         raise TypeError(
             f"unsupported plan type {type(plan).__name__} for {name} "
             f"(Bluestein and CZT plans are not ported yet, ROADMAP.md A9)")
-    if plan.dtype != np.float32:
-        raise NotImplementedError("float64 plans are not ported yet (ROADMAP.md A6)")
 
 
 def _check_len(plan: Plan, x, backward: bool) -> None:
@@ -128,20 +145,42 @@ def _check_len(plan: Plan, x, backward: bool) -> None:
 # ---------------------------------------------------------------------------
 
 
+# The torch split steps of ops/split.py by (time_major, backward): a real
+# float64 plan's split step, as the reference's XLA steps (no kernel is f64).
+_TORCH_SPLIT_STEPS = {
+    (True, False): _split.real_forward_split_planar_tmajor,
+    (True, True): _split.real_backward_split_planar_tmajor,
+    (False, False): _split.real_forward_split_planar,
+    (False, True): _split.real_backward_split_planar,
+}
+
+
+def _split_step(plan: Plan, backward: bool, time_major: bool):
+    """Callable (zr, zi) -> the real split step: the split kernel's route
+    for an f32 plan, else the torch step in the plan's dtype."""
+
+    route = (_dispatch.real_split_kernel_route if time_major
+             else _dispatch.real_split_bmajor_route)(plan, backward)
+    if route is not None:
+        return route
+    step = _TORCH_SPLIT_STEPS[(time_major, backward)]
+    return lambda zr, zi: step(zr, zi, _split.real_split_twiddle(plan, zr.device))
+
+
 def _real_forward_planar(plan: Plan, x: torch.Tensor):
     """[..., N] real -> the packed spectrum planes [..., N/2] x2: the pack
-    copy, the length-N/2 complex transform, the split kernel."""
+    copy, the length-N/2 complex transform, the split step."""
 
     zr, zi = _split.pack_real_input_split(x)
     zr, zi = _dispatch.cfft_dispatch(plan, zr, zi, time_major=False)
-    return _dispatch.real_split_bmajor_route(plan, False)(zr, zi)
+    return _split_step(plan, False, False)(zr, zi)
 
 
 def _real_backward_planar(plan: Plan, sr: torch.Tensor, si: torch.Tensor) -> torch.Tensor:
     """The packed spectrum planes [..., N/2] x2 -> [..., N] real, unscaled:
-    the split kernel, the backward transform, the interleave copy."""
+    the split step, the backward transform, the interleave copy."""
 
-    zr, zi = _dispatch.real_split_bmajor_route(plan, True)(sr, si)
+    zr, zi = _split_step(plan, True, False)(sr, si)
     wr, wi = _dispatch.cfft_dispatch(plan, zr, zi, backward=True, time_major=False)
     return _split.interleave_to_real_split(wr, wi)
 
@@ -165,10 +204,10 @@ def _split_call(plan: Plan, x, d, ordered: bool, device: Optional[str], name: st
     _check_plan(plan, name)
     backward = d == BACKWARD
     if plan.is_real and not backward:
-        x = _as_plane(x, device)
+        x = _as_plane(x, device, plan)
         _check_len(plan, x, False)
         return _real_forward_planar(plan, x)
-    re, im = (_as_plane(a, device) for a in x)
+    re, im = (_as_plane(a, device, plan) for a in x)
     _check_pair(re, im)
     _check_len(plan, re, backward)
     if plan.is_real:
@@ -184,7 +223,7 @@ def _complex_call(plan: Plan, x, d, ordered: bool, device: Optional[str], name: 
     backward = d == BACKWARD
     if plan.is_real and not backward:
         return _split.from_split(_split_call(plan, x, d, True, device, name))
-    z = _as_complex(x, device)
+    z = _as_complex(x, device, plan)
     _check_len(plan, z, backward)
     out = _split_call(plan, _split.to_split(z), d, ordered, device, name)
     return out if plan.is_real else _split.from_split(out)
@@ -201,6 +240,8 @@ def transform_ordered(plan: Plan, x, direction=FORWARD, *, device: Optional[str]
     REAL forward:  [..., N] real      -> [..., N/2] complex64 (packed bin0)
     REAL backward: [..., N/2] complex -> [..., N] real (unscaled, = N*x)
     COMPLEX:       [..., N] complex   -> [..., N] complex64
+
+    (complex128 and float64 for a float64 plan.)
     """
 
     d = _plan._coerce_direction(direction)
@@ -226,7 +267,7 @@ def zreorder(plan: Plan, z, direction=FORWARD, *, device: Optional[str] = None):
     d = _plan._coerce_direction(direction)
     if plan.is_real:
         return z
-    return _stages.reorder_spectrum(_as_tensor(z, device), plan.factors,
+    return _stages.reorder_spectrum(_as_tensor(z, device, plan), plan.factors,
                                     to_canonical=(d == FORWARD))
 
 
@@ -245,15 +286,16 @@ def zconvolve_no_accu(plan: Plan, dft_a, dft_b, scaling=1.0, *,
                       device: Optional[str] = None):
     """pffft_zconvolve_no_accu parity: (a*b)*scaling, in internal layout."""
 
-    return _zmul(plan, _as_complex(dft_a, device), _as_complex(dft_b, device), scaling)
+    return _zmul(plan, _as_complex(dft_a, device, plan), _as_complex(dft_b, device, plan),
+                 scaling)
 
 
 def zconvolve_accumulate(plan: Plan, dft_a, dft_b, dft_ab, scaling=1.0, *,
                          device: Optional[str] = None):
     """pffft_zconvolve_accumulate parity: ab + (a*b)*scaling."""
 
-    return _as_complex(dft_ab, device) + _zmul(
-        plan, _as_complex(dft_a, device), _as_complex(dft_b, device), scaling)
+    return _as_complex(dft_ab, device, plan) + _zmul(
+        plan, _as_complex(dft_a, device, plan), _as_complex(dft_b, device, plan), scaling)
 
 
 def cfft(plan: Plan, x, *, device: Optional[str] = None):
@@ -280,11 +322,24 @@ def irfft_packed(plan: Plan, s, *, device: Optional[str] = None):
     return transform_ordered(plan, s, BACKWARD, device=device)
 
 
+def _as_spectrum(s, device: Optional[str]) -> torch.Tensor:
+    """A complex tensor for the spectrum helpers, in the input's precision:
+    a complex128 or float64 tensor or array (a float64 plan's spectrum)
+    becomes complex128, the rest complex64."""
+
+    if isinstance(s, torch.Tensor):
+        wide = s.dtype in (torch.complex128, torch.float64)
+    else:
+        s = np.asarray(s)
+        wide = s.dtype in (np.complex128, np.float64)
+    return _to_device(s, device, torch.complex128 if wide else torch.complex64)
+
+
 def spectrum_unpack(s, *, device: Optional[str] = None):
     """Packed real spectrum [..., H] -> standard rfft layout [..., H+1]
     (DC ... Nyquist as separate bins, numpy.fft.rfft convention)."""
 
-    s = _as_complex(s, device)
+    s = _as_spectrum(s, device)
     dc = s[..., :1].real.to(s.dtype)
     nyq = s[..., :1].imag.to(s.dtype)
     return torch.cat([dc, s[..., 1:], nyq], dim=-1)
@@ -293,7 +348,7 @@ def spectrum_unpack(s, *, device: Optional[str] = None):
 def spectrum_pack(r, *, device: Optional[str] = None):
     """Standard rfft layout [..., H+1] -> pffft packed layout [..., H]."""
 
-    r = _as_complex(r, device)
+    r = _as_spectrum(r, device)
     out = r[..., :-1].clone()
     out[..., 0] = torch.complex(r[..., 0].real, r[..., -1].real)
     return out
@@ -362,8 +417,8 @@ def zconvolve_split(plan: Plan, a, b, scaling=1.0, accumulate=None, *,
     a, b: (re, im) pairs; optional ``accumulate`` = (re, im) to add into.
     Returns (re, im)."""
 
-    ar, ai = (_as_plane(t, device) for t in a)
-    br, bi = (_as_plane(t, device) for t in b)
+    ar, ai = (_as_plane(t, device, plan) for t in a)
+    br, bi = (_as_plane(t, device, plan) for t in b)
     cr, ci = _split.split_mul((ar, ai), (br, bi))
     if plan.is_real:
         cr = _split._set_bin0(cr, ar[..., 0] * br[..., 0])
@@ -371,8 +426,8 @@ def zconvolve_split(plan: Plan, a, b, scaling=1.0, accumulate=None, *,
     s = float(np.asarray(scaling, plan.dtype))
     cr, ci = cr * s, ci * s
     if accumulate is not None:
-        cr = cr + _as_plane(accumulate[0], device)
-        ci = ci + _as_plane(accumulate[1], device)
+        cr = cr + _as_plane(accumulate[0], device, plan)
+        ci = ci + _as_plane(accumulate[1], device, plan)
     return cr, ci
 
 
@@ -440,7 +495,7 @@ def _real_forward_tmajor(plan: Plan, x: torch.Tensor):
     else:
         zr, zi = _split.pack_real_input_split_tmajor(x)
         zr, zi = _dispatch.cfft_dispatch(plan, zr, zi)
-    return _dispatch.real_split_kernel_route(plan, False)(zr, zi)
+    return _split_step(plan, False, True)(zr, zi)
 
 
 def _real_backward_tmajor(plan: Plan, sr: torch.Tensor, si: torch.Tensor):
@@ -451,7 +506,7 @@ def _real_backward_tmajor(plan: Plan, sr: torch.Tensor, si: torch.Tensor):
     if fused is not None:
         wr, wi = fused(sr, si)
     else:
-        zr, zi = _dispatch.real_split_kernel_route(plan, True)(sr, si)
+        zr, zi = _split_step(plan, True, True)(sr, si)
         wr, wi = _dispatch.cfft_dispatch(plan, zr, zi, backward=True)
     return _split.interleave_to_real_split_tmajor(wr, wi)
 
@@ -464,18 +519,18 @@ def transform_ordered_split_tmajor(plan: Plan, x, direction=FORWARD, *,
     REAL forward:  x [N, B] real             -> (re, im) [N/2, B]
     REAL backward: x = (re, im) [N/2, B]     -> [N, B] real
 
-    f32 tensors, unscaled (backward(forward(x)) == N*x), canonical bin
-    order; real spectra pack bin0 = DC + i*Nyquist.  The caller's tensors
-    are not modified.  numpy input is moved to ``device`` (default
-    "cuda"); tensors stay where they are.
+    Tensors of the plan's dtype (f32, or f64 for a float64 plan), unscaled
+    (backward(forward(x)) == N*x), canonical bin order; real spectra pack
+    bin0 = DC + i*Nyquist.  The caller's tensors are not modified.  numpy
+    input is moved to ``device`` (default "cuda"); tensors stay where they
+    are.
     """
 
+    _check_plan(plan, "transform_ordered_split_tmajor")
     d = _plan._coerce_direction(direction)
-    if plan.dtype != np.float32:
-        raise NotImplementedError("float64 plans are not ported yet (ROADMAP.md A6)")
     if plan.is_real:
         if d == BACKWARD:
-            sr, si = (_as_plane(a, device) for a in x)
+            sr, si = (_as_plane(a, device, plan) for a in x)
             if sr.ndim != 2 or sr.shape[0] != plan.spectrum_size:
                 raise ValueError(
                     f"time-major real spectrum planes must be "
@@ -488,13 +543,13 @@ def transform_ordered_split_tmajor(plan: Plan, x, direction=FORWARD, *,
                 "time-major REAL forward takes a single [N, B] real array "
                 "(got a tuple; planar pairs are the spectrum side)"
             )
-        x = _as_plane(x, device)
+        x = _as_plane(x, device, plan)
         if x.ndim != 2 or x.shape[0] != plan.n:
             raise ValueError(
                 f"time-major real input must be [N={plan.n}, B]; got {tuple(x.shape)}"
             )
         return _real_forward_tmajor(plan, x)
-    re, im = (_as_plane(a, device) for a in x)
+    re, im = (_as_plane(a, device, plan) for a in x)
     if re.ndim != 2 or re.shape[0] != plan.n:
         raise ValueError(
             f"time-major planes must be [N={plan.n}, B]; got {tuple(re.shape)}"

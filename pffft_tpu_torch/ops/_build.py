@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), compiled on first use for
 Hopper (``sm_90a``) into ``pffft_tpu_torch/_build/``, keyed by a hash of
-the sources and flags.  Several sources build in parallel, one nvcc each.
-Nothing here runs at import time.
+the sources and flags.  ``ksplit2.cu`` becomes one library per combine
+radix (``ksplit2_r<r>``, see :data:`VARIANTS`).  Several libraries build in
+parallel, one nvcc each.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,8 +23,14 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# The combine radices of ksplit2.cu (pallas_fft.COMBINE_RADICES).
+KSPLIT2_RADICES = (2, 3, 4, 5, 8, 16, 32)
+# library -> (source in csrc/, extra nvcc flags): a source built more than once
+VARIANTS = {f"ksplit2_r{r}": ("ksplit2", (f"-DPF_KSPLIT2_RADIX={r}",))
+            for r in KSPLIT2_RADICES}
+# every library
 SOURCES = ("stockham_chain", "combine", "stream_copy", "chain_packed", "real_fused",
-           "real_split", "conv_fused", "pfb_fir", "fused2", "real_split_bmajor")
+           "real_split", "conv_fused", "pfb_fir", "fused2", "real_split_bmajor", *VARIANTS)
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,9 +53,19 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source(name: str) -> str:
+    """The csrc/ source (without .cu) that library ``name`` is built from."""
+
+    return VARIANTS.get(name, (name, ()))[0]
+
+
+def _flags(name: str) -> tuple:
+    return (*FLAGS, *VARIANTS.get(name, (name, ()))[1])
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
+    for p in [CSRC / f"{source(name)}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -79,7 +96,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *_flags(name), "-o", tmp, str(CSRC / f"{source(name)}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -90,14 +107,16 @@ def build(names: Iterable[str] = SOURCES) -> float:
             os.replace(tmp, library_path(name))
         else:
             os.unlink(tmp)
-            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+            variant = f" ({name})" if name in VARIANTS else ""
+            failed.append(f"nvcc failed on {source(name)}.cu{variant}:\n{log}")
     if failed:
         raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built first if needed."""
+    """The shared library ``name`` (see :data:`SOURCES`), built first if
+    needed."""
 
     lib = _LOADED.get(name)
     if lib is None:

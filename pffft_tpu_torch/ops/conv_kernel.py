@@ -35,13 +35,14 @@ __all__ = ["filter_spectrum", "zconv_tmajor", "zconv_tmajor_plain"]
 def filter_spectrum(plan: _plan.Plan, h: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """(hfr, hfi): spectrum of filter ``h`` zero-padded to N, canonical
     order, pre-scaled by 1/N so the kernel's inverse needs no rescale.
-    numpy f32, equal to the reference's bit for bit."""
+    numpy arrays of the plan's dtype; for f32 equal to the reference's bit
+    for bit."""
 
     n = plan.n
     hp = np.zeros(n, np.complex128)
     hp[: len(h)] = np.asarray(h, np.complex128)
     hf = np.fft.fft(hp) / n
-    return hf.real.astype(np.float32), hf.imag.astype(np.float32)
+    return hf.real.astype(plan.dtype), hf.imag.astype(plan.dtype)
 
 
 def zconv_tmajor_plain(plan: _plan.Plan, re, im, hfr, hfi):

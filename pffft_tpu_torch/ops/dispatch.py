@@ -10,13 +10,23 @@ planes [N, B], with the reference's names beside them:
   * ``"kern2"`` (reference ``"kern2"``): two passes for N = m*r past the
     chain's tile: the chain kernel on the free [m, r*B] view, then the
     combine kernel (``csrc/combine.cu``).
+  * ``"ksplit"`` (reference ``"ksplit"``): the chain kernel on the free
+    [m, r*B] view, then the radix-r combine as one einsum stage in torch
+    ops, as the reference computes it in XLA.  Never a default: it runs
+    only where the measured table or :func:`set_engine` asks for it.
 
 The default route follows coverage: the chain when it holds N, else kern2
 with the largest chain-covered m, else the stage engine.  A measured
 table keyed by (compute capability, N, time_major) overrides it; it
 starts empty and is filled by :func:`record_engine` from measurements on
 the card.  On the CPU the capability is the H100's (9, 0), so the tests
-walk the routes the card takes.
+walk the routes the card takes.  Float64 plans run the stage engine in
+either layout: every kernel is f32.
+
+B10, the in-kernel ksplit (``csrc/ksplit2.cu``,
+:func:`cfft_ksplit2_tmajor`): kern2's function in one pass, the m-chain
+and the combine in one tile.  No route picks it, as in the reference; it
+is entered directly.
 
 Engines of batch-major planes [..., N] (reference ``time_major=False``):
 
@@ -66,6 +76,7 @@ import numpy as np
 import torch
 
 from .. import plan as _plan
+from . import _build
 from . import fused_stage as _fs
 from . import pallas_fft as _pk
 from . import real_kernel as _rk
@@ -81,6 +92,12 @@ __all__ = [
     "cfft_dispatch",
     "cfft_kern2_tmajor",
     "cfft_kern2_tmajor_packed",
+    "set_kern2_conf",
+    "cfft_ksplit_tmajor",
+    "set_ksplit_conf",
+    "cfft_ksplit2_tmajor",
+    "ksplit2_tmajor_plain",
+    "ksplit2_tile",
     "fused_real_fwd_route",
     "fused_real_bwd_route",
     "packed_fwd_route",
@@ -92,9 +109,10 @@ __all__ = [
     "conv_kernel_choice",
 ]
 
-ENGINES = ("stages", "chain", "kern2")           # time-major planes
-BMAJOR_ENGINES = ("fused2", "tmajor", "stages")  # batch-major planes
-# engines in the order coverage tries them, per layout (time_major key)
+ENGINES = ("stages", "chain", "kern2", "ksplit")  # time-major planes
+BMAJOR_ENGINES = ("fused2", "tmajor", "stages")    # batch-major planes
+# engines per layout (time_major key), and the order coverage tries them in
+_LAYOUT_ENGINES = {True: ENGINES, False: BMAJOR_ENGINES}
 _COVERAGE = {True: ("chain", "kern2", "stages"), False: BMAJOR_ENGINES}
 
 _FORCED: Optional[str] = None
@@ -127,10 +145,7 @@ def _chain_plan(plan: _plan.Plan, device=None) -> Optional[_plan.Plan]:
     if plan.dtype != np.float32:
         return None
     p = _thin_plan(plan.engine_n)
-    if p is None:
-        return None
-    radices = [st.r for st in p.stages if st.r != 1]
-    if _pk.chain_tile(p.engine_n, radices, device) is None:
+    if p is None or not _chain_covers(p, device):
         return None
     return p
 
@@ -151,19 +166,44 @@ def _build_ksplit(n: int, m: int, r: int):
     return mplan, [s for s in nplan.stages if s.r > 1][-1]
 
 
-def _kern2_conf(n: int, device=None) -> Optional[Tuple[int, int]]:
-    """(m, r) for the two-pass engine: the largest chain-covered m with
-    r = n/m a radix of the combine kernel, or None."""
+def _chain_covers(plan: _plan.Plan, device=None) -> bool:
+    """Whether the chain kernel's tile holds ``plan``'s engine length."""
 
+    radices = [st.r for st in plan.stages if st.r != 1]
+    return _pk.chain_tile(plan.engine_n, radices, device) is not None
+
+
+# (compute capability, N) -> (m, r), measured on the card: kern2's split.
+_KERN2_CONF: dict = {}
+
+
+def _check_conf(what: str, n: int, m: int, r: int) -> None:
+    if m * r != n:
+        raise ValueError(f"{what} conf {m}*{r} != {n}")
+
+
+def set_kern2_conf(cap: Tuple[int, int], n: int, m: int, r: int) -> None:
+    """Record a measured kern2 (m, r) split for length ``n`` at a compute
+    capability; :func:`_kern2_conf` reads it before its derivation."""
+
+    _check_conf("kern2", n, m, r)
+    _KERN2_CONF[(tuple(cap), int(n))] = (int(m), int(r))
+
+
+def _kern2_conf(n: int, device=None) -> Optional[Tuple[int, int]]:
+    """(m, r) for the two-pass engine: the measured split, else the
+    largest chain-covered m with r = n/m a radix of the combine kernel,
+    else None."""
+
+    conf = _KERN2_CONF.get((capability(device), n))
+    if conf is not None:
+        return conf
     for r in _pk.COMBINE_RADICES:
         if n % r:
             continue
         m = n // r
         mplan = _thin_plan(m)
-        if mplan is None:
-            continue
-        radices = [st.r for st in mplan.stages if st.r != 1]
-        if _pk.chain_tile(m, radices, device) is not None:
+        if mplan is not None and _chain_covers(mplan, device):
             return m, r
     return None
 
@@ -216,6 +256,165 @@ def cfft_kern2_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *,
     return _pk.cfft_combine_tmajor(last, ar.reshape(n, b), ai.reshape(n, b))
 
 
+# ---------------------------------------------------------------------------
+# ksplit: the chain kernel on [m, r*B], then one einsum combine stage
+# (reference ``cfft_ksplit_tmajor``)
+# ---------------------------------------------------------------------------
+
+# (compute capability, N) -> (m, r), measured on the card: ksplit's split.
+_KSPLIT_CONF: dict = {}
+
+
+def set_ksplit_conf(cap: Tuple[int, int], n: int, m: int, r: int) -> None:
+    """Record a measured ksplit (m, r) split for length ``n`` at a compute
+    capability; :func:`_ksplit_conf` reads it before its derivation."""
+
+    _check_conf("ksplit", n, m, r)
+    _KSPLIT_CONF[(tuple(cap), int(n))] = (int(m), int(r))
+
+
+def _ksplit_conf(n: int, device=None) -> Optional[Tuple[int, int]]:
+    """(m, r) split for the ksplit engine: the measured split, else None
+    below N = 2048, else the largest m in (1024, 512, 256) with
+    2 <= r <= 128 and a chain plan for m (the reference's rules)."""
+
+    conf = _KSPLIT_CONF.get((capability(device), n))
+    if conf is not None:
+        return conf
+    if n < 2048:
+        return None
+    for m in (1024, 512, 256):
+        r = n // m
+        if n == m * r and 2 <= r <= 128 and _pk.thin_factors(m) is not None:
+            return m, r
+    return None
+
+
+def _ksplit_plans(n: int, device=None):
+    """(m_plan, last_stage) of the ksplit engine for length n, or None."""
+
+    conf = _ksplit_conf(n, device)
+    return None if conf is None else _build_ksplit(n, *conf)
+
+
+def _ksplit_runs(plan: _plan.Plan, device=None) -> bool:
+    """Whether the ksplit engine runs ``plan``: f32, with a split whose
+    m the chain kernel's tile holds."""
+
+    if plan.dtype != np.float32:
+        return False
+    built = _ksplit_plans(plan.engine_n, device)
+    return built is not None and _chain_covers(built[0], device)
+
+
+def cfft_ksplit_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
+                       backward: bool = False,
+                       conf: Optional[Tuple[int, int]] = None):
+    """Kernel-then-einsum complex FFT, time-major planes [N, B].
+
+    Unscaled, canonical order.  N = m*r: the chain kernel runs the
+    length-m transforms on the free [m, r*B] view, then one einsum stage
+    (twiddle W_N^{c*k}, dense radix-r DFT) combines them, as the reference
+    does in XLA; output index t*m + k is row-major [r, m].  ``conf``
+    overrides the (m, r) split."""
+
+    n = plan.engine_n
+    built = _build_ksplit(n, *conf) if conf is not None else _ksplit_plans(n, re.device)
+    if built is None:
+        raise ValueError(f"no ksplit configuration for N={n}")
+    mplan, last = built
+    b = re.shape[1]
+    m, r = mplan.engine_n, last.r
+    ar, ai = _pk.cfft_chain_tmajor(mplan, re.reshape(m, r * b), im.reshape(m, r * b),
+                                   backward=backward)
+    consts = _split._device_consts(last, backward, re.device)
+    with _split._full_fp32():
+        ar, ai = _split._apply_twiddle(ar.reshape(m, r, 1, b), ai.reshape(m, r, 1, b),
+                                       consts[2], 0)
+        nr, ni = _split._contract_stage(ar, ai, consts, "lrmb,rt->tlmb")
+    return nr.reshape(n, b), ni.reshape(n, b)
+
+
+# ---------------------------------------------------------------------------
+# B10, the in-kernel ksplit (reference ``cfft_ksplit2_tmajor``)
+# ---------------------------------------------------------------------------
+
+
+def ksplit2_tile(mplan: _plan.Plan, r: int, device=None) -> Optional[int]:
+    """Batch columns per block of B10 for N = m*r: the widest power of two
+    from 32 down to 1 with N*tb within the chain's tile
+    (:func:`pallas_fft.tile_elems` over the m-plan's radices and r), or
+    None when not even one column fits."""
+
+    n = mplan.engine_n * r
+    cap = _pk.tile_elems([st.r for st in mplan.stages if st.r != 1] + [r], device)
+    tb = 32
+    while tb >= 1:
+        if n * tb <= cap:
+            return tb
+        tb //= 2
+    return None
+
+
+def ksplit2_tmajor_plain(mplan: _plan.Plan, last, re, im, *, backward: bool = False):
+    """Plain PyTorch version of B10: the chain's plain version on the free
+    [m, r*B] view, then the combine's."""
+
+    n, b = re.shape
+    m, r = mplan.engine_n, last.r
+    ar, ai = _pk.chain_tmajor_plain(mplan, re.reshape(m, r * b), im.reshape(m, r * b),
+                                    backward=backward)
+    return _pk.combine_tmajor_plain(last, ar.reshape(n, b), ai.reshape(n, b),
+                                    backward=backward)
+
+
+def cfft_ksplit2_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
+                        backward: bool = False,
+                        conf: Optional[Tuple[int, int]] = None):
+    """One-pass complex FFT of time-major planes [N, B] through B10
+    (``csrc/ksplit2.cu``): the length-m chain on the [m, r, tb] tile, then
+    the twiddled radix-r combine in the same tile.
+
+    Unscaled, canonical order.  ``conf`` is the (m, r) split, by default
+    (2048, N // 2048) as in the reference; the tile's batch columns are
+    :func:`ksplit2_tile`'s.  ValueError when m*r != N, when r is not a
+    combine radix, or when no tile of N rows fits.  The inputs are not
+    modified."""
+
+    n = plan.engine_n
+    m, r = conf if conf is not None else (2048, n // 2048)
+    _check_conf("ksplit2", n, m, r)
+    if r not in _pk.COMBINE_RADICES:
+        raise ValueError(f"ksplit2 radix {r} not in {_pk.COMBINE_RADICES}")
+    rows, b = _pk._planes(re, im)
+    if rows != n:
+        raise ValueError(f"data length {rows} != plan engine length {n}")
+    built = _build_ksplit(n, m, r)
+    if built is None:
+        raise ValueError(f"no ksplit2 build for N={n} (m={m}, r={r})")
+    mplan, last = built
+    tb = ksplit2_tile(mplan, r, re.device)
+    if tb is None:
+        raise ValueError(f"N={n} exceeds B10's tile limit: one block holds all N "
+                         f"rows of at least one column (pallas_fft.tile_elems)")
+    if re.device.type == "cpu":
+        return ksplit2_tmajor_plain(mplan, last, re, im, backward=backward)
+    _pk._check_cuda(re, im)
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    if b == 0:
+        return ore, oim
+    lib, fn = _pk._kernel("pf_ksplit2_tmajor", f"ksplit2_r{r}")
+    tw, desc, count = _pk._chain_tables(tuple(mplan.stages) + (last,), re.device)
+    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
+             desc, count, n, b, tb, int(backward), re.device.index or 0, _pk._stream(re))
+    _build.check(lib, err, f"ksplit2 kernel (N={n}, (m, r)=({m}, {r}), B={b}, tb={tb})")
+    cfft_ksplit2_tmajor.launches += 1
+    return ore, oim
+
+
+cfft_ksplit2_tmajor.launches = 0
+
+
 def _fused2_covers(plan: _plan.Plan, device=None) -> bool:
     """Whether the "fused2" engine runs ``plan``: f32, with an engine
     length the kernel's tile holds."""
@@ -237,6 +436,8 @@ def _tmajor_engines(plan: _plan.Plan, batch: int, device=None) -> Tuple[str, ...
         out.append("chain")
     if plan.dtype == np.float32 and _kern2_conf(plan.engine_n, device) is not None:
         out.append("kern2")
+    if _ksplit_runs(plan, device):
+        out.append("ksplit")
     return tuple(out)
 
 
@@ -270,7 +471,7 @@ def set_engine(name: Optional[str]) -> None:
 def _check_layout_engine(engine: str, time_major: bool) -> None:
     if engine not in ENGINES + BMAJOR_ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine not in _COVERAGE[time_major]:
+    if engine not in _LAYOUT_ENGINES[time_major]:
         raise ValueError(f"engine {engine!r} does not serve "
                          f"{'time' if time_major else 'batch'}-major planes")
 
@@ -372,6 +573,8 @@ def _cfft_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
                                      backward=backward)
     if engine == "kern2":
         return cfft_kern2_tmajor(plan, re, im, backward=backward)
+    if engine == "ksplit":
+        return cfft_ksplit_tmajor(plan, re, im, backward=backward)
     return _split.cfft_stages_split_tmajor(
         re, im, plan.stages, backward=backward, ordered=True)
 

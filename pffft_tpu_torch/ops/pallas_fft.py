@@ -17,7 +17,9 @@ CUDA C++ under ``pffft_tpu_torch/csrc/``:
 ``cfft_pallas`` is the batch-major convenience: one transpose each way
 around ``cfft_chain_tmajor``, or around the time-major route the
 dispatcher's batch-major "tmajor" engine gives it.  The batch-major kernels are in
-``ops/fused_stage.py`` (B9) and ``ops/real_kernel.py`` (B6).
+``ops/fused_stage.py`` (B9) and ``ops/real_kernel.py`` (B6); B10, the
+in-kernel ksplit (``ksplit2.cu``), is wrapped in ``ops/dispatch.py``
+(``cfft_ksplit2_tmajor``), where the reference's is.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises.  Each counts its
@@ -444,15 +446,21 @@ _SIGNATURES = {
     "pf_conv_fused_tmajor": ("conv_fused",
                              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_pfb_fir": ("pfb_fir", [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P]),
+    # ops/dispatch.cfft_ksplit2_tmajor
+    "pf_ksplit2_tmajor": ("ksplit2", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 # Sources built on csrc/chain.cuh, whose tile limits chain_tile plans with.
-_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused", "conv_fused", "fused2")
+_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused", "conv_fused", "fused2",
+                  "ksplit2")
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(fname: str):
+def _kernel(fname: str, library: Optional[str] = None):
+    """(library, C function) of entry point ``fname``, from its source's
+    library or from ``library``, a variant of that source (_build.VARIANTS)."""
+
     name, argtypes = _SIGNATURES[fname]
-    lib = _build.load(name)
+    lib = _build.load(library or name)
     fn = getattr(lib, fname)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

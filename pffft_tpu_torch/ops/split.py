@@ -10,8 +10,9 @@ planes [..., N] (:func:`cfft_stages_split`, :func:`cfft_plan_split`).
 The real transform's steps are here too, in both layouts: the pack of a
 real signal into the half-length complex input, the split steps
 (REAL_FINALIZE forward, REAL_PREPROCESS backward) and the interleave back.
-They are plain torch ops; the split twiddles are passed as a pair of f32
-tensors [H] on the data's device, :func:`real_split_twiddle`.
+They are plain torch ops; the split twiddles are passed as a pair of
+tensors [H] of the plan's dtype on the data's device,
+:func:`real_split_twiddle`.
 
 The contractions run in full fp32: reduced-precision products (TF32) give
 relative errors of 1e-5 to 1e-3 and break the 140 dB carrier bound, so the
@@ -308,12 +309,13 @@ def cfft_plan_split(
 @functools.lru_cache(maxsize=256)
 def real_split_twiddle(plan, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """A real plan's split twiddles exp(-2i pi k / N), k < N/2, as (re, im)
-    f32 tensors [H] on ``device`` (cached per plan and device)."""
+    tensors [H] of the plan's dtype on ``device`` (cached per plan and
+    device)."""
 
     tw = plan.real_twiddle
     return (
-        torch.from_numpy(np.ascontiguousarray(tw.real, np.float32)).to(device),
-        torch.from_numpy(np.ascontiguousarray(tw.imag, np.float32)).to(device),
+        torch.from_numpy(np.ascontiguousarray(tw.real, plan.dtype)).to(device),
+        torch.from_numpy(np.ascontiguousarray(tw.imag, plan.dtype)).to(device),
     )
 
 

@@ -291,11 +291,12 @@ def test_unported_plans_raise():
         pt.transform_ordered(bplan, np.zeros(97, np.complex64), device=CPU)
     with pytest.raises(TypeError, match="A9"):
         pt.transform_ordered_split(bplan, (np.zeros(97), np.zeros(97)), device=CPU)
+    # float64 plans are ported (tests/test_torch_f64.py): they run
     x = np.zeros((2, 64), np.float32)
-    with pytest.raises(NotImplementedError, match="A6"):
-        pt.rfft_packed(pt.new_setup(64, pt.REAL, dtype="float64"), x, device=CPU)
-    with pytest.raises(NotImplementedError, match="A6"):
-        pt.transform_split(pt.new_setup(64, dtype="float64"), (x, x), device=CPU)
+    assert pt.rfft_packed(pt.new_setup(64, pt.REAL, dtype="float64"), x,
+                          device=CPU).dtype == torch.complex128
+    got = pt.transform_split(pt.new_setup(64, dtype="float64"), (x, x), device=CPU)
+    assert got[0].dtype == torch.float64
 
 
 def test_numpy_input_goes_to_the_card_by_default():

@@ -310,8 +310,8 @@ def test_conv_route_table_force_and_engine(clean_conv_state):
 
 
 def test_fastconv_errors():
-    with pytest.raises(NotImplementedError, match="A6"):
-        tconv.FastConv(np.ones(8), dtype="float64", device=CPU)
+    with pytest.raises(ValueError, match="use float32 or float64"):
+        tconv.FastConv(np.ones(8), dtype="float16", device=CPU)
     with pytest.raises(ValueError, match="1-D"):
         tconv.FastConv(np.ones((2, 4)), device=CPU)
     fc = tconv.FastConv(np.ones(8), device=CPU)

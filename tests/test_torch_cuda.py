@@ -538,3 +538,108 @@ def test_bmajor_real_transform_on_the_card_matches_oracle(cuda_device, n, engine
     packed[..., 0] = torch.complex(ref[..., 0].real, ref[..., n // 2].real)
     assert s.shape == (2, 3, n // 2) and _rel(s.to(torch.complex128), packed) <= ORACLE_TOL
     assert back.shape == x.shape and _rel(back / n, x) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,conf", [(640, (128, 5)), (384, (128, 3)), (2048, (128, 16)),
+                                    (4096, (128, 32)), (4096, None), (8192, None),
+                                    (16384, None)])
+@pytest.mark.parametrize("b", [256, 250, 251])  # aligned, ragged, odd (scalar loads)
+def test_ksplit2_kernel_matches_plain_and_oracle(cuda_device, n, conf, b):
+    plan = pt.new_setup(n, strict=False)
+    mplan, last = D._build_ksplit(n, *(conf or (2048, n // 2048)))
+    re, im = _planes(n, b, n + b, cuda_device)
+    z = torch.complex(re.double(), im.double())
+    for backward in (False, True):
+        before = D.cfft_ksplit2_tmajor.launches
+        kr, ki = D.cfft_ksplit2_tmajor(plan, re, im, backward=backward, conf=conf)
+        pr, pi = D.ksplit2_tmajor_plain(mplan, last, re, im, backward=backward)
+        torch.cuda.synchronize()
+        assert D.cfft_ksplit2_tmajor.launches == before + 1
+        assert max(_rel(kr, pr), _rel(ki, pi)) <= KERNEL_TOL, backward
+        ref = torch.fft.ifft(z, dim=0) * n if backward else torch.fft.fft(z, dim=0)
+        assert _rel(torch.complex(kr.double(), ki.double()), ref) <= ORACLE_TOL, backward
+
+
+@pytest.mark.cuda
+def test_refused_ksplit2_launch_raises(cuda_device, monkeypatch):
+    """A tile too large for one block is refused before launch and raises;
+    the counter does not move."""
+
+    re, im = _planes(4096, 8, 1, cuda_device)
+    before = D.cfft_ksplit2_tmajor.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(D, "ksplit2_tile", lambda *a, **k: 8)  # 32768 values: a tile plan gone wrong
+        with pytest.raises(RuntimeError, match="ksplit2 kernel"):
+            D.cfft_ksplit2_tmajor(pt.new_setup(4096), re, im)
+    assert D.cfft_ksplit2_tmajor.launches == before
+    with pytest.raises(ValueError, match="CUDA tensor|contiguous float32"):
+        D.cfft_ksplit2_tmajor(pt.new_setup(4096), re.T.contiguous().T, im)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,real", [(2048, 64, False), (65536, 8, False), (4096, 64, True),
+                                      (8192, 30, True)])
+def test_ksplit_engine_on_the_card_matches_oracle(cuda_device, n, b, real):
+    plan = pt.new_setup(n, pt.REAL if real else pt.COMPLEX)
+    D.set_engine("ksplit")
+    try:
+        before = (pk.cfft_chain_tmajor.launches, pk.real_split_tmajor.launches)
+        if real:
+            x = _planes(n, b, n, cuda_device)[0]
+            sr, si = pt.transform_ordered_split_tmajor(plan, x)
+            back = pt.transform_ordered_split_tmajor(plan, (sr, si), pt.BACKWARD)
+        else:
+            re, im = _planes(n, b, n, cuda_device)
+            sr, si = pt.transform_ordered_split_tmajor(plan, (re, im))
+        torch.cuda.synchronize()
+    finally:
+        D.set_engine(None)
+    after = (pk.cfft_chain_tmajor.launches, pk.real_split_tmajor.launches)
+    got = torch.complex(sr.double(), si.double())
+    if real:
+        assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
+        ref = torch.fft.rfft(x.double(), dim=0)
+        packed = ref[: n // 2].clone()
+        packed[0] = torch.complex(ref[0].real, ref[n // 2].real)
+        assert _rel(got, packed) <= ORACLE_TOL
+        assert _rel(back / n, x) <= ORACLE_TOL
+    else:
+        assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+        assert _rel(got, torch.fft.fft(torch.complex(re.double(), im.double()), dim=0)) \
+            <= ORACLE_TOL
+
+
+def _f64_counts():
+    return [w.launches for w in (pk.cfft_chain_tmajor, pk.cfft_combine_tmajor,
+                                 pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
+                                 pk.rfft_bwd_chain_tmajor_fused, pk.real_split_tmajor,
+                                 fs.cfft_fused2, rk.real_split, D.cfft_ksplit2_tmajor)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [96, 4096, 65536])
+def test_float64_on_the_card_matches_oracle(cuda_device, n):
+    rng = np.random.default_rng(n)
+    z = torch.from_numpy(rng.standard_normal((n, 6)) + 1j * rng.standard_normal((n, 6)))
+    z = z.to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((2 * n, 6))).to(cuda_device)
+    c0 = _f64_counts()
+    plan, rplan = pt.new_setup(n, dtype="float64"), pt.new_setup(2 * n, pt.REAL, dtype="float64")
+    yr, yi = pt.transform_ordered_split_tmajor(plan, (z.real, z.imag))
+    yb = pt.transform_ordered(plan, z.T)
+    sr, si = pt.transform_ordered_split_tmajor(rplan, x)
+    back = pt.transform_ordered_split_tmajor(rplan, (sr, si), pt.BACKWARD)
+    s = pt.rfft_packed(rplan, x.T)
+    torch.cuda.synchronize()
+    assert _f64_counts() == c0  # no kernel is f64
+    assert yr.dtype == torch.float64 and yb.dtype == torch.complex128
+    ref = torch.fft.fft(z, dim=0)
+    assert _rel(torch.complex(yr, yi), ref) <= 1e-12
+    assert _rel(yb, ref.T) <= 1e-12
+    rref = torch.fft.rfft(x, dim=0)
+    packed = rref[:n].clone()
+    packed[0] = torch.complex(rref[0].real, rref[n].real)
+    assert _rel(torch.complex(sr, si), packed) <= 1e-12
+    assert _rel(s, packed.T) <= 1e-12
+    assert _rel(back / (2 * n), x) <= 1e-12

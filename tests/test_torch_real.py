@@ -235,7 +235,9 @@ def test_real_transform_matches_reference(n, b):
 
 @pytest.mark.parametrize("engine", D.ENGINES)
 def test_every_engine_serves_the_real_transform(engine):
-    n = 2048  # H = 1024: the chain holds it, kern2 splits it 512 x 2
+    # H = 1024: the chain holds it, kern2 splits it 512 x 2; ksplit splits
+    # H >= 2048 only, so it takes H = 2048 (1024 x 2)
+    n = 4096 if engine == "ksplit" else 2048
     (x,) = _rng_planes((n, 12), 9, 1)
     ref = _reference(n, x, pf.FORWARD)
     D.set_engine(engine)
