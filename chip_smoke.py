@@ -41,11 +41,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      ``transform_ordered_split`` on REAL plans at the real band shapes as
      [B, N] signals, against a complex128 ``torch.fft.rfft``; the
      batch-major split kernel once per call and direction;
- 10. B10, the in-kernel ksplit, through its entry point
-     ``dispatch.cfft_ksplit2_tmajor`` (no route picks it) at (N, B) = (4096,
-     4096), (8192, 2048) and (16384, 1024), forward and backward, against a
-     complex128 ``torch.fft.fft(dim=0)``, the unscaled round trip and the
-     140 dB carrier; two launches per shape;
+ 10. B10, the in-kernel ksplit run by a thread-block cluster, through its
+     entry point ``dispatch.cfft_ksplit2_tmajor`` (no route picks it) at the
+     five time-major band shapes N = 4096 .. 65536 (64 MB per plane),
+     forward and backward, against a complex128 ``torch.fft.fft(dim=0)``,
+     the unscaled round trip and the 140 dB carrier; two launches per shape;
  11. the ``"ksplit"`` engine, forced with ``set_engine``, through the public
      time-major call: complex at (2048, 8192) and (4096, 4096), real at N =
      4096 and 8192; the chain once per call (and the split kernel for real);
@@ -55,7 +55,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      kernel may launch;
  13. timing with CUDA events (median of 10 after warm-up), per band shape,
      per kernel and per FIR pipeline, beside the bound, the plain version
-     and a library yardstick (torch.fft, conv1d);
+     and a library yardstick (torch.fft, conv1d); B10 beside kern2 on the
+     same planes, with sweeps of its batch columns and cluster size; blocks
+     per SM of B9 and B10 from the planner and from the card;
  14. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
@@ -113,8 +115,16 @@ CONV_ROWS, CONV_LEN, CONV_TAPS = 16, 1 << 22, (64, 1024, 4096)
 FLAG_ROWS, FLAG_LEN, FLAG_TAPS = 4, 1 << 20, 1024
 # the channelizer: (M, P, batch, frames per step), 64 MB per plane per step
 CHAN_CONFIGS = ((4096, 8, 4, 1024), (1024, 8, 16, 1024))
-# B10 at the band shapes its tile holds, with the default conf (2048, N/2048)
-KSPLIT2_BAND = ((4096, 4096), (8192, 2048), (16384, 1024))
+# B10 at the time-major band shapes, with the default conf (2048, N/2048)
+KSPLIT2_BAND = ((4096, 4096), (8192, 2048), (16384, 1024), (32768, 512), (65536, 256))
+# B10's launch-shape sweeps, (N, conf, tb, cluster): batch columns at (8192,
+# 2048); cluster 16 (tb = 8) against 8 (tb = 4, two slabs a block) at N =
+# 32768; the splits (2048, 32) and (4096, 16) at N = 65536; the split
+# (1024, N/1024) with one slab of 8 columns a block (two blocks per SM)
+KSPLIT2_SWEEP = ((8192, None, 4, None), (8192, None, 4, 4), (8192, None, 2, 4),
+                 (32768, None, 4, 8), (65536, (4096, 16), None, None),
+                 (4096, (1024, 4), 8, 4), (8192, (1024, 8), 8, 8),
+                 (16384, (1024, 16), 8, 16))
 # the "ksplit" engine: complex (N, B) and real (N, B)
 KSPLIT_BAND = ((2048, 8192), (4096, 4096))
 KSPLIT_REAL_BAND = ((4096, 4096), (8192, 2048))
@@ -386,7 +396,7 @@ def phase_kernels(gen):
                  lambda bwd: fs.cfft_fused2_plain(plan, re, im, backward=bwd,
                                                   ordered=ordered),
                  {"n": n, "b": b, "ordered": ordered, "factors": list(plan.factors),
-                  "tb": fs.fused2_tile(n, dev)})
+                  "tile": fs.fused2_tile(n, dev)._asdict()})
 
     def split_b_case(h, b):
         tw = real_tw(h)
@@ -426,7 +436,7 @@ def phase_kernels(gen):
              lambda bwd: D.cfft_ksplit2_tmajor(plan, re, im, backward=bwd, conf=conf),
              lambda bwd: D.ksplit2_tmajor_plain(mplan, last, re, im, backward=bwd),
              {"n": n, "b": b, "m": mplan.engine_n, "r": last.r,
-              "tb": D.ksplit2_tile(mplan, last.r, dev)})
+              "tile": D.ksplit2_tile(mplan, last.r, dev)._asdict()})
 
     # B10 at the shapes its phase gives it, and at small, non-power-of-two
     # and radix-16/32 splits with ragged and odd batches (scalar loads)
@@ -1004,7 +1014,7 @@ def phase_bmajor_timing(gen, per_shape, real_shapes):
             k_ms = time_ms(lambda: fs.cfft_fused2(plan, re, im))
             rec.update(fused2_ms=k_ms, fused2_bwd_ms=time_ms(
                 lambda: fs.cfft_fused2(plan, re, im, backward=True)),
-                tb=fs.fused2_tile(n, dev))
+                fused2_tile=fs.fused2_tile(n, dev)._asdict())
             if n == 4096:
                 p_ms = time_ms(lambda: fs.cfft_fused2_plain(plan, re, im), inner=1)
                 rows["fused2"] = dict(ms=k_ms, bwd_ms=rec["fused2_bwd_ms"], plain_ms=p_ms,
@@ -1419,18 +1429,29 @@ def phase_ksplit2(gen):
 
 def phase_ksplit2_timing(gen):
     """B10 beside kern2 on the same planes, the plain version, the bound and
-    ``torch.fft.fft(dim=0)``, per band shape; returns B10's row."""
+    ``torch.fft.fft(dim=0)``, per band shape, and B10's launch-shape sweeps;
+    returns B10's row."""
 
     dev = torch.device("cuda")
     rows = {}
+    sweeps = {}
+    for n, conf, tb, cluster in KSPLIT2_SWEEP:
+        sweeps.setdefault(n, []).append((conf, tb, cluster))
+
+    def shape(n, conf=None, tb=None, cluster=None):
+        mplan, last = D._build_ksplit(n, *(conf or (2048, n // 2048)))
+        tile = D.ksplit2_tile(mplan, last.r, dev, tb=tb, cluster=cluster)
+        clusters, blocks = D.ksplit2_occupancy(mplan, last.r, tile, dev)
+        return {"conf": [mplan.engine_n, last.r], "tile": tile._asdict(),
+                "card_clusters": clusters, "card_blocks_per_sm": blocks}
+
     for n, b in KSPLIT2_BAND:
         plan = pt.new_setup(n)
         re, im = planes(n, b, gen)
         mplan, last = D._build_ksplit(n, 2048, n // 2048)
         z = torch.complex(re, im)
         bnd = bound(16.0 * n * b, fft_flops(n, b))
-        rec = {"phase": "ksplit2_time", "n": n, "b": b, "conf": [2048, n // 2048],
-               "tb": D.ksplit2_tile(mplan, last.r, dev),
+        rec = {"phase": "ksplit2_time", "n": n, "b": b, **shape(n),
                "ksplit2_ms": time_ms(lambda: D.cfft_ksplit2_tmajor(plan, re, im)),
                "ksplit2_bwd_ms": time_ms(
                    lambda: D.cfft_ksplit2_tmajor(plan, re, im, backward=True)),
@@ -1447,6 +1468,12 @@ def phase_ksplit2_timing(gen):
                                    plain_ms=rec["plain_ms"], library_ms=rec["library_ms"],
                                    kern2_ms=rec["kern2_ms"], shape=[n, b], bound_ms=bnd[0],
                                    bound_by=bnd[1])
+        for conf, tb, cluster in sweeps.get(n, ()):
+            sw = shape(n, conf, tb, cluster)
+            emit({"phase": "ksplit2_sweep", "n": n, "b": b, **sw,
+                  "ksplit2_ms": time_ms(lambda: D.cfft_ksplit2_tmajor(
+                      plan, re, im, conf=conf, tb=tb, cluster=cluster)),
+                  "default_ms": rec["ksplit2_ms"]})
         del re, im, z
     return rows
 

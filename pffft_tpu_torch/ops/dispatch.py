@@ -24,9 +24,11 @@ walk the routes the card takes.  Float64 plans run the stage engine in
 either layout: every kernel is f32.
 
 B10, the in-kernel ksplit (``csrc/ksplit2.cu``,
-:func:`cfft_ksplit2_tmajor`): kern2's function in one pass, the m-chain
-and the combine in one tile.  No route picks it, as in the reference; it
-is entered directly.
+:func:`cfft_ksplit2_tmajor`): kern2's function in one pass, run by a
+thread-block cluster whose blocks hold the slabs' length-m transforms and
+combine them through distributed shared memory (:func:`ksplit2_tile`
+plans it).  No route picks it, as in the reference; it is entered
+directly.
 
 Engines of batch-major planes [..., N] (reference ``time_major=False``):
 
@@ -69,8 +71,9 @@ keyed by (compute capability, nfft), starts empty too.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +101,8 @@ __all__ = [
     "cfft_ksplit2_tmajor",
     "ksplit2_tmajor_plain",
     "ksplit2_tile",
+    "ksplit2_occupancy",
+    "Ksplit2Tile",
     "fused_real_fwd_route",
     "fused_real_bwd_route",
     "packed_fwd_route",
@@ -340,20 +345,68 @@ def cfft_ksplit_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def ksplit2_tile(mplan: _plan.Plan, r: int, device=None) -> Optional[int]:
-    """Batch columns per block of B10 for N = m*r: the widest power of two
-    from 32 down to 1 with N*tb within the chain's tile
-    (:func:`pallas_fft.tile_elems` over the m-plan's radices and r), or
-    None when not even one column fits."""
+# B10's cluster: at most 16 blocks (a non-portable size on sm_90), each
+# holding at most 32 values a thread (csrc/ksplit2.cu kElems) over at most
+# CORE_MAX_THREADS threads; the batch columns a cluster tries first.
+KSPLIT2_MAX_CLUSTER = 16
+_KSPLIT2_ELEMS = 32
+_KSPLIT2_TB = (8, 4, 2, 1)
 
-    n = mplan.engine_n * r
-    cap = _pk.tile_elems([st.r for st in mplan.stages if st.r != 1] + [r], device)
-    tb = 32
-    while tb >= 1:
-        if n * tb <= cap:
-            return tb
-        tb //= 2
+
+class Ksplit2Tile(NamedTuple):
+    """B10's launch shape for one (m, r) split (``ksplit2_tile``)."""
+
+    tb: int             # batch columns per cluster
+    cluster: int        # blocks per cluster; divides r
+    slabs: int          # slabs per block, r // cluster
+    threads: int        # threads per block
+    shift: int          # tile padding: one float2 every 2**shift rows
+    smem: int           # bytes of shared memory per block
+    blocks_per_sm: int  # by the planner's arithmetic (pallas_fft.core_blocks_per_sm)
+
+
+def ksplit2_tile(mplan: _plan.Plan, r: int, device=None, *, tb: Optional[int] = None,
+                 cluster: Optional[int] = None) -> Optional[Ksplit2Tile]:
+    """B10's launch shape for N = m*r, or None where no cluster of at most
+    16 blocks holds it.
+
+    A block holds ``slabs`` = r / cluster slabs of m rows by tb columns:
+    at most 32 values a thread on 512 threads (16384 values), in one
+    padded float2 tile per slab within the card's shared memory per
+    block.  tb is the first of 8, 4, 2, 1 (or the caller's ``tb``) for
+    which some cluster size fits, and the cluster the smallest divisor of
+    r (or the caller's ``cluster``) that does: at m = 2048, tb = 8 with
+    one slab a block for r <= 16 (cluster = r), tb = 4 with two slabs a
+    block at r = 32."""
+
+    m = mplan.engine_n
+    radices = [st.r for st in mplan.stages if st.r != 1]
+    shift = 3 if 8 in radices else 4
+    sizes = [c for c in range(1, KSPLIT2_MAX_CLUSTER + 1) if r % c == 0]
+    for t in (tb,) if tb is not None else _KSPLIT2_TB:
+        for cs in (cluster,) if cluster is not None else sizes:
+            if t < 1 or cs not in sizes:
+                continue
+            spb = r // cs
+            threads = -(-(spb * m * t) // (32 * _KSPLIT2_ELEMS)) * 32
+            smem = spb * (_pk.core_pad(m - 1, shift) + 1) * t * 8
+            if threads <= _pk.CORE_MAX_THREADS and smem <= _pk.smem_per_block(device):
+                return Ksplit2Tile(t, cs, spb, threads, shift, smem,
+                                   _pk.core_blocks_per_sm(threads, smem))
     return None
+
+
+def ksplit2_occupancy(mplan: _plan.Plan, r: int, tile: Ksplit2Tile,
+                      device: torch.device) -> Tuple[int, int]:
+    """(clusters the card holds at once, blocks per SM) of B10 at ``tile``,
+    from the card's occupancy calculator (registers as ptxas gave them)."""
+
+    lib, fn = _pk._kernel("pf_ksplit2_occupancy", f"ksplit2_r{r}")
+    out = (ctypes.c_int * 2)()
+    err = fn(mplan.engine_n, tile.tb, tile.cluster, tile.threads, tile.shift,
+             device.index or 0, out)
+    _build.check(lib, err, f"ksplit2 kernel occupancy (m={mplan.engine_n}, r={r})")
+    return out[0], out[1]
 
 
 def ksplit2_tmajor_plain(mplan: _plan.Plan, last, re, im, *, backward: bool = False):
@@ -370,16 +423,19 @@ def ksplit2_tmajor_plain(mplan: _plan.Plan, last, re, im, *, backward: bool = Fa
 
 def cfft_ksplit2_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
                         backward: bool = False,
-                        conf: Optional[Tuple[int, int]] = None):
+                        conf: Optional[Tuple[int, int]] = None,
+                        tb: Optional[int] = None, cluster: Optional[int] = None):
     """One-pass complex FFT of time-major planes [N, B] through B10
-    (``csrc/ksplit2.cu``): the length-m chain on the [m, r, tb] tile, then
-    the twiddled radix-r combine in the same tile.
+    (``csrc/ksplit2.cu``): a cluster per tb batch columns, its blocks
+    running the slabs' length-m transforms and the twiddled radix-r
+    combine.
 
     Unscaled, canonical order.  ``conf`` is the (m, r) split, by default
-    (2048, N // 2048) as in the reference; the tile's batch columns are
-    :func:`ksplit2_tile`'s.  ValueError when m*r != N, when r is not a
-    combine radix, or when no tile of N rows fits.  The inputs are not
-    modified."""
+    (2048, N // 2048) as in the reference; ``tb`` (batch columns per
+    cluster) and ``cluster`` (blocks per cluster) override
+    :func:`ksplit2_tile`'s choice.  ValueError when m*r != N, when r is
+    not a combine radix, or when no cluster of at most 16 blocks holds the
+    split (at the given tb and cluster).  The inputs are not modified."""
 
     n = plan.engine_n
     m, r = conf if conf is not None else (2048, n // 2048)
@@ -393,10 +449,13 @@ def cfft_ksplit2_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     if built is None:
         raise ValueError(f"no ksplit2 build for N={n} (m={m}, r={r})")
     mplan, last = built
-    tb = ksplit2_tile(mplan, r, re.device)
-    if tb is None:
-        raise ValueError(f"N={n} exceeds B10's tile limit: one block holds all N "
-                         f"rows of at least one column (pallas_fft.tile_elems)")
+    tile = ksplit2_tile(mplan, r, re.device, tb=tb, cluster=cluster)
+    if tile is None:
+        raise ValueError(
+            f"N={n} (m={m}, r={r}, tb={tb}, cluster={cluster}): no cluster of at most "
+            f"{KSPLIT2_MAX_CLUSTER} blocks holds B10's tile (a block holds at most "
+            f"{_pk.CORE_MAX_THREADS * _KSPLIT2_ELEMS} values in "
+            f"{_pk.smem_per_block(re.device)} bytes of shared memory)")
     if re.device.type == "cpu":
         return ksplit2_tmajor_plain(mplan, last, re, im, backward=backward)
     _pk._check_cuda(re, im)
@@ -404,10 +463,13 @@ def cfft_ksplit2_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     if b == 0:
         return ore, oim
     lib, fn = _pk._kernel("pf_ksplit2_tmajor", f"ksplit2_r{r}")
-    tw, desc, count = _pk._chain_tables(tuple(mplan.stages) + (last,), re.device)
+    tw, desc, count = _pk._core_tables(tuple(mplan.stages), re.device)
+    twc = _pk._core_tables((last,), re.device)[0]
     err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
-             desc, count, n, b, tb, int(backward), re.device.index or 0, _pk._stream(re))
-    _build.check(lib, err, f"ksplit2 kernel (N={n}, (m, r)=({m}, {r}), B={b}, tb={tb})")
+             desc, count, twc.data_ptr(), n, r, b, tile.tb, tile.cluster, tile.threads,
+             tile.shift, int(backward), re.device.index or 0, _pk._stream(re))
+    _build.check(lib, err, f"ksplit2 kernel (N={n}, (m, r)=({m}, {r}), B={b}, "
+                           f"tb={tile.tb}, cluster={tile.cluster})")
     cfft_ksplit2_tmajor.launches += 1
     return ore, oim
 

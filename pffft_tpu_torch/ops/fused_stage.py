@@ -1,10 +1,11 @@
 """Fused two-stage FFT of batch-major planes [B, N] in one pass (kernel B9).
 
 Counterpart of ``pffft_tpu/ops/fused_stage.py``.  The Pallas kernel becomes
-``csrc/fused2.cu``: a block loads whole rows into the chain's shared-memory
-tile, runs the thin radix-16/8/4/2/5/3 chain of ``csrc/chain.cuh`` on it,
-and stores each row through the output map of the plan's two factors
-N = n1*n2:
+``csrc/fused2.cu``: a block runs the thin radix-16/8/4/2/5/3 chain on whole
+rows with the register-resident core of ``csrc/regfft.cuh`` (first stage
+read straight from the rows, exchanges through one padded row buffer in
+shared memory, last stage written straight out), and stores each row
+through the output map of the plan's two factors N = n1*n2:
 
   ordered:   out[b, k]            (canonical bins)
   internal:  out[b, k1*n2 + k2]   holds bin k1 + n1*k2 (k1-major)
@@ -23,7 +24,7 @@ raises.  ``cfft_fused2.launches`` counts its launches.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,10 +32,33 @@ from .. import plan as _plan
 from . import _build
 from . import pallas_fft as _pk
 
-__all__ = ["supported", "fused2_tile", "cfft_fused2", "cfft_fused2_plain", "MAX_TB"]
+__all__ = ["supported", "fused2_tile", "cfft_fused2", "cfft_fused2_plain", "Fused2Tile",
+           "MAX_TB", "MAX_N"]
 
 # Rows per block at most: the reference's tile (DEFAULT_TB).
 MAX_TB = 64
+# The longest row the kernel takes, as in the reference.
+MAX_N = 16384
+# Threads a block of short rows is filled up to.
+_ROW_THREADS = 256
+# Values a thread holds per stage: 16 up to N = 4096 (a radix-16 butterfly
+# each), 32 above, so that a row of 8192 still takes 256 threads.
+_ELEMS_SPLIT = 4096
+# Padding of the row buffer: one float2 every 16, which spreads the
+# strided reads of every radix over distinct banks.
+_PAD_SHIFT = 4
+
+
+class Fused2Tile(NamedTuple):
+    """B9's launch shape for one row length (``fused2_tile``)."""
+
+    rows: int           # rows per block
+    threads: int        # threads per block
+    elems: int          # values a thread holds per stage (16 or 32)
+    pitch: int          # float2 slots between two rows' buffers
+    shift: int          # one float2 of padding every 2**shift elements
+    smem: int           # bytes of shared memory per block
+    blocks_per_sm: int  # by the planner's arithmetic (pallas_fft.core_blocks_per_sm)
 
 
 def supported(plan: _plan.Plan) -> bool:
@@ -53,21 +77,30 @@ def _factors(plan: _plan.Plan) -> Tuple[int, int]:
     return n1, n2
 
 
-def fused2_tile(n: int, device: Optional[torch.device] = None) -> Optional[int]:
-    """Rows per block for length n: the largest power of two up to
-    :data:`MAX_TB` whose [n, TB] tile fits one block of the thin chain
-    (``pallas_fft.tile_elems``), or None when not even one row fits."""
+def fused2_tile(n: int, device: Optional[torch.device] = None) -> Optional[Fused2Tile]:
+    """B9's launch shape for rows of length n, or None past :data:`MAX_N`
+    or where n has no thin plan (not 2/3/5-smooth).
 
-    chain = _pk.thin_plan(n)
-    if chain is None:
+    Each thread holds 16 values per stage up to N = 4096 and 32 above, so
+    a row takes ceil(n / elems) threads; short rows are packed into one
+    block up to 256 threads (at most :data:`MAX_TB` rows).  The block's
+    shared memory is one padded buffer per row.  N = 4096 and 8192 get one
+    row of 256 threads and 34 / 68 KB, two blocks per SM by
+    ``core_blocks_per_sm`` (registers counted at the launch bound's 128);
+    N = 16384 one block of 512 threads and 136 KB."""
+
+    if n < 1 or n > MAX_N or _pk.thin_plan(n) is None:
         return None
-    cap = _pk.tile_elems([st.r for st in chain.stages if st.r != 1], device)
-    tb = MAX_TB
-    while tb >= 1:
-        if n * tb <= cap:
-            return tb
-        tb //= 2
-    return None
+    elems = 16 if n <= _ELEMS_SPLIT else 32
+    per_row = -(-n // elems)
+    rows = max(1, min(MAX_TB, _ROW_THREADS // per_row))
+    threads = -(-rows * per_row // 32) * 32
+    pitch = _pk.core_pad(n - 1, _PAD_SHIFT) + 1
+    smem = rows * pitch * 8
+    if threads > _pk.CORE_MAX_THREADS or smem > _pk.smem_per_block(device):
+        return None
+    return Fused2Tile(rows, threads, elems, pitch, _PAD_SHIFT, smem,
+                      _pk.core_blocks_per_sm(threads, smem))
 
 
 def _out_map(x: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
@@ -96,7 +129,7 @@ def cfft_fused2(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     """Batched complex FFT of batch-major planes [B, N] in one pass.
 
     Unscaled both directions; layout per the module docstring.  Any B: the
-    ragged last tile is masked.  The inputs are not modified."""
+    rows past B of the last block are masked.  The inputs are not modified."""
 
     if not ordered and not supported(plan):
         raise ValueError(f"plan {plan} is not a two-stage plan")
@@ -106,20 +139,21 @@ def cfft_fused2(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     if re.device.type == "cpu":
         return cfft_fused2_plain(plan, re, im, backward=backward, ordered=ordered)
     _pk._check_cuda(re, im)
-    tb = fused2_tile(n, re.device)
-    if tb is None:
-        raise ValueError(f"N={n} exceeds the fused two-stage kernel's tile")
+    t = fused2_tile(n, re.device)
+    if t is None:
+        raise ValueError(f"N={n} exceeds the fused two-stage kernel's rows")
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
     # the identity map n1 = N, n2 = 1 stores canonical order
     n1, n2 = (n, 1) if ordered else _factors(plan)
     lib, fn = _pk._kernel("pf_fused2")
-    tw, desc, count = _pk._chain_tables(_pk.thin_plan(n).stages, re.device)
+    tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, re.device)
     err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
-             desc, count, n, b, tb, n1, n2, int(ordered), int(backward),
-             re.device.index or 0, _pk._stream(re))
-    _build.check(lib, err, f"fused two-stage kernel (N={n}, B={b}, tb={tb})")
+             desc, count, n, b, t.rows, t.threads, t.elems, t.pitch, t.shift, n1, n2,
+             int(ordered), int(backward), re.device.index or 0, _pk._stream(re))
+    _build.check(lib, err, f"fused two-stage kernel (N={n}, B={b}, rows={t.rows}, "
+                           f"threads={t.threads})")
     cfft_fused2.launches += 1
     return ore, oim
 

@@ -384,6 +384,37 @@ def smem_per_block(device: Optional[torch.device] = None) -> int:
     return _SM90_SMEM_OPTIN
 
 
+# What the planners of the register-resident core (csrc/regfft.cuh: B9 in
+# ops/fused_stage.py, B10 in ops/dispatch.py) count with, on sm_90: threads
+# per block at most (the kernels' launch bound, which caps a thread at 128
+# registers), and an SM's shared memory, registers and threads.  The 1 KB
+# per block is what the runtime reserves for itself.
+CORE_MAX_THREADS = 512
+_CORE_REGS = 128
+_SM_SMEM = 233472
+_SM_SMEM_RESERVED = 1024
+_SM_REGS = 65536
+_SM_THREADS = 2048
+_SM_BLOCKS = 32
+
+
+def core_blocks_per_sm(threads: int, smem: int) -> int:
+    """Blocks of a core kernel one SM holds at once, by the planners'
+    arithmetic: the least of what shared memory, registers (128 a thread,
+    the launch bound's cap) and threads allow.  The card's own occupancy
+    calculator, with the registers ptxas gave, may allow more."""
+
+    return min(_SM_SMEM // (smem + _SM_SMEM_RESERVED), _SM_REGS // (threads * _CORE_REGS),
+               _SM_THREADS // threads, _SM_BLOCKS)
+
+
+def core_pad(p: int, shift: int) -> int:
+    """Shared-memory slot of element p of a core tile: one float2 of
+    padding every 2^shift elements (``pad`` in csrc/regfft.cuh)."""
+
+    return p + (p >> shift)
+
+
 def tile_elems(radices: Sequence[int] = (2,),
                device: Optional[torch.device] = None) -> int:
     """Complex values one block of a csrc/chain.cuh kernel holds with stage
@@ -439,19 +470,19 @@ _SIGNATURES = {
                                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_real_split_tmajor": ("real_split", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # ops/fused_stage.cfft_fused2, ops/real_kernel.real_split
-    "pf_fused2": ("fused2", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "pf_fused2": ("fused2", [_P] * 6 + [_I] * 13 + [_P]),
     "pf_real_split_bmajor": ("real_split_bmajor",
                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # ops/conv_kernel.zconv_tmajor, ops/pfb_kernel.pfb_fir(_stream_tmajor)
     "pf_conv_fused_tmajor": ("conv_fused",
                              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_pfb_fir": ("pfb_fir", [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P]),
-    # ops/dispatch.cfft_ksplit2_tmajor
-    "pf_ksplit2_tmajor": ("ksplit2", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # ops/dispatch.cfft_ksplit2_tmajor (and its occupancy)
+    "pf_ksplit2_tmajor": ("ksplit2", [_P] * 6 + [_I, _P] + [_I] * 9 + [_P]),
+    "pf_ksplit2_occupancy": ("ksplit2", [_I] * 6 + [_P]),
 }
 # Sources built on csrc/chain.cuh, whose tile limits chain_tile plans with.
-_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused", "conv_fused", "fused2",
-                  "ksplit2")
+_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused", "conv_fused")
 
 
 @functools.lru_cache(maxsize=None)
@@ -506,6 +537,25 @@ def _chain_tables(stages: tuple, device: torch.device):
         desc += [st.r, st.l, st.m, off]
         off += st.l * st.r
     tw = np.concatenate([st.twiddle.astype(np.complex64).ravel() for st in active])
+    tw_t = torch.from_numpy(tw.view(np.float32).copy()).to(device)
+    return tw_t, (ctypes.c_int * len(desc))(*desc), len(active)
+
+
+@functools.lru_cache(maxsize=256)
+def _core_tables(stages: tuple, device: torch.device):
+    """The tables of the register-resident core (csrc/regfft.cuh): each
+    stage's [l, r] table transposed to [r, l] (entry i*l + k is T[k, i]),
+    concatenated as (re, im) pairs on ``device``; the ctypes descriptor
+    rows (r, l, m, offset); the stage count.  The values are those of
+    :func:`_chain_tables`."""
+
+    active = [st for st in stages if st.r != 1]
+    desc = []
+    off = 0
+    for st in active:
+        desc += [st.r, st.l, st.m, off]
+        off += st.l * st.r
+    tw = np.concatenate([st.twiddle.T.astype(np.complex64).ravel() for st in active])
     tw_t = torch.from_numpy(tw.view(np.float32).copy()).to(device)
     return tw_t, (ctypes.c_int * len(desc))(*desc), len(active)
 

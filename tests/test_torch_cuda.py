@@ -418,8 +418,8 @@ def _rows(b, n, seed, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,mf", [(1024, 32), (1536, 48), (2400, 64), (4096, 64), (96, 16),
-                                  (16384, 128)])
-@pytest.mark.parametrize("b", [13, 1000, 1001])  # ragged last tile, aligned, odd
+                                  (8192, 128), (16384, 128)])
+@pytest.mark.parametrize("b", [13, 1000, 1001, 1])  # ragged last block, aligned, odd, one row
 def test_fused2_kernel_matches_plain(cuda_device, n, mf, b):
     plan = pt.new_setup(n, max_factor=mf, strict=False)
     assert fs.supported(plan)
@@ -482,9 +482,14 @@ def test_refused_bmajor_launches_raise(cuda_device, monkeypatch):
     plan = pt.new_setup(4096, max_factor=64)
     re, im = _rows(64, 4096, 3, cuda_device)
     before = fs.cfft_fused2.launches
-    monkeypatch.setattr(fs, "fused2_tile", lambda *a, **k: 64)  # a tile plan gone wrong
-    with pytest.raises(RuntimeError, match="fused two-stage kernel"):
-        fs.cfft_fused2(plan, re, im)
+    good = fs.fused2_tile(4096, cuda_device)
+    # plans gone wrong: two rows on one row's threads; 240 KB of shared memory
+    for bad in (good._replace(rows=2, smem=2 * good.smem),
+                good._replace(pitch=30000, smem=240000)):
+        with monkeypatch.context() as mp:
+            mp.setattr(fs, "fused2_tile", lambda *a, bad=bad, **k: bad)
+            with pytest.raises(RuntimeError, match="fused two-stage kernel"):
+                fs.cfft_fused2(plan, re, im)
     assert fs.cfft_fused2.launches == before
     with pytest.raises(ValueError, match="contiguous float32"):
         rk.real_split(re.t(), im.t(), _real_tw(64, cuda_device))
@@ -543,7 +548,8 @@ def test_bmajor_real_transform_on_the_card_matches_oracle(cuda_device, n, engine
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,conf", [(640, (128, 5)), (384, (128, 3)), (2048, (128, 16)),
                                     (4096, (128, 32)), (4096, None), (8192, None),
-                                    (16384, None)])
+                                    (16384, None), (32768, None), (65536, None),
+                                    (65536, (4096, 16))])
 @pytest.mark.parametrize("b", [256, 250, 251])  # aligned, ragged, odd (scalar loads)
 def test_ksplit2_kernel_matches_plain_and_oracle(cuda_device, n, conf, b):
     plan = pt.new_setup(n, strict=False)
@@ -563,16 +569,23 @@ def test_ksplit2_kernel_matches_plain_and_oracle(cuda_device, n, conf, b):
 
 @pytest.mark.cuda
 def test_refused_ksplit2_launch_raises(cuda_device, monkeypatch):
-    """A tile too large for one block is refused before launch and raises;
+    """A launch shape the kernel or the card refuses raises before launch;
     the counter does not move."""
 
     re, im = _planes(4096, 8, 1, cuda_device)
     before = D.cfft_ksplit2_tmajor.launches
-    with monkeypatch.context() as mp:
-        mp.setattr(D, "ksplit2_tile", lambda *a, **k: 8)  # 32768 values: a tile plan gone wrong
-        with pytest.raises(RuntimeError, match="ksplit2 kernel"):
-            D.cfft_ksplit2_tmajor(pt.new_setup(4096), re, im)
+    mplan, last = D._build_ksplit(4096, 2048, 2)
+    good = D.ksplit2_tile(mplan, 2, cuda_device)
+    # plans gone wrong: two slabs of 8 columns (32768 values) on 512 threads;
+    # a cluster of 4 blocks for r = 2
+    for bad in (good._replace(cluster=1, slabs=2), good._replace(cluster=4)):
+        with monkeypatch.context() as mp:
+            mp.setattr(D, "ksplit2_tile", lambda *a, bad=bad, **k: bad)
+            with pytest.raises(RuntimeError, match="ksplit2 kernel"):
+                D.cfft_ksplit2_tmajor(pt.new_setup(4096), re, im)
     assert D.cfft_ksplit2_tmajor.launches == before
+    clusters, blocks = D.ksplit2_occupancy(mplan, 2, good, cuda_device)
+    assert clusters >= 1 and blocks >= 1
     with pytest.raises(ValueError, match="CUDA tensor|contiguous float32"):
         D.cfft_ksplit2_tmajor(pt.new_setup(4096), re.T.contiguous().T, im)
 

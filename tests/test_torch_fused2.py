@@ -98,16 +98,41 @@ def test_fused2_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_fused2_tile_from_sm90_shared_memory():
-    """Rows per block: N*TB fits 16384 values (15360 with radix 3 or 5),
-    up to 64 rows, down to one row at N = 16384."""
+    """B9's planner: ceil(N / elems) threads a row (16 values a thread up to
+    N = 4096, 32 above), short rows packed up to 256 threads, one padded
+    row buffer each in shared memory; None past 16384."""
 
-    assert fs.fused2_tile(16) == 64
-    assert fs.fused2_tile(1024) == 16
-    assert fs.fused2_tile(4096) == 4
-    assert fs.fused2_tile(2400) == 4
-    assert fs.fused2_tile(16384) == 1
-    assert fs.fused2_tile(15360) == 1
+    t = fs.fused2_tile(4096)
+    assert (t.rows, t.threads, t.elems, t.shift) == (1, 256, 16, 4)
+    assert t.pitch == 4096 + 255 and t.smem == 8 * t.pitch
+    assert fs.fused2_tile(16) == fs.Fused2Tile(64, 64, 16, 16, 4, 8192, 8)
+    assert fs.fused2_tile(1024)[:3] == (4, 256, 16)
+    assert fs.fused2_tile(2400)[:3] == (1, 160, 16)
+    assert fs.fused2_tile(8192)[:3] == (1, 256, 32)
+    assert fs.fused2_tile(16384)[:3] == (1, 512, 32)
+    assert fs.fused2_tile(15360)[:3] == (1, 480, 32)
     assert fs.fused2_tile(32768) is None
+    assert fs.fused2_tile(1 << 20) is None
+    assert fs.fused2_tile(7 * 1024) is None  # not 2/3/5-smooth: no thin plan
+
+
+@pytest.mark.parametrize("n", [16, 96, 1024, 1536, 2048, 2400, 4096, 6144, 8192, 15360, 16384])
+def test_fused2_planner_covers_every_stage(n):
+    """Every stage's butterflies fit one pass of the block (threads * elems
+    >= rows * N), within the launch bound and the card's shared memory; two
+    or more blocks per SM by the planner's own arithmetic up to N = 8192."""
+
+    t = fs.fused2_tile(n)
+    assert t.threads % 32 == 0 and t.threads <= pk.CORE_MAX_THREADS
+    assert t.threads * t.elems >= t.rows * n
+    assert t.pitch >= pk.core_pad(n - 1, t.shift) + 1
+    assert t.smem == t.rows * t.pitch * 8 <= pk.smem_per_block()
+    assert 1 <= t.rows <= fs.MAX_TB
+    assert t.blocks_per_sm == pk.core_blocks_per_sm(t.threads, t.smem)
+    if n <= 8192:
+        assert t.blocks_per_sm >= 2, t
+    else:
+        assert t.blocks_per_sm >= 1, t
 
 
 @pytest.mark.parametrize("n", [96, 1024])
