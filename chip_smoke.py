@@ -8,7 +8,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. environment: CUDA, compute capability, nvcc, triton, card and power limit;
   2. build: nvcc compiles pffft_tpu_torch/csrc/*.cu (sm_90a), in parallel;
   3. each kernel against its plain version on the card, at the shapes the
-     two main paths give it and at small, non-power-of-two and ragged ones;
+     main paths give it and at small, non-power-of-two and ragged ones (B1
+     at its planner's launch shape and at every shape of its sweep; B7's
+     column map and its stream map, with misaligned rows and ragged tails);
   4. the complex main path, ``transform_ordered_split_tmajor`` at the bench
      band shapes (64 MB per plane), forward and backward, checked against a
      complex128 oracle, the unscaled round trip and the 140 dB carrier
@@ -20,8 +22,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      + split kernel);
   6. FIR filtering by overlap-save: ``FastConv.apply_batched`` on a
      16-channel real stream [16, 2^22] (256 MB) with 64-, 1024- and
-     4096-tap lowpass filters (the fused conv kernel at nfft 128 and 2048,
-     the composed kern2 route at 8192), CPLX_INP_OUT, CPLX_SINGLE_FFT and
+     4096-tap lowpass filters (the fused conv kernel's stream map at nfft
+     128 and 2048, the composed kern2 route at 8192), CPLX_INP_OUT, CPLX_SINGLE_FFT and
      CORRELATION runs, each against a complex128 FFT convolution on
      sampled channels, and a ``StreamingConv`` run in odd-sized chunks
      against the one-shot output; launch counts per route;
@@ -55,9 +57,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      kernel may launch;
  13. timing with CUDA events (median of 10 after warm-up), per band shape,
      per kernel and per FIR pipeline, beside the bound, the plain version
-     and a library yardstick (torch.fft, conv1d); B10 beside kern2 on the
+     and a library yardstick (torch.fft, conv1d); B1's launch-shape sweep
+     (batch columns x values a thread, as kern2's pass A too) and B7's
+     column-map sweep; FastConv's stream map beside the composition of
+     copies around the column map it replaces; B10 beside kern2 on the
      same planes, with sweeps of its batch columns and cluster size; blocks
-     per SM of B9 and B10 from the planner and from the card;
+     per SM of B1, B9 and B10 from the planner and from the card;
  14. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
@@ -104,7 +109,7 @@ SEED = 1234
 WRAPPERS = (pk.cfft_chain_tmajor, pk.cfft_combine_tmajor, pk.stream_copy,
             pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
             pk.rfft_bwd_chain_tmajor_fused, pk.real_split_tmajor, ck.zconv_tmajor,
-            pfb.pfb_fir, pfb.pfb_fir_stream_tmajor, fs.cfft_fused2, rk.real_split,
+            ck.zconv_stream, pfb.pfb_fir, pfb.pfb_fir_stream_tmajor, fs.cfft_fused2, rk.real_split,
             D.cfft_ksplit2_tmajor)
 # the fused two-stage kernel on two-stage plans (N, max_factor)
 FUSED2_PLANS = ((1024, 32), (1536, 48), (2400, 64), (4096, 64))
@@ -125,6 +130,14 @@ KSPLIT2_SWEEP = ((8192, None, 4, None), (8192, None, 4, 4), (8192, None, 2, 4),
                  (32768, None, 4, 8), (65536, (4096, 16), None, None),
                  (4096, (1024, 4), 8, 4), (8192, (1024, 8), 8, 8),
                  (16384, (1024, 16), 8, 16))
+# B1's launch-shape sweep, (N, B, conf): the two chain band shapes and kern2's
+# pass A at (4096, 4096) and (65536, 256) (the chain on [2048, r*B]), at
+# batch columns x values a thread (tb = 16 only where N <= 1024)
+CHAIN_SWEEP = ((1024, 16384, None), (2048, 8192, None), (4096, 4096, (2048, 2)),
+               (65536, 256, (2048, 32)))
+CHAIN_SWEEP_SHAPES = ((16, 32), (8, 32), (8, 16), (4, 32), (4, 16))
+# B7's column map at FastConv's nfft = 2048 column count, (tb, values a thread)
+CONV_SWEEP_SHAPES = ((4, 16), (8, 32), (4, 32))
 # the "ksplit" engine: complex (N, B) and real (N, B)
 KSPLIT_BAND = ((2048, 8192), (4096, 4096))
 KSPLIT_REAL_BAND = ((4096, 4096), (8192, 2048))
@@ -262,12 +275,13 @@ def phase_kernels(gen):
                   "rel_err": e})
             check(e <= KERNEL_TOL, f"{name} {case} bwd={bwd}: {e}")
 
-    def chain_case(plan, n, b, tb=None):
+    def chain_case(plan, n, b, tb=None, elems=None):
         re, im = planes(n, b, gen)
         hold("chain",
-             lambda bwd: pk.cfft_chain_tmajor(plan, re, im, backward=bwd, tb=tb),
+             lambda bwd: pk.cfft_chain_tmajor(plan, re, im, backward=bwd, tb=tb, elems=elems),
              lambda bwd: pk.chain_tmajor_plain(plan, re, im, backward=bwd),
-             {"n": n, "b": b, "tb": tb, "factors": list(plan.factors)})
+             {"n": n, "b": b, "tb": tb, "elems": elems, "factors": list(plan.factors),
+              "tile": pk._core_launch(plan, dev, "chain kernel", tb, elems)._asdict()})
 
     def combine_case(last, b):
         n = last.l * last.r
@@ -287,14 +301,20 @@ def phase_kernels(gen):
             mplan, last = D._build_ksplit(n, m, r)
             chain_case(mplan, m, r * b)
             combine_case(last, b)
-    # small, non-power-of-two and ragged batches (B=1001 takes the scalar
-    # loads); N=2400 is routed to kern2 (no 8-column tile fits), and the
-    # kernel still runs it at 4 columns
+    # small, non-power-of-two, ragged and odd batches; N=2400 is routed to
+    # kern2 (the chain does not cover it), and the kernel still runs it at 4
+    # columns; every launch shape of B1's sweep at N = 1024 and 2048
     for n in (96, 160, 640, 1024, 2400, pk.chain_max_n(dev)):
         plan = D._thin_plan(n)
-        tb = pk.chain_tile(n, [st.r for st in plan.stages], dev) or 4
+        tb = None if pk.chain_core_tile(plan, dev) else 4
         for b in (1024, 1000, 1001):
             chain_case(plan, n, b, tb)
+    for n in (1024, 2048):
+        plan = D._thin_plan(n)
+        for tb, el in CHAIN_SWEEP_SHAPES:
+            if pk.chain_core_tile(plan, dev, tb=tb, elems=el) is not None:
+                for b in (4096, 4093):
+                    chain_case(plan, n, b, tb, el)
     for r in pk.COMBINE_RADICES:
         for b in (256, 250):
             combine_case(D._build_ksplit(2048 * r, 2048, r)[1], b)
@@ -356,6 +376,15 @@ def phase_kernels(gen):
              lambda bwd: ck.zconv_tmajor_plain(plan, re, im, hfr, hfi),
              {"n": n, "b": b, "complex_filter": cplx}, dirs=(False,))
 
+    def stream_case(n, u, x, total, cplx_filter):
+        plan = D._thin_plan(n)
+        hfr, hfi = filter_spectrum(n, cplx_filter, n - u + 1)
+        hold("conv_fused",
+             lambda bwd: (ck.zconv_stream(plan, x, hfr, hfi, u, total),),
+             lambda bwd: (ck.zconv_stream_plain(plan, x, hfr, hfi, u, total),),
+             {"map": "stream", "n": n, "u": u, "shape": list(x.shape), "total": total,
+              "complex": x.is_complex(), "complex_filter": cplx_filter}, dirs=(False,))
+
     def pfb_case(m, p, r, k, maps=("rows", "stream")):
         w = torch.randn((p, m), generator=gen, device="cuda")
         if "rows" in maps:
@@ -369,12 +398,28 @@ def phase_kernels(gen):
                  lambda bwd: (pfb.pfb_fir_stream_tmajor_plain(ext, w, k),),
                  {"map": "stream", "m": m, "p": p, "r": r, "k": k}, dirs=(False,))
 
-    # the FIR paths' kernel calls, shape for shape: the fused conv kernel on
-    # FastConv's column sets, the polyphase FIR on the channelizer's streams
+    # the FIR paths' kernel calls, shape for shape: the fused conv kernel's
+    # stream map on FastConv's streams (its column map on StreamingConv's
+    # frames and at the column count of the [16, 2^22] stream), the
+    # polyphase FIR on the channelizer's streams
+    xs = torch.randn((CONV_ROWS, CONV_LEN), generator=gen, device="cuda")
     for taps in CONV_TAPS:
         fc = C.FastConv(pt.design_lowpass(taps, 0.1))
         if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+            stream_case(fc.nfft, fc.num_out_per_block, xs, CONV_LEN - taps + 1, False)
             conv_case(fc.nfft, conv_columns(fc, CONV_ROWS, CONV_LEN), False)
+    del xs
+    # the stream map's flag runs: a complex stream (complex filter), rows
+    # that start unaligned (L odd), a ragged tail (total short of a frame),
+    # R = 1 and 3, an odd number of frames in real mode
+    for n, u, rows, length, cplx in ((2048, 1025, 3, 40001, False), (2048, 1025, 3, 40001, True),
+                                     (128, 65, 1, 10007, False), (128, 65, 3, 5003, True),
+                                     (480, 200, 3, 2880, False)):
+        x = torch.randn((rows, length), generator=gen, device="cuda")
+        if cplx:
+            x = torch.complex(x, torch.randn((rows, length), generator=gen, device="cuda"))
+        for total in (length - (n - u), length - (n - u) - 7):
+            stream_case(n, u, x, total, cplx)
     for m, p, batch, frames in CHAN_CONFIGS:
         pfb_case(m, p, batch, frames, ("stream",))
     pfb_case(4096, 8, 4, 1024, ("rows",))
@@ -455,10 +500,11 @@ def phase_kernels(gen):
     return errs
 
 
-def filter_spectrum(n: int, cplx: bool):
-    """Hf of a lowpass (shifted in frequency when ``cplx``) on the card."""
+def filter_spectrum(n: int, cplx: bool, taps: int = 0):
+    """Hf of a lowpass of ``taps`` taps (n // 2 by default; shifted in
+    frequency when ``cplx``) on the card."""
 
-    h = pt.design_lowpass(n // 2, 0.1)
+    h = pt.design_lowpass(taps or n // 2, 0.1)
     if cplx:
         h = h * np.exp(2j * np.pi * 0.05 * np.arange(h.size))
     return tuple(torch.from_numpy(a).to("cuda") for a in ck.filter_spectrum(D._thin_plan(n), h))
@@ -777,8 +823,11 @@ def phase_timing(gen, per_shape):
             p_ms = time_ms(lambda: pk.chain_tmajor_plain(cplan, re, im))
             rec.update(chain_ms=k_ms, plain_ms=p_ms)
             if n == 2048:
+                tile = pk.chain_core_tile(cplan, dev)
                 rows["chain"] = dict(
                     ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, shape=[n, b],
+                    tile=tile._asdict(),
+                    card_blocks_per_sm=pk.chain_core_occupancy(n, tile, dev),
                     **dict(zip(("bound_ms", "bound_by"),
                                bound(nbytes, fft_flops(n, b)))))
         else:
@@ -823,6 +872,25 @@ def phase_timing(gen, per_shape):
             rec[f"kern2_{m}x{r}_ms"] = time_ms(
                 lambda: D.cfft_kern2_tmajor(plan, re, im, conf=(m, r)))
         emit(rec)
+        del re, im
+    # B1's launch shapes: batch columns x values a thread, blocks per SM by
+    # the planner and by the card, at the chain's band shapes and as kern2's
+    # pass A (the chain on the free view [m, r*B])
+    for n, b, conf in CHAIN_SWEEP:
+        m, r = conf or (n, 1)
+        plan = D._thin_plan(m)
+        re, im = planes(m, r * b, gen)
+        default = pk.chain_core_tile(plan, dev)
+        default_ms = time_ms(lambda: pk.cfft_chain_tmajor(plan, re, im))
+        for tb, el in CHAIN_SWEEP_SHAPES:
+            t = pk.chain_core_tile(plan, dev, tb=tb, elems=el)
+            if t is None:
+                continue
+            emit({"phase": "chain_sweep", "n": n, "b": b, "m": m, "cols": r * b,
+                  "tile": t._asdict(), "card_blocks_per_sm": pk.chain_core_occupancy(m, t, dev),
+                  "default": t == default,
+                  "ms": time_ms(lambda: pk.cfft_chain_tmajor(plan, re, im, tb=tb, elems=el)),
+                  "default_ms": default_ms})
         del re, im
     # the host's share of a public call: at a small batch the card waits on
     # the host (planning lookups, engine choice, ctypes launch)
@@ -1085,9 +1153,10 @@ def conv_oracle(x: torch.Tensor, h: np.ndarray, correlation: bool = False) -> to
     return ref if x.is_complex() else ref.real
 
 
-# launches of one block-convolution call per route (the composed route's
-# nfft = 4096 and 8192 ride kern2 in both directions)
-CONV_ROUTE_LAUNCHES = {"fused": {"zconv_tmajor": 1},
+# launches of one apply_batched call per route (the fused route is the
+# kernel's stream map; the composed route's nfft = 4096 and 8192 ride kern2
+# in both directions)
+CONV_ROUTE_LAUNCHES = {"fused": {"zconv_stream": 1},
                        "tmajor": {"cfft_chain_tmajor": 2, "cfft_combine_tmajor": 2}}
 
 
@@ -1255,13 +1324,14 @@ def plain_kernels():
 
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (pk, "cfft_chain_tmajor"), (pk, "cfft_combine_tmajor"), (ck, "zconv_tmajor"),
-        (pfb, "pfb_fir_stream_tmajor"))]
-    pk.cfft_chain_tmajor = lambda plan, re, im, *, backward=False, tb=None: \
+        (ck, "zconv_stream"), (pfb, "pfb_fir_stream_tmajor"))]
+    pk.cfft_chain_tmajor = lambda plan, re, im, *, backward=False, tb=None, elems=None: \
         pk.chain_tmajor_plain(plan, re, im, backward=backward)
     pk.cfft_combine_tmajor = lambda last, re, im, *, backward=False: \
         pk.combine_tmajor_plain(last, re, im, backward=backward)
-    ck.zconv_tmajor = lambda plan, re, im, hfr, hfi, *, tb=None: \
+    ck.zconv_tmajor = lambda plan, re, im, hfr, hfi, *, tb=None, elems=None: \
         ck.zconv_tmajor_plain(plan, re, im, hfr, hfi)
+    ck.zconv_stream = ck.zconv_stream_plain
     pfb.pfb_fir_stream_tmajor = pfb.pfb_fir_stream_tmajor_plain
     try:
         yield
@@ -1289,29 +1359,37 @@ def phase_fir_timing(gen, conv_runs, chan_runs):
             plain = time_ms(lambda: fc.apply_batched(x), inner=1, warm=1)
         cols = conv_columns(fc, x.shape[0], x.shape[1])
         n = fc.nfft
-        # where a call's time goes: framing into column planes, the block
-        # convolution (the route), unpacking the valid samples
-        nb = -(-(x.shape[1] - fc.filter_len + 1) // fc.num_out_per_block)
-        nb += nb & 1
-        v = fc._frames(x, nb)
-        stage = {"frame_ms": time_ms(lambda: fc._columns(v[:, 0::2], v[:, 1::2]), inner=2)}
-        pre, pim = fc._columns(v[:, 0::2], v[:, 1::2])
-        stage["block_conv_ms"] = time_ms(lambda: fc._block_conv(pre, pim), inner=2)
-        yr, yi = fc._block_conv(pre, pim)
-        stage["unpack_ms"] = time_ms(
-            lambda: fc._unpack_pairs(yr, yi, x.shape[0], nb // 2), inner=2)
-        del v, pre, pim, yr, yi
+        u = fc.num_out_per_block
+        total = x.shape[1] - fc.filter_len + 1
         # the stream read once and the output written once; the two
         # transforms and the multiply on every column
         bnd = bound(4.0 * (samples + out), 2 * fft_flops(n, cols) + 6.0 * n * cols)
         rec = {"phase": "fir_time", "pipeline": "fastconv", "run": name, "nfft": n,
                "route": route, "ms": ms, "msamples_per_s": samples / ms / 1e3,
                "bound_ms": bnd[0], "bound_by": bnd[1], "frac_bound": bnd[0] / ms,
-               "plain_ms": plain, "launches_per_call": per_call, **stage}
+               "plain_ms": plain, "launches_per_call": per_call}
         if route == "fused":
-            cplan, tb = D.conv_kernel_choice(n, cols, dev)
-            re, im = planes(n, cols, gen)
+            # the stream map against the composition it replaced, in this run:
+            # framing into column planes, the column map, unpacking
+            cplan = D.conv_kernel_choice(n, cols, dev)[0]
             hfr, hfi = fc._spectrum(dev)
+            col_map = lambda re, im: ck.zconv_tmajor(cplan, re, im, hfr, hfi)
+            nb = -(-total // u)
+            nb += nb & 1
+            v = ck.frames(x, n, u, nb)
+            pre, pim = ck.columns(v[:, 0::2], v[:, 1::2])
+            yr, yi = col_map(pre, pim)
+            rec.update(
+                stream_ms=time_ms(lambda: ck.zconv_stream(cplan, x, hfr, hfi, u, total),
+                                  inner=2),
+                composed_ms=time_ms(lambda: ck.stream_conv(col_map, x, n, u, total), inner=2),
+                frame_ms=time_ms(lambda: ck.columns(v[:, 0::2], v[:, 1::2]), inner=2),
+                column_map_ms=time_ms(lambda: col_map(pre, pim), inner=2),
+                unpack_ms=time_ms(lambda: ck.unpack_pairs(yr, yi, u, x.shape[0], nb // 2),
+                                  inner=2))
+            rec["faster_than_composed"] = rec["ms"] < rec["composed_ms"]
+            del v, pre, pim, yr, yi
+            re, im = planes(n, cols, gen)
             k_ms = time_ms(lambda: ck.zconv_tmajor(cplan, re, im, hfr, hfi))
             p_ms = time_ms(lambda: ck.zconv_tmajor_plain(cplan, re, im, hfr, hfi), inner=1)
             z = torch.complex(re, im)
@@ -1319,13 +1397,36 @@ def phase_fir_timing(gen, conv_runs, chan_runs):
             lib_ms = time_ms(lambda: torch.fft.ifft(torch.fft.fft(z, dim=0) * hc, dim=0))
             kb = bound(16.0 * n * cols, 2 * fft_flops(n, cols) + 6.0 * n * cols)
             rec.update(kernel_ms=k_ms, kernel_plain_ms=p_ms, kernel_bound_ms=kb[0],
-                       library_fft_mul_ifft_ms=lib_ms, library_calls=3, cols=cols, tb=tb)
+                       library_fft_mul_ifft_ms=lib_ms, library_calls=3, cols=cols,
+                       tile=ck.column_tile(cplan, dev)._asdict())
             if n == 2048:
                 rows["conv_fused"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                                           library="torch.fft.fft, multiply, torch.fft.ifft "
                                                   "(3 calls)",
-                                          shape=[n, cols], bound_ms=kb[0], bound_by=kb[1])
+                                          shape=[n, cols], bound_ms=kb[0], bound_by=kb[1],
+                                          stream_ms=rec["stream_ms"], stream_bound_ms=bnd[0])
+                # the column map's launch shapes at this column count
+                for tb, el in CONV_SWEEP_SHAPES:
+                    t = pk._core_launch(cplan, dev, "fused conv kernel", tb, el)
+                    emit({"phase": "conv_sweep", "n": n, "b": cols, "tile": t._asdict(),
+                          "ms": time_ms(lambda: ck.zconv_tmajor(cplan, re, im, hfr, hfi,
+                                                                tb=tb, elems=el)),
+                          "default_ms": k_ms})
             del re, im, z
+        else:
+            # where a call's time goes: framing into column planes, the block
+            # convolution (the route), unpacking the valid samples
+            nb = -(-total // u)
+            nb += nb & 1
+            v = ck.frames(x, n, u, nb)
+            pre, pim = ck.columns(v[:, 0::2], v[:, 1::2])
+            yr, yi = fc._block_conv(pre, pim)
+            rec.update(
+                frame_ms=time_ms(lambda: ck.columns(v[:, 0::2], v[:, 1::2]), inner=2),
+                block_conv_ms=time_ms(lambda: fc._block_conv(pre, pim), inner=2),
+                unpack_ms=time_ms(lambda: ck.unpack_pairs(yr, yi, u, x.shape[0], nb // 2),
+                                  inner=2))
+            del v, pre, pim, yr, yi
         emit(rec)
     torch.backends.cudnn.allow_tf32 = False  # the conv1d yardstick in full f32
     for ch, xr, xi, engine in chan_runs:
@@ -1658,7 +1759,7 @@ def main() -> int:
                  "rfft_bwd_chain_tmajor_fused", "real_split_tmajor"):
         check(real_launches[name] > 0,
               f"real main path did not launch every path kernel: {real_launches}")
-    for name in ("zconv_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor"):
+    for name in ("zconv_stream", "zconv_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor"):
         check(conv_launches[name] > 0,
               f"FastConv path did not launch every path kernel: {conv_launches}")
     for name in ("pfb_fir_stream_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor"):
@@ -1695,7 +1796,7 @@ def main() -> int:
         "real_split": ("pffft_tpu_torch/csrc/real_split.cu",
                        "pffft_tpu/ops/pallas_fft.py:723", ("real_split_tmajor",)),
         "conv_fused": ("pffft_tpu_torch/csrc/conv_fused.cu",
-                       "pffft_tpu/ops/conv_kernel.py:180", ("zconv_tmajor",)),
+                       "pffft_tpu/ops/conv_kernel.py:180", ("zconv_tmajor", "zconv_stream")),
         "pfb_fir": ("pffft_tpu_torch/csrc/pfb_fir.cu", "pffft_tpu/ops/pfb_kernel.py:85",
                     ("pfb_fir", "pfb_fir_stream_tmajor")),
         "fused2": ("pffft_tpu_torch/csrc/fused2.cu", "pffft_tpu/ops/fused_stage.py:168",
@@ -1714,7 +1815,8 @@ def main() -> int:
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": row["shape"],
-                        **({"library": row["library"]} if "library" in row else {})})
+                        **{k: row[k] for k in ("library", "tile", "card_blocks_per_sm",
+                                               "stream_ms", "stream_bound_ms") if k in row}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

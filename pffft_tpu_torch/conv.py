@@ -14,17 +14,20 @@ Counterpart of ``pffft_tpu/conv.py``, with the same semantics:
 
 Every flag runs the reference's time-major block pipeline
 (``FastConv._build_fused_stream``): the stream is framed at stride u =
-``num_out_per_block`` into time-major columns [Nfft, C], each column is
+``num_out_per_block`` into blocks of Nfft samples, each block is
 circularly convolved with the time-arranged filter g, and the first u
-samples of each column are kept.  A real filter's spectrum is Hermitian,
-so a column carries two real frames (re = even frame, im = odd frame), or
-the I and Q frames of one complex frame; a complex filter's column holds
-one complex frame.  The block convolution takes the route of
-``ops/dispatch.conv_route_mode``: ``"fused"``, one launch of the fused
-spectral-conv kernel (``csrc/conv_fused.cu``), or ``"tmajor"``, the routed
-forward transform, a multiply by Hf and the routed backward transform.
-``apply_batched`` frames every row into one column set, so one launch
-serves the whole batch.
+samples of each block are kept.  A real filter's spectrum is Hermitian,
+so one complex transform carries two real frames (re = even frame, im =
+odd frame), or the I and Q frames of one complex frame; a complex filter's
+transform holds one complex frame.  The route is
+``ops/dispatch.conv_route_mode``'s: ``"fused"``, one launch of the fused
+spectral-conv kernel's stream map (``csrc/conv_fused.cu``), which frames
+the streams, convolves and keeps the valid samples in the kernel, or
+``"tmajor"``, the same pipeline composed of copies (frames into time-major
+columns [Nfft, C], the routed forward transform, a multiply by Hf, the
+routed backward transform, the valid samples back out;
+``ops/conv_kernel.stream_conv``).  ``apply_batched`` serves every row in
+one call.
 
 numpy input goes to the setup's ``device`` (default "cuda"); tensors stay
 where they are.  A float64 setup computes in float64 and complex128 and
@@ -39,7 +42,6 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from . import fft as _fft
 from . import plan as _plan
@@ -175,90 +177,52 @@ class FastConv:
             self._hf[device] = hf
         return hf
 
-    def _block_conv(self, re: torch.Tensor, im: torch.Tensor):
-        """IFFT(FFT(x)·Hf) per column of the planes [nfft, C], through the
-        route of ``dispatch.conv_route_mode``."""
+    def _route(self, device: torch.device) -> str:
+        """The block pipeline of ``dispatch.conv_route_mode`` ("tmajor" for
+        float64)."""
 
-        dev = re.device
         mode = ("tmajor" if self.dtype == np.float64
-                else _dispatch.conv_route_mode(self.nfft, self._force_conv_kernel, dev))
+                else _dispatch.conv_route_mode(self.nfft, self._force_conv_kernel, device))
         if mode is None:
             raise ValueError(f"no conv route runs nfft={self.nfft}")
+        return mode
+
+    def _block_conv(self, re: torch.Tensor, im: torch.Tensor):
+        """IFFT(FFT(x)·Hf) per column of the planes [nfft, C], through the
+        route of ``dispatch.conv_route_mode``: the fused kernel's column
+        map, or the routed transforms around a multiply."""
+
+        dev = re.device
         hfr, hfi = self._spectrum(dev)
-        if mode == "fused":
-            cplan, tb = _dispatch.conv_kernel_choice(self.nfft, re.shape[1], dev)
-            return _ck.zconv_tmajor(cplan, re, im, hfr, hfi, tb=tb)
+        if self._route(dev) == "fused":
+            cplan = _dispatch.conv_kernel_choice(self.nfft, re.shape[1], dev)[0]
+            return _ck.zconv_tmajor(cplan, re, im, hfr, hfi)
         sr, si = _fft.transform_ordered_split_tmajor(self.plan, (re, im), _plan.FORWARD)
         hr, hi = hfr[:, None], hfi[:, None]
         return _fft.transform_ordered_split_tmajor(
             self.plan, (sr * hr - si * hi, sr * hi + si * hr), _plan.BACKWARD)
-
-    def _frames(self, x: torch.Tensor, nb: int) -> torch.Tensor:
-        """Streams [R, L] -> the view [R, nb, nfft] of their frames at
-        stride u, zero-padded past the end (the reference's tail memset)."""
-
-        need = (nb - 1) * self.num_out_per_block + self.nfft
-        if x.shape[-1] < need:
-            x = F.pad(x, (0, need - x.shape[-1]))
-        return x[:, :need].unfold(-1, self.nfft, self.num_out_per_block)
-
-    def _columns(self, fr: torch.Tensor, fi: torch.Tensor):
-        """Frame views [R, c, nfft] x2 -> time-major planes [nfft, C] x2,
-        column r*c + j from frame (r, j); C is R*c rounded up to a multiple
-        of 4 (16-byte rows for the kernels), the extra columns zero."""
-
-        r, c, nfft = fr.shape
-        cols = r * c
-        colsp = -(-cols // 4) * 4
-        planes = []
-        for f in (fr, fi):
-            p = torch.empty((nfft, colsp), dtype=f.dtype, device=f.device)
-            p[:, cols:].zero_()
-            p[:, :cols].view(nfft, r, c).copy_(f.permute(2, 0, 1))
-            planes.append(p)
-        return planes
-
-    def _keep(self, y: torch.Tensor, r: int, c: int) -> torch.Tensor:
-        """The valid samples of each column of y [nfft, C]: [r, c, u]."""
-
-        u = self.num_out_per_block
-        return y[:u, : r * c].view(u, r, c).permute(1, 2, 0)
-
-    def _unpack_pairs(self, yr: torch.Tensor, yi: torch.Tensor, r: int, h: int):
-        """Block outputs of R*h column pairs -> the valid samples
-        [R, 2h, u] of the frames (even frames from re, odd from im)."""
-
-        out = torch.empty((r, h, 2, self.num_out_per_block), dtype=yr.dtype,
-                          device=yr.device)
-        out[:, :, 0] = self._keep(yr, r, h)
-        out[:, :, 1] = self._keep(yi, r, h)
-        return out.view(r, 2 * h, -1)
 
     def _conv_real_frames(self, v: torch.Tensor) -> torch.Tensor:
         """Real frames [R, nb, nfft] (nb even) -> their valid samples
         [R, nb, u]: two real frames per complex column."""
 
         r, nb, _ = v.shape
-        yr, yi = self._block_conv(*self._columns(v[:, 0::2], v[:, 1::2]))
-        return self._unpack_pairs(yr, yi, r, nb // 2)
+        yr, yi = self._block_conv(*_ck.columns(v[:, 0::2], v[:, 1::2]))
+        return _ck.unpack_pairs(yr, yi, self.num_out_per_block, r, nb // 2)
 
-    def _conv_real(self, x: torch.Tensor, total: int) -> torch.Tensor:
-        """Valid-mode overlap-save conv of real streams [R, L] -> [R, total]."""
+    def _conv_stream(self, x: torch.Tensor, total: int) -> torch.Tensor:
+        """Valid-mode overlap-save conv of streams [R, L] -> [R, total]:
+        real streams two frames per transform, complex streams one.  The
+        "fused" route is one launch of the kernel's stream map; "tmajor"
+        composes the framing and unpacking copies around the routed
+        transforms."""
 
-        nb = -(-total // self.num_out_per_block)
-        nb += nb & 1  # whole column pairs; the extra frame is cut below
-        y = self._conv_real_frames(self._frames(x, nb))
-        return y.reshape(x.shape[0], -1)[:, :total]
-
-    def _conv_complex(self, xr: torch.Tensor, xi: torch.Tensor, total: int):
-        """Complex streams as planes [R, L] x2 -> ([R, total]) x2, one
-        complex frame per column."""
-
-        r = xr.shape[0]
-        nb = -(-total // self.num_out_per_block)
-        yr, yi = self._block_conv(*self._columns(self._frames(xr, nb), self._frames(xi, nb)))
-        return (self._keep(yr, r, nb).reshape(r, -1)[:, :total],
-                self._keep(yi, r, nb).reshape(r, -1)[:, :total])
+        u = self.num_out_per_block
+        if self._route(x.device) == "fused":
+            cplan = _dispatch.conv_kernel_choice(self.nfft, 1, x.device)[0]
+            hfr, hfi = self._spectrum(x.device)
+            return _ck.zconv_stream(cplan, x.contiguous(), hfr, hfi, u, total)
+        return _ck.stream_conv(self._block_conv, x, self.nfft, u, total)
 
     # ------------------------------------------------------------------
     def _as_stream(self, x) -> torch.Tensor:
@@ -295,19 +259,19 @@ class FastConv:
             total = self._num_consumed(n, flush)
             if total <= 0:
                 return xs.new_zeros((r, 0)), 0
-            return self._conv_real(xs, total), total
+            return self._conv_stream(xs, total), total
         if self.single_fft:
             # the interleaved stream as a real stream of length 2n
             total = self._num_consumed(2 * n, flush)
             if total <= 0:
                 return xs.new_zeros((r, 0)), 0
-            y = self._conv_real(torch.view_as_real(xs).reshape(r, 2 * n), total)
+            y = self._conv_stream(torch.view_as_real(xs).reshape(r, 2 * n), total)
             return torch.complex(y[:, 0::2], y[:, 1::2]), total // 2
         # a complex filter, or a real one on I and Q (pffastconv's two FFTs)
         total = self._num_consumed(n, flush)
         if total <= 0:
             return xs.new_zeros((r, 0)), 0
-        return torch.complex(*self._conv_complex(xs.real, xs.imag, total)), total
+        return self._conv_stream(xs, total), total
 
     def _num_consumed(self, input_len_scalar: int, flush: bool) -> int:
         """Total samples produced/consumed, in scalar stream positions (the
@@ -412,7 +376,7 @@ class StreamingConv:
         f = _as_tensor(frames, s.device, s.dtype)
         k = f.shape[0]
         if k % 2:
-            f = F.pad(f, (0, 0, 0, 1))
+            f = torch.nn.functional.pad(f, (0, 0, 0, 1))
         y = s._conv_real_frames(f[None])[0, :k]
         return y.reshape(-1).cpu().numpy()
 

@@ -1,5 +1,7 @@
 // A register-resident Stockham FFT core for Hopper, shared by the batch-major
-// row FFT (fused2.cu, B9) and the clustered one-pass ksplit (ksplit2.cu, B10).
+// row FFT (fused2.cu, B9), the clustered one-pass ksplit (ksplit2.cu, B10),
+// the time-major chain (stockham_chain.cu, B1) and the fused block
+// convolution (conv_fused.cu, B7).
 //
 // A block runs F independent length-n transforms ("lanes") with the stages
 // of one thin plan (radix 16/8/4/2, then 5 and 3).  Within a stage every
@@ -69,6 +71,45 @@ struct ColLanes {
   }
 };
 
+// Time-major planes [n, ld] (B1, B7's column map): lane f of the block is
+// column c0 + f, element p is row p; the planes start at column c0, and
+// lanes f >= cols (past the last column) load zeros and store nothing.
+struct ColsIn {
+  const float* re;
+  const float* im;
+  int ld, cols;
+  __device__ __forceinline__ float2 load(int f, int p) const {
+    if (f >= cols) return make_float2(0.0f, 0.0f);
+    const size_t g = static_cast<size_t>(p) * ld + f;
+    return make_float2(__ldg(re + g), __ldg(im + g));
+  }
+};
+
+struct ColsOut {
+  float* re;
+  float* im;
+  int ld, cols;
+  __device__ __forceinline__ void store(int f, int p, float2 v) const {
+    if (f >= cols) return;
+    const size_t g = static_cast<size_t>(p) * ld + f;
+    re[g] = v.x;
+    im[g] = v.y;
+  }
+};
+
+// The block's [pad(n), tb] tile of columns in shared memory: element p of
+// lane f at pad(p)*tb + f.
+struct ColsSmem {
+  float2* tile;
+  int tb, shift;
+  __device__ __forceinline__ float2 load(int f, int p) const {
+    return tile[pad(p, shift) * tb + f];
+  }
+  __device__ __forceinline__ void store(int f, int p, float2 v) const {
+    tile[pad(p, shift) * tb + f] = v;
+  }
+};
+
 // One radix-R stage (l, R, m) over all lanes: `total` = lanes * l*m
 // butterflies.  BARRIER: in and out are the same shared buffer, so every
 // read of the stage completes before the first write.
@@ -115,7 +156,10 @@ __device__ __forceinline__ void stage(const Lanes& ln, int total, int l, int m,
 // Stage s of the plan, from `src` (device memory) when it is the first and
 // to `dst` (device memory) when it is the last; `sm` (shared memory)
 // otherwise.  A stage that writes shared memory ends with a barrier.
-template <int R, int E, bool BWD, class Lanes, class Src, class Sm, class Dst>
+// SRC_SHARED: `src` reads the shared buffer itself (a map over `sm`), so
+// the first stage completes its reads before its first write.
+template <int R, int E, bool BWD, bool SRC_SHARED, class Lanes, class Src, class Sm,
+          class Dst>
 __device__ __forceinline__ void stage_at(bool first, bool last, const Lanes& ln, int lanes,
                                          int l, int m, const float2* __restrict__ tw,
                                          const Src& src, const Sm& sm, const Dst& dst) {
@@ -123,7 +167,7 @@ __device__ __forceinline__ void stage_at(bool first, bool last, const Lanes& ln,
   if (first && last) {
     stage<R, E, BWD, false>(ln, total, l, m, tw, src, dst);
   } else if (first) {
-    stage<R, E, BWD, false>(ln, total, l, m, tw, src, sm);
+    stage<R, E, BWD, SRC_SHARED>(ln, total, l, m, tw, src, sm);
     __syncthreads();
   } else if (last) {
     stage<R, E, BWD, false>(ln, total, l, m, tw, sm, dst);
@@ -135,20 +179,22 @@ __device__ __forceinline__ void stage_at(bool first, bool last, const Lanes& ln,
 
 // Every stage of the plan on `lanes` lanes.  last_to_dst = false keeps the
 // last stage's outputs in shared memory (for a combine or a mapped store
-// that follows); the call then ends after a barrier.
+// that follows); the call then ends after a barrier.  SRC_SHARED: `src`
+// reads `sm` (a second pass over what an earlier call left there).
 //
 // A thin plan's radices come in the order 16..., then at most one of 8, 4,
 // 2, then 5..., then 3..., so each radix gets a loop (or a test) of its own.
 // One loop over all stages with a switch on the radix made ptxas spill at
 // 128 registers, while each radix alone spills nothing.
-template <int E, bool BWD, class Lanes, class Src, class Sm, class Dst>
+template <int E, bool BWD, bool SRC_SHARED = false, class Lanes, class Src, class Sm,
+          class Dst>
 __device__ __forceinline__ void run(const Plan& p, const float2* __restrict__ tw,
                                     const Lanes& ln, int lanes, const Src& src, const Sm& sm,
                                     const Dst& dst, bool last_to_dst) {
   int s = 0;
-#define PF_RF_STAGE(R)                                                                  \
-  stage_at<R, E, BWD>(s == 0, last_to_dst && s == p.count - 1, ln, lanes, p.l[s], p.m[s], \
-                      tw + p.off[s], src, sm, dst)
+#define PF_RF_STAGE(R)                                                                   \
+  stage_at<R, E, BWD, SRC_SHARED>(s == 0, last_to_dst && s == p.count - 1, ln, lanes, p.l[s], \
+                                  p.m[s], tw + p.off[s], src, sm, dst)
   for (; s < p.count && p.r[s] == 16; ++s) PF_RF_STAGE(16);
   if (s < p.count && p.r[s] == 8) PF_RF_STAGE(8), ++s;
   if (s < p.count && p.r[s] == 4) PF_RF_STAGE(4), ++s;
@@ -177,6 +223,33 @@ inline cudaError_t plan_from(const int* desc, int n_stages, Plan* p) {
     p->m[s] = desc[4 * s + 2];
     p->off[s] = desc[4 * s + 3];
   }
+  return cudaSuccess;
+}
+
+// Host side: whether every stage (l, r, m) of p spans length n.
+inline bool plan_spans(const Plan& p, int n) {
+  for (int s = 0; s < p.count; ++s) {
+    if (static_cast<long long>(p.l[s]) * p.r[s] * p.m[s] != n) return false;
+  }
+  return true;
+}
+
+// Host side: the checks of a column launch (B1, B7's column map) of tb
+// lanes of length n on `threads` threads holding `elems` values a stage;
+// *smem gets the bytes of its padded [pad(n), tb] tile.  Invalid arguments
+// give cudaErrorInvalidValue, a block the core cannot cover
+// cudaErrorInvalidConfiguration.
+inline cudaError_t cols_shape(int n, int tb, int threads, int elems, int shift,
+                              size_t* smem) {
+  if (n < 1 || tb < 1 || threads < 32 || threads % 32 || shift < 1 ||
+      (elems != 16 && elems != 32)) {
+    return cudaErrorInvalidValue;
+  }
+  if (static_cast<long long>(threads) * elems < static_cast<long long>(n) * tb ||
+      threads > kMaxThreads) {
+    return cudaErrorInvalidConfiguration;
+  }
+  *smem = static_cast<size_t>(pad(n - 1, shift) + 1) * tb * sizeof(float2);
   return cudaSuccess;
 }
 

@@ -1,35 +1,52 @@
-"""The fused spectral-convolution kernel: forward FFT, multiply by the
-filter spectrum, backward FFT, in one pass over device memory.
+"""The fused spectral-convolution kernel: forward FFT, multiply by the filter
+spectrum, backward FFT, in one pass over device memory.
 
 Counterpart of ``pffft_tpu/ops/conv_kernel.py``.  The Pallas kernel becomes
-``csrc/conv_fused.cu`` (B7), built on the chain's device code
-(``csrc/chain.cuh``).  Layout and algebra are the chain's: time-major
-planes [N, B], one overlap-save block per column, the forward chain's
-canonical-order spectrum multiplied by Hf in the same order, the backward
-chain back to time order.  The 1/N scale of the inverse is folded into Hf
-on the host (:func:`filter_spectrum`), so neither chain scales.
+``csrc/conv_fused.cu`` (B7), on the register-resident core
+(``csrc/regfft.cuh``): the forward chain leaves each lane's canonical-order
+spectrum in shared memory, the backward chain reads it back multiplied by
+Hf and stores through one of two maps.  The 1/N scale of the inverse is
+folded into Hf on the host (:func:`filter_spectrum`), so neither chain
+scales.
 
-For a REAL filter Hf is Hermitian, so a column holding two real frames
+  * :func:`zconv_tmajor`, the column map: time-major planes [N, B], one
+    overlap-save block per column, the reference's layout, at the launch
+    shape of :func:`column_tile`;
+  * :func:`zconv_stream`, the stream map: FastConv's streams [R, L] framed
+    at stride u inside the kernel, the first u outputs of each frame stored
+    straight into [R, total]; it replaces the framing and unpacking copies
+    around the column map (:func:`stream_conv` composes those, and is the
+    stream map's plain version with the column map's plain version inside).
+
+For a REAL filter Hf is Hermitian, so a lane holding two real frames
 (re = a, im = b) comes back as (h*a) + i(h*b): two real convolutions per
-complex column.  A complex filter's column holds one complex frame.
+complex lane.  A complex filter's lane holds one complex frame.
 
-:func:`zconv_tmajor` takes its plain version, :func:`zconv_tmajor_plain`,
-only for tensors on the CPU; for a CUDA tensor it launches the kernel or
-raises.  ``zconv_tmajor.launches`` counts its launches.
+Each wrapper takes its plain version only for tensors on the CPU; for a
+CUDA tensor it launches the kernel or raises.  ``zconv_tmajor.launches`` and
+``zconv_stream.launches`` count the launches.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import plan as _plan
 from . import _build
+from . import fused_stage as _fs
 from . import pallas_fft as _pk
 
-__all__ = ["filter_spectrum", "zconv_tmajor", "zconv_tmajor_plain"]
+__all__ = ["filter_spectrum", "zconv_tmajor", "zconv_tmajor_plain", "zconv_stream",
+           "zconv_stream_plain", "stream_conv", "column_tile", "stream_tile", "frames",
+           "columns", "keep", "unpack_pairs"]
+
+# Values a thread holds per stage in both maps.  The two chains of one
+# kernel ran faster at 16 than at B1's 32 (chip_smoke.py's conv_sweep line).
+_CONV_ELEMS = 16
 
 
 def filter_spectrum(plan: _plan.Plan, h: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -55,37 +72,187 @@ def zconv_tmajor_plain(plan: _plan.Plan, re, im, hfr, hfi):
                                   backward=True)
 
 
+def _check_spectrum(n: int, device: torch.device, hfr, hfi) -> None:
+    for h in (hfr, hfi):
+        if h.shape != (n,) or h.device != device:
+            raise ValueError(f"filter spectrum must be two [{n}] tensors on {device}; "
+                             f"got {tuple(h.shape)} on {h.device}")
+
+
+def column_tile(plan: _plan.Plan,
+                device: Optional[torch.device] = None) -> Optional[_pk.ChainCoreTile]:
+    """The column map's launch shape: B1's planner at 16 values a thread
+    (N = 2048: tb = 4 on 512 threads), None where the chain does not cover
+    the plan."""
+
+    return _pk.chain_core_tile(plan, device, elems=_CONV_ELEMS)
+
+
 def zconv_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor,
-                 hfr: torch.Tensor, hfi: torch.Tensor, *, tb: Optional[int] = None):
+                 hfr: torch.Tensor, hfi: torch.Tensor, *, tb: Optional[int] = None,
+                 elems: Optional[int] = None):
     """Fused block convolution of time-major planes [N, B]: IFFT(FFT(x)·Hf)
     per column, with Hf = (hfr, hfi) [N] from :func:`filter_spectrum`
     (canonical order, 1/N folded in) on the planes' device.  Each column is
     one overlap-save block; the caller owns framing and the valid-sample
-    slice.  ``tb`` overrides the tile's columns (measurement only).  The
-    inputs are not modified."""
+    slice.  The launch shape is :func:`column_tile`'s; ``tb`` and ``elems``
+    override it (measurement only).  The inputs are not modified."""
 
     n, b = _pk._planes(re, im)
     _pk._chain_plan_fits(plan, n)
-    for h in (hfr, hfi):
-        if h.shape != (n,) or h.device != re.device:
-            raise ValueError(f"filter spectrum must be two [{n}] tensors on {re.device}; "
-                             f"got {tuple(h.shape)} on {h.device}")
+    _check_spectrum(n, re.device, hfr, hfi)
     if re.device.type == "cpu":
         return zconv_tmajor_plain(plan, re, im, hfr, hfi)
     _pk._check_cuda(re, im, hfr, hfi)
-    if tb is None:
-        tb = _pk._chain_tb(plan, re.device)
+    t = _pk._core_launch(plan, re.device, "fused conv kernel", tb, elems or _CONV_ELEMS)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
     lib, fn = _pk._kernel("pf_conv_fused_tmajor")
-    tw, desc, count = _pk._chain_tables(plan.stages, re.device)
+    tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, re.device)
     err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), hfr.data_ptr(),
-             hfi.data_ptr(), tw.data_ptr(), desc, count, n, b, tb, re.device.index or 0,
-             _pk._stream(re))
-    _build.check(lib, err, f"fused conv kernel (N={n}, B={b}, tb={tb})")
+             hfi.data_ptr(), tw.data_ptr(), desc, count, n, b, t.tb, t.threads, t.elems,
+             t.shift, re.device.index or 0, _pk._stream(re))
+    _build.check(lib, err, f"fused conv kernel (N={n}, B={b}, tb={t.tb}, "
+                           f"threads={t.threads}, elems={t.elems})")
     zconv_tmajor.launches += 1
     return ore, oim
 
 
 zconv_tmajor.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The stream map: FastConv's framing, block convolution and valid-sample
+# slice in one call
+# ---------------------------------------------------------------------------
+
+
+def frames(x: torch.Tensor, nfft: int, u: int, nb: int) -> torch.Tensor:
+    """Streams [R, L] -> the view [R, nb, nfft] of their frames at stride
+    u, zero-padded past the end (the reference's tail memset)."""
+
+    need = (nb - 1) * u + nfft
+    if x.shape[-1] < need:
+        x = F.pad(x, (0, need - x.shape[-1]))
+    return x[:, :need].unfold(-1, nfft, u)
+
+
+def columns(fr: torch.Tensor, fi: torch.Tensor):
+    """Frame views [R, c, nfft] x2 -> time-major planes [nfft, C] x2,
+    column r*c + j from frame (r, j); C is R*c rounded up to a multiple of
+    4, the extra columns zero."""
+
+    r, c, nfft = fr.shape
+    cols = r * c
+    colsp = -(-cols // 4) * 4
+    planes = []
+    for f in (fr, fi):
+        p = torch.empty((nfft, colsp), dtype=f.dtype, device=f.device)
+        p[:, cols:].zero_()
+        p[:, :cols].view(nfft, r, c).copy_(f.permute(2, 0, 1))
+        planes.append(p)
+    return planes
+
+
+def keep(y: torch.Tensor, u: int, r: int, c: int) -> torch.Tensor:
+    """The valid samples (the first u) of each column of y [nfft, C]:
+    [r, c, u]."""
+
+    return y[:u, : r * c].view(u, r, c).permute(1, 2, 0)
+
+
+def unpack_pairs(yr: torch.Tensor, yi: torch.Tensor, u: int, r: int, h: int):
+    """Block outputs of R*h column pairs -> the valid samples [R, 2h, u] of
+    the frames (even frames from re, odd from im)."""
+
+    out = torch.empty((r, h, 2, u), dtype=yr.dtype, device=yr.device)
+    out[:, :, 0] = keep(yr, u, r, h)
+    out[:, :, 1] = keep(yi, u, r, h)
+    return out.view(r, 2 * h, -1)
+
+
+def stream_conv(block_conv: Callable, x: torch.Tensor, nfft: int, u: int, total: int):
+    """The stream map composed of copies around ``block_conv(re, im)`` (a
+    block convolution of time-major planes [nfft, C]): frames at stride u,
+    columns, the block convolution, the first u samples of each frame,
+    the first ``total`` positions of each row.
+
+    Real x [R, L]: two frames per column (real filter) -> [R, total].
+    Complex x [R, L]: one frame per column -> complex [R, total]."""
+
+    r = x.shape[0]
+    nb = -(-total // u)
+    if not x.is_complex():
+        nb += nb & 1  # whole column pairs; the extra frame is cut below
+        v = frames(x, nfft, u, nb)
+        yr, yi = block_conv(*columns(v[:, 0::2], v[:, 1::2]))
+        return unpack_pairs(yr, yi, u, r, nb // 2).reshape(r, -1)[:, :total]
+    yr, yi = block_conv(*columns(frames(x.real, nfft, u, nb), frames(x.imag, nfft, u, nb)))
+    return torch.complex(keep(yr, u, r, nb).reshape(r, -1)[:, :total],
+                         keep(yi, u, r, nb).reshape(r, -1)[:, :total])
+
+
+def zconv_stream_plain(plan: _plan.Plan, x, hfr, hfi, u: int, total: int):
+    """Plain PyTorch version of the stream map: :func:`stream_conv` around
+    :func:`zconv_tmajor_plain`."""
+
+    return stream_conv(lambda re, im: zconv_tmajor_plain(plan, re, im, hfr, hfi), x,
+                       plan.engine_n, u, total)
+
+
+def stream_tile(n: int, device: Optional[torch.device] = None) -> Optional[_fs.Fused2Tile]:
+    """The stream map's launch shape for frames of length n: B9's rows
+    (``fused_stage.fused2_tile``), one frame (or frame pair) per row, or
+    None past B9's longest row."""
+
+    return _fs.fused2_tile(n, device)
+
+
+def zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torch.Tensor,
+                 u: int, total: int):
+    """Overlap-save block convolution of streams x [R, L] in one launch:
+    frame j of a row is x[j*u : j*u + N] (zero past L), convolved with Hf =
+    (hfr, hfi) [N] (:func:`filter_spectrum`), and its first u outputs land
+    at positions j*u .. j*u + u - 1 of the output row [R, total].
+
+    Real float32 x: a real filter, two frames per lane, real output.
+    complex64 x: one frame per lane, complex64 output.  The inputs are not
+    modified."""
+
+    n = plan.engine_n
+    _pk._chain_plan_fits(plan, n)
+    if x.ndim != 2:
+        raise ValueError(f"streams must be [R, L]; got {tuple(x.shape)}")
+    if not 0 < u <= n or total < 0:
+        raise ValueError(f"hop u={u} must be in [1, {n}] and total={total} >= 0")
+    _check_spectrum(n, x.device, hfr, hfi)
+    if x.device.type == "cpu":
+        return zconv_stream_plain(plan, x, hfr, hfi, u, total)
+    pairs = not x.is_complex()
+    if x.dtype not in (torch.float32, torch.complex64) or not x.is_contiguous():
+        raise ValueError("streams must be contiguous float32 or complex64 tensors")
+    _pk._check_cuda(hfr, hfi)
+    t = stream_tile(n, x.device)
+    if t is None:
+        raise ValueError(f"N={n} exceeds the stream conv kernel's rows")
+    rows, length = int(x.shape[0]), int(x.shape[1])
+    y = torch.empty((rows, total), dtype=x.dtype, device=x.device)
+    if rows == 0 or total == 0:
+        return y
+    nb = -(-total // u)
+    lanes = -(-nb // 2) if pairs else nb
+    xv = x if pairs else torch.view_as_real(x)
+    yv = y if pairs else torch.view_as_real(y)
+    lib, fn = _pk._kernel("pf_conv_stream")
+    tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, x.device)
+    err = fn(xv.data_ptr(), yv.data_ptr(), hfr.data_ptr(), hfi.data_ptr(), tw.data_ptr(),
+             desc, count, n, rows, length, total, u, lanes, int(pairs), t.rows, t.threads,
+             t.elems, t.pitch, t.shift, x.device.index or 0, _pk._stream(x))
+    _build.check(lib, err, f"stream conv kernel (N={n}, R={rows}, L={length}, u={u}, "
+                           f"total={total})")
+    zconv_stream.launches += 1
+    return y
+
+
+zconv_stream.launches = 0

@@ -80,6 +80,7 @@ import torch
 
 from .. import plan as _plan
 from . import _build
+from . import conv_kernel as _ck
 from . import fused_stage as _fs
 from . import pallas_fft as _pk
 from . import real_kernel as _rk
@@ -761,12 +762,13 @@ def conv_route_mode(nfft: int, force: Optional[str] = None,
 
 
 def conv_kernel_choice(nfft: int, cols: int,
-                       device=None) -> Optional[Tuple[_plan.Plan, int]]:
-    """(chain plan, tile columns) of the fused spectral-conv kernel over
-    ``cols`` columns of length ``nfft``, or None where the chain's tile
-    cannot hold nfft.
+                       device=None) -> Optional[Tuple[_plan.Plan, _pk.ChainCoreTile]]:
+    """(chain plan, column launch shape) of the fused spectral-conv kernel
+    over ``cols`` columns of length ``nfft``, or None where the chain's
+    coverage does not hold nfft.
 
-    The tile is the chain's (``chain_tile``).  The TPU's tile-waste rule
+    The shape is ``conv_kernel.column_tile``'s (B1's planner); the
+    coverage stays the chain's (``chain_tile``).  The TPU's tile-waste rule
     does not apply: the kernel masks the ragged last tile."""
 
     if cols < 1:
@@ -774,5 +776,4 @@ def conv_kernel_choice(nfft: int, cols: int,
     plan = _chain_plan(_plan.new_setup(nfft, _plan.COMPLEX, strict=False), device)
     if plan is None:
         return None
-    radices = [st.r for st in plan.stages if st.r != 1]
-    return plan, _pk.chain_tile(nfft, radices, device)
+    return plan, _ck.column_tile(plan, device)

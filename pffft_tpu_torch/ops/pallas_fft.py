@@ -4,7 +4,9 @@ Counterpart of ``pffft_tpu/ops/pallas_fft.py`` (the name is kept so that
 each function's counterpart is easy to find).  The Pallas kernels become
 CUDA C++ under ``pffft_tpu_torch/csrc/``:
 
-  * ``cfft_chain_tmajor``   -> ``stockham_chain.cu`` (``cfft_pallas_tmajor``)
+  * ``cfft_chain_tmajor``   -> ``stockham_chain.cu`` (``cfft_pallas_tmajor``),
+    on the register-resident core ``regfft.cuh`` with the launch shape of
+    :func:`chain_core_tile`
   * ``cfft_combine_tmajor`` -> ``combine.cu`` (``cfft_combine_tmajor``)
   * ``stream_copy``         -> ``stream_copy.cu`` (``stream_copy_pallas``)
   * ``cfft_chain_tmajor_packed`` -> ``chain_packed.cu``
@@ -42,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +60,9 @@ __all__ = [
     "tile_elems",
     "chain_tile",
     "chain_max_n",
+    "chain_core_tile",
+    "chain_core_occupancy",
+    "ChainCoreTile",
     "cfft_chain_tmajor",
     "cfft_pallas",
     "cfft_combine_tmajor",
@@ -82,7 +87,8 @@ COMBINE_RADICES = (2, 3, 4, 5, 8, 16, 32)
 
 # Tile limits of csrc/chain.cuh (kElems, kMaxThreads): a thread holds at
 # most 32 complex values across a stage barrier, a block has at most 512
-# threads.
+# threads.  They also fix the chain's coverage (chain_tile), which the
+# register-resident B1 (chain_core_tile) keeps.
 _CHAIN_ELEMS = 32
 _CHAIN_MAX_THREADS = 512
 # Shared memory a block may use on sm_90 (232,448 bytes = 227 KB), the
@@ -428,9 +434,11 @@ def tile_elems(radices: Sequence[int] = (2,),
 
 def chain_tile(n: int, radices: Sequence[int] = (2,),
                device: Optional[torch.device] = None) -> Optional[int]:
-    """Batch columns per block of the chain kernel for engine length ``n``
-    with stage ``radices`` (a power of two, at most 32), or None when no
-    tile [n, tb] of at least 8 columns fits :func:`tile_elems`."""
+    """Batch columns per block of the csrc/chain.cuh kernels (B3, B4) for
+    engine length ``n`` with stage ``radices`` (a power of two, at most
+    32), or None when no tile [n, tb] of at least 8 columns fits
+    :func:`tile_elems`.  It is also the chain's coverage rule, which B1's
+    planner (:func:`chain_core_tile`) keeps."""
 
     cap = tile_elems(radices, device)
     tb = _CHAIN_MAX_TB
@@ -450,6 +458,75 @@ def chain_max_n(device: Optional[torch.device] = None) -> int:
     return n
 
 
+class ChainCoreTile(NamedTuple):
+    """B1's launch shape on the register-resident core (``chain_core_tile``)."""
+
+    tb: int             # batch columns per block (one lane each)
+    threads: int        # threads per block
+    elems: int          # values a thread holds per stage (16 or 32)
+    shift: int          # tile padding: one row every 2**shift rows
+    smem: int           # bytes of shared memory per block
+    blocks_per_sm: int  # by the planner's arithmetic (core_blocks_per_sm)
+
+
+# B1's default launch shape: the widest of these tb that a block holds at 32
+# values a thread, the fastest shape of chip_smoke.py's chain_sweep on the
+# H100 at N = 1024 and 2048 (wider row segments beat more blocks per SM).
+_CORE_ELEMS = 32
+_CORE_TBS = (32, 16, 8, 4)
+# Padding of the column tile.  A half-warp's 8-byte loads from a tile of tb
+# >= 16 columns hit one row, conflict-free unpadded; at tb < 16 the last
+# stage (m = 1) reads rows R apart, so one padding row every R rows (R the
+# last radix, a power of two) makes the stride odd; odd radices already are.
+_NO_PAD_SHIFT = 30
+_PAD_SHIFT = {16: 4, 8: 3, 4: 2, 2: 1}
+
+
+def _chain_core_shape(n: int, radices: Sequence[int], tb: int, elems: int) -> ChainCoreTile:
+    """The launch shape of B1 at ``tb`` columns and ``elems`` values a
+    thread, whether or not a block can run it (the kernel refuses what it
+    cannot)."""
+
+    shift = _PAD_SHIFT.get(radices[-1], _NO_PAD_SHIFT) if tb < 16 else _NO_PAD_SHIFT
+    threads = max(32, -(-(n * tb) // (32 * elems)) * 32)
+    smem = (core_pad(n - 1, shift) + 1) * tb * 8
+    return ChainCoreTile(tb, threads, elems, shift, smem, core_blocks_per_sm(threads, smem))
+
+
+def chain_core_tile(plan: _plan.Plan, device: Optional[torch.device] = None, *,
+                    tb: Optional[int] = None,
+                    elems: Optional[int] = None) -> Optional[ChainCoreTile]:
+    """B1's launch shape for ``plan``'s thin chain, or None where the chain
+    does not cover its length (:func:`chain_tile`: the coverage rule, not
+    changed by the core) or no block holds the shape.
+
+    A block holds tb columns of all N rows, a lane each, on threads x elems
+    >= N*tb values (at most 512 threads) and one padded [pad(N), tb] float2
+    tile.  By default elems = 32 and tb is the widest of 32, 16, 8, 4 that
+    fits: N = 2048 gets tb = 8 on 512 threads (147 KB, one block per SM),
+    N = 1024 tb = 16; ``tb`` and ``elems`` choose another shape (the
+    launch-shape sweep)."""
+
+    dev = None if device is None else torch.device(device)
+    return _chain_core_tile(plan.engine_n, dev, tb, elems or _CORE_ELEMS)
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_core_tile(n: int, device: Optional[torch.device], tb: Optional[int],
+                     elems: int) -> Optional[ChainCoreTile]:
+    """:func:`chain_core_tile` by length, cached: every B1 launch plans."""
+
+    thin = thin_plan(n)
+    radices = [st.r for st in thin.stages if st.r != 1] if thin is not None else []
+    if not radices or chain_tile(n, radices, device) is None:
+        return None
+    for t in (tb,) if tb is not None else _CORE_TBS:
+        shape = _chain_core_shape(n, radices, t, elems)
+        if shape.threads <= CORE_MAX_THREADS and shape.smem <= smem_per_block(device):
+            return shape
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -458,8 +535,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> (source in csrc/, argument types)
 _SIGNATURES = {
-    "pf_chain_tmajor": ("stockham_chain",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "pf_chain_tmajor": ("stockham_chain", [_P] * 6 + [_I] * 9 + [_P]),
+    "pf_chain_occupancy": ("stockham_chain", [_I] * 6 + [_P]),
     "pf_combine_tmajor": ("combine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_stream_copy": ("stream_copy", [_P, _P, _P, _P, ctypes.c_longlong, _I, _P]),
     "pf_chain_tmajor_packed": ("chain_packed",
@@ -473,16 +550,16 @@ _SIGNATURES = {
     "pf_fused2": ("fused2", [_P] * 6 + [_I] * 13 + [_P]),
     "pf_real_split_bmajor": ("real_split_bmajor",
                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # ops/conv_kernel.zconv_tmajor, ops/pfb_kernel.pfb_fir(_stream_tmajor)
-    "pf_conv_fused_tmajor": ("conv_fused",
-                             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # ops/conv_kernel.zconv_tmajor / zconv_stream, ops/pfb_kernel.pfb_fir(_stream_tmajor)
+    "pf_conv_fused_tmajor": ("conv_fused", [_P] * 8 + [_I] * 8 + [_P]),
+    "pf_conv_stream": ("conv_fused", [_P] * 6 + [_I] * 14 + [_P]),
     "pf_pfb_fir": ("pfb_fir", [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P]),
     # ops/dispatch.cfft_ksplit2_tmajor (and its occupancy)
     "pf_ksplit2_tmajor": ("ksplit2", [_P] * 6 + [_I, _P] + [_I] * 9 + [_P]),
     "pf_ksplit2_occupancy": ("ksplit2", [_I] * 6 + [_P]),
 }
 # Sources built on csrc/chain.cuh, whose tile limits chain_tile plans with.
-_CHAIN_SOURCES = ("stockham_chain", "chain_packed", "real_fused", "conv_fused")
+_CHAIN_SOURCES = ("chain_packed", "real_fused")
 
 
 @functools.lru_cache(maxsize=None)
@@ -587,12 +664,46 @@ def _check_real_twiddle(real_twiddle, h: int, device: torch.device) -> None:
         raise ValueError(f"split twiddles on {wr.device}, {wi.device}; data on {device}")
 
 
-def cfft_chain_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
-                      backward: bool = False, tb: Optional[int] = None):
-    """Batched complex FFT of time-major planes [N, B] in one pass.
+def _core_launch(plan: _plan.Plan, device: torch.device, what: str, tb: Optional[int],
+                 elems: Optional[int]) -> ChainCoreTile:
+    """The column launch shape of B1 (and of B7's column map): the
+    planner's at the caller's ``tb`` / ``elems``, or that shape even where
+    no block holds it or the chain does not cover the plan (the kernel then
+    refuses what it cannot run, and the wrapper raises).  ValueError where
+    the planner has no shape and no ``tb`` is given."""
 
-    Unscaled both directions; canonical bin order.  ``tb`` overrides the
-    tile's batch columns (measurement only).  The inputs are not modified.
+    n = plan.engine_n
+    t = chain_core_tile(plan, device, tb=tb, elems=elems)
+    if t is not None:
+        return t
+    if tb is None:
+        raise ValueError(f"N={n} exceeds the {what}'s tile limits")
+    radices = [st.r for st in thin_plan(n).stages if st.r != 1]
+    return _chain_core_shape(n, radices, tb, elems or _CORE_ELEMS)
+
+
+def chain_core_occupancy(n: int, tile: ChainCoreTile, device: torch.device) -> int:
+    """Blocks of B1 one SM holds at ``tile`` for length n, from the card's
+    occupancy calculator (registers as ptxas gave them)."""
+
+    lib, fn = _kernel("pf_chain_occupancy")
+    out = ctypes.c_int()
+    err = fn(n, tile.tb, tile.threads, tile.elems, tile.shift, device.index or 0,
+             ctypes.byref(out))
+    _build.check(lib, err, f"chain kernel occupancy (N={n}, tb={tile.tb})")
+    return out.value
+
+
+def cfft_chain_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
+                      backward: bool = False, tb: Optional[int] = None,
+                      elems: Optional[int] = None):
+    """Batched complex FFT of time-major planes [N, B] in one pass (B1).
+
+    Unscaled both directions; canonical bin order.  Any B.  The kernel runs
+    the thin chain of length N (the ordered spectrum does not depend on the
+    factorization); the plain version runs ``plan``'s stages.  ``tb`` and
+    ``elems`` override the launch shape of :func:`chain_core_tile`
+    (measurement only).  The inputs are not modified.
     """
 
     n, b = _planes(re, im)
@@ -600,17 +711,17 @@ def cfft_chain_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     if re.device.type == "cpu":
         return chain_tmajor_plain(plan, re, im, backward=backward)
     _check_cuda(re, im)
-    if tb is None:
-        tb = _chain_tb(plan, re.device)
+    t = _core_launch(plan, re.device, "chain kernel", tb, elems)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
     lib, fn = _kernel("pf_chain_tmajor")
-    tw, desc, count = _chain_tables(plan.stages, re.device)
+    tw, desc, count = _core_tables(thin_plan(n).stages, re.device)
     err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-             tw.data_ptr(), desc, count, n, b, tb, int(backward),
-             re.device.index or 0, _stream(re))
-    _build.check(lib, err, f"chain kernel (N={n}, B={b}, tb={tb})")
+             tw.data_ptr(), desc, count, n, b, t.tb, t.threads, t.elems, t.shift,
+             int(backward), re.device.index or 0, _stream(re))
+    _build.check(lib, err, f"chain kernel (N={n}, B={b}, tb={t.tb}, threads={t.threads}, "
+                           f"elems={t.elems})")
     cfft_chain_tmajor.launches += 1
     return ore, oim
 

@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Time the port's kernels that two checkouts may differ in, for an A/B
+comparison on one card.
+
+    python3 pffft_tpu_torch/tools/port_ab.py CHECKOUT LABEL
+
+imports ``pffft_tpu_torch`` from the checkout at CHECKOUT (its kernels are
+built into that checkout's ``pffft_tpu_torch/_build/``) and prints one JSON
+line: LABEL, the card's name and power limit, and ms per call (CUDA events,
+median of 10 windows of 5 calls, after warm-up) of
+
+  * the time-major chain (B1) at (N, B) = (1024, 16384) and (2048, 8192),
+    and the two-pass kern2 engine at (4096, 4096) and (65536, 256);
+  * the fused block convolution's column map (B7) at (2048, 32736);
+  * FastConv ``apply_batched`` on a [16, 2^22] real stream at 64, 1024 and
+    4096 taps;
+  * the fused real forward (B3) at real (2048, 8192) and the packed chain
+    (B4) at real (8192, 2048).
+
+Run it for both checkouts in turns (A, B, B, A) within one call.  Needs a
+CUDA card and nvcc; imports neither jax nor pffft_tpu.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def time_ms(fn, inner: int = 5, reps: int = 10, warm: int = 3) -> float:
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(inner):
+            fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e) / inner)
+    return float(np.median(ts))
+
+
+def main() -> int:
+    root, label = sys.argv[1], sys.argv[2]
+    if not torch.cuda.is_available():
+        print("port_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, root)
+    import pffft_tpu_torch as pt
+    from pffft_tpu_torch import conv as C
+    from pffft_tpu_torch.ops import conv_kernel as ck
+    from pffft_tpu_torch.ops import dispatch as D
+    from pffft_tpu_torch.ops import pallas_fft as pk
+    from pffft_tpu_torch.ops import split as S
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    out = {"label": label, "root": root, "card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()}
+    for n, b in ((1024, 16384), (2048, 8192)):
+        plan = D._thin_plan(n)
+        re, im = rnd(n, b), rnd(n, b)
+        out[f"chain_{n}x{b}_ms"] = time_ms(lambda: pk.cfft_chain_tmajor(plan, re, im))
+    for n, b in ((4096, 4096), (65536, 256)):
+        plan = pt.new_setup(n)
+        re, im = rnd(n, b), rnd(n, b)
+        out[f"kern2_{n}x{b}_ms"] = time_ms(lambda: D.cfft_kern2_tmajor(plan, re, im))
+    del re, im
+    n, cols = 2048, 32736
+    plan = D._thin_plan(n)
+    hfr, hfi = (torch.from_numpy(a).to(dev)
+                for a in ck.filter_spectrum(plan, pt.design_lowpass(1024, 0.1)))
+    re, im = rnd(n, cols), rnd(n, cols)
+    out["conv_cols_2048x32736_ms"] = time_ms(lambda: ck.zconv_tmajor(plan, re, im, hfr, hfi))
+    del re, im
+    x = rnd(16, 1 << 22)
+    for taps in (64, 1024, 4096):
+        fc = C.FastConv(pt.design_lowpass(taps, 0.1))
+        out[f"fastconv_f{taps}_ms"] = time_ms(lambda: fc.apply_batched(x), inner=2)
+    del x
+    n, b = 2048, 8192
+    rplan = pt.new_setup(n, pt.REAL)
+    y = rnd(n // 2, 2 * b)
+    tw = S.real_split_twiddle(rplan, dev)
+    cplan = D._chain_plan(rplan, dev)
+    out["real_fused_2048x8192_ms"] = time_ms(lambda: pk.rfft_chain_tmajor_fused(cplan, y, tw))
+    n, b = 8192, 2048
+    h = n // 2
+    m, r = D._kern2_conf(h, dev)
+    mplan = D._build_ksplit(h, m, r)[0]
+    yw = rnd(m, r * 2 * b)
+    out["chain_packed_8192x2048_ms"] = time_ms(
+        lambda: pk.cfft_chain_tmajor_packed(mplan, yw, slabs=r))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

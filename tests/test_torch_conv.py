@@ -105,9 +105,102 @@ def test_cpu_wrapper_launches_nothing():
     plan = D._thin_plan(64)
     re = torch.zeros((64, 8))
     hf = torch.zeros(64)
-    before = tck.zconv_tmajor.launches
+    before = tck.zconv_tmajor.launches, tck.zconv_stream.launches
     tck.zconv_tmajor(plan, re, re, hf, hf)
-    assert tck.zconv_tmajor.launches == before
+    tck.zconv_stream(plan, torch.zeros((2, 300)), hf, hf, 40, 200)
+    assert (tck.zconv_tmajor.launches, tck.zconv_stream.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The stream map: the framing, block convolution and valid-sample slice
+# of FastConv's fused route in one kernel call
+# ---------------------------------------------------------------------------
+
+
+def _old_stream_composition(plan, x, hfr, hfi, u, total):
+    """FastConv's fused route as it stood before the stream map, written out:
+    frames zero-padded past the end, columns padded to a multiple of 4, the
+    column map's plain version, the valid samples back out."""
+
+    import torch.nn.functional as F
+
+    nfft = plan.n
+    r = x.shape[0]
+
+    def frames(s, nb):
+        need = (nb - 1) * u + nfft
+        if s.shape[-1] < need:
+            s = F.pad(s, (0, need - s.shape[-1]))
+        return s[:, :need].unfold(-1, nfft, u)
+
+    def cols(fr, fi):
+        c = fr.shape[1]
+        out = []
+        for f in (fr, fi):
+            p = torch.zeros((nfft, -(-(r * c) // 4) * 4), dtype=f.dtype)
+            p[:, : r * c].view(nfft, r, c).copy_(f.permute(2, 0, 1))
+            out.append(p)
+        return out
+
+    def keep(y, c):
+        return y[:u, : r * c].view(u, r, c).permute(1, 2, 0)
+
+    nb = -(-total // u)
+    if not x.is_complex():
+        nb += nb & 1
+        v = frames(x, nb)
+        yr, yi = tck.zconv_tmajor_plain(plan, *cols(v[:, 0::2], v[:, 1::2]), hfr, hfi)
+        out = torch.empty((r, nb // 2, 2, u), dtype=yr.dtype)
+        out[:, :, 0] = keep(yr, nb // 2)
+        out[:, :, 1] = keep(yi, nb // 2)
+        return out.view(r, nb, u).reshape(r, -1)[:, :total]
+    yr, yi = tck.zconv_tmajor_plain(plan, *cols(frames(x.real, nb), frames(x.imag, nb)),
+                                    hfr, hfi)
+    return torch.complex(keep(yr, nb).reshape(r, -1)[:, :total],
+                         keep(yi, nb).reshape(r, -1)[:, :total])
+
+
+# (nfft, u, rows, L, total short of a whole frame by): real mode with an even
+# and an odd number of frames, a ragged last frame, R = 1 and 3
+STREAM_CASES = [(64, 33, 1, 400, 0), (64, 33, 3, 400, 5), (128, 65, 3, 65 * 9 + 63, 0),
+                (480, 200, 1, 2880, 0), (480, 200, 3, 2880, 17)]
+
+
+@pytest.mark.parametrize("n,u,rows,length,short", STREAM_CASES)
+@pytest.mark.parametrize("mode", ["real", "complex", "complex_filter"])
+def test_stream_map_plain_equals_old_composition(n, u, rows, length, short, mode):
+    rng = np.random.default_rng(n + rows + length)
+    h = rng.standard_normal(n - u + 1)
+    x = rng.standard_normal((rows, length)).astype(np.float32)
+    if mode != "real":
+        x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+    if mode == "complex_filter":
+        h = h + 1j * rng.standard_normal(h.size)
+    plan = D._thin_plan(n)
+    hfr, hfi = (torch.from_numpy(a) for a in tck.filter_spectrum(plan, h))
+    xt = torch.from_numpy(x)
+    total = length - (n - u) - short
+    want = _old_stream_composition(plan, xt, hfr, hfi, u, total)
+    before = tck.zconv_stream.launches
+    for fn in (tck.zconv_stream_plain, tck.zconv_stream):  # the wrapper takes the plain
+        got = fn(plan, xt, hfr, hfi, u, total)              # version on the CPU
+        assert got.shape == (rows, total) and got.dtype == xt.dtype
+        assert torch.equal(got, want)
+    assert tck.zconv_stream.launches == before
+
+
+def test_stream_map_rejects_bad_arguments():
+    plan = D._thin_plan(64)
+    hf = torch.zeros(64)
+    x = torch.zeros((2, 300))
+    with pytest.raises(ValueError, match="hop"):
+        tck.zconv_stream(plan, x, hf, hf, 65, 100)
+    with pytest.raises(ValueError, match="hop"):
+        tck.zconv_stream(plan, x, hf, hf, 0, 100)
+    with pytest.raises(ValueError, match=r"\[R, L\]"):
+        tck.zconv_stream(plan, x[0], hf, hf, 40, 100)
+    with pytest.raises(ValueError, match="filter spectrum"):
+        tck.zconv_stream(plan, x, hf[:32], hf[:32], 40, 100)
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +257,30 @@ def test_apply_batched_matches_reference(name):
     got = tconv.FastConv(h, flags=flags, device=CPU).apply_batched(x)
     assert got.shape == want.shape
     assert _rel(got.numpy(), want) <= TOL
+
+
+# (flags, taps, rows, L): real and complex filters, CPLX_INP_OUT,
+# CPLX_SINGLE_FFT and CORRELATION on the fused route (the stream map) at R = 1
+# and 3, with lengths that leave a ragged last frame and, in real mode, an odd
+# number of frames
+STREAM_RUNS = [("real", 33, 1, 700), ("real", 33, 3, 64 * 31 + 13),
+               ("correlation", 40, 3, 1001), ("cplx_inp_out", 33, 1, 777),
+               ("cplx_single_fft", 33, 3, 640), ("cplx_filter", 20, 3, 555),
+               ("cplx_filter_correlation", 20, 1, 601)]
+
+
+@pytest.mark.parametrize("name,flen,rows,length", STREAM_RUNS)
+def test_fused_route_stream_map_matches_reference(name, flen, rows, length):
+    flags = FLAG_SETS[name]
+    h, x = _inputs(flags, flen, length, flen + rows, lead=(rows,))
+    fc = tconv.FastConv(h, flags=flags, device=CPU)
+    assert D.conv_route_mode(fc.nfft) == "fused"
+    want = np.asarray(rconv.FastConv(h, flags=flags).apply_batched(jnp.asarray(x)))
+    got = fc.apply_batched(x)
+    assert got.shape == want.shape and got.shape[-1] == length - flen + 1
+    assert _rel(got.numpy(), want) <= TOL
+    fc._force_conv_kernel = "tmajor"  # the same pipeline composed of copies
+    assert _rel(fc.apply_batched(x).numpy(), got.numpy()) <= TOL
 
 
 def test_interleaved_float_input_is_a_complex_stream():
@@ -283,9 +400,11 @@ def test_conv_route_follows_coverage(nfft, route):
     assert D.conv_route_mode(nfft) == route
     choice = D.conv_kernel_choice(nfft, 10)
     if route == "fused":
-        plan, tb = choice
+        plan, tile = choice
         radices = [st.r for st in plan.stages if st.r != 1]
-        assert plan.n == nfft and tb == tpk.chain_tile(nfft, radices)
+        assert plan.n == nfft and tile == tck.column_tile(plan)
+        assert tile == tpk.chain_core_tile(plan, elems=16)  # B1's planner at 16 values
+        assert tpk.chain_tile(nfft, radices) is not None  # the coverage is the chain's
     else:
         assert choice is None
     assert D.conv_kernel_choice(nfft, 0) is None

@@ -50,7 +50,7 @@ def _rel(got, ref):
 def test_chain_kernel_matches_plain(cuda_device, n, b):
     plan = D._thin_plan(n)
     # N=2400 is past the chain's coverage; the kernel still runs it at 4 columns
-    tb = pk.chain_tile(n, [st.r for st in plan.stages], cuda_device) or 4
+    tb = None if pk.chain_core_tile(plan, cuda_device) else 4
     re, im = _planes(n, b, n, cuda_device)
     for backward in (False, True):
         before = pk.cfft_chain_tmajor.launches
@@ -59,6 +59,30 @@ def test_chain_kernel_matches_plain(cuda_device, n, b):
         torch.cuda.synchronize()
         assert pk.cfft_chain_tmajor.launches == before + 1
         assert max(_rel(kr, pr), _rel(ki, pi)) <= KERNEL_TOL
+
+
+# every launch shape B1's planner allows at N = 1024 and 2048 (its sweep)
+CHAIN_SHAPES = [(1024, 16, 32), (1024, 8, 32), (1024, 8, 16), (1024, 4, 32), (1024, 4, 16),
+                (2048, 8, 32), (2048, 4, 32), (2048, 4, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tb,elems", CHAIN_SHAPES)
+def test_chain_kernel_every_launch_shape(cuda_device, n, tb, elems):
+    """B1 at every launch shape its planner allows (the sweep), with a
+    ragged batch; the card holds at least the planner's blocks per SM."""
+
+    plan = D._thin_plan(n)
+    tile = pk.chain_core_tile(plan, cuda_device, tb=tb, elems=elems)
+    assert tile is not None
+    assert pk.chain_core_occupancy(n, tile, cuda_device) >= tile.blocks_per_sm
+    for b in (512, 509):
+        re, im = _planes(n, b, n + b, cuda_device)
+        for backward in (False, True):
+            kr, ki = pk.cfft_chain_tmajor(plan, re, im, backward=backward, tb=tb, elems=elems)
+            pr, pi = pk.chain_tmajor_plain(plan, re, im, backward=backward)
+            torch.cuda.synchronize()
+            assert max(_rel(kr, pr), _rel(ki, pi)) <= KERNEL_TOL, (b, backward)
 
 
 @pytest.mark.cuda
@@ -298,6 +322,28 @@ def test_conv_kernel_matches_plain(cuda_device, n, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,u", [(64, 33), (128, 65), (480, 200), (2048, 1025)])
+@pytest.mark.parametrize("cplx", [False, True])
+def test_stream_conv_kernel_matches_plain(cuda_device, n, u, cplx):
+    """B7's stream map against its plain version: rows that start
+    unaligned (odd L), a ragged tail, R = 1 and 3, real and complex."""
+
+    rng = np.random.default_rng(n + u + cplx)
+    plan = D._thin_plan(n)
+    hfr, hfi = _spectrum(n, n + 1, cuda_device, cplx)
+    for rows, length in ((1, 9 * u + n + 3), (3, 20 * u + 7)):
+        x = rng.standard_normal((rows, length))
+        if cplx:
+            x = x + 1j * rng.standard_normal(x.shape)
+        xt = torch.from_numpy(x.astype(np.complex64 if cplx else np.float32)).to(cuda_device)
+        for total in (length - (n - u), length - (n - u) - 5):
+            before = ck.zconv_stream.launches
+            got = ck.zconv_stream(plan, xt, hfr, hfi, u, total)
+            _hold((got,), (ck.zconv_stream_plain(plan, xt, hfr, hfi, u, total),))
+            assert ck.zconv_stream.launches == before + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [64, 1000, 4096])
 @pytest.mark.parametrize("p", [1, 4, 8, 40])  # 40 takes the kernel's plain loop
 def test_pfb_kernel_matches_plain(cuda_device, m, p):
@@ -322,9 +368,13 @@ def test_fir_kernels_reject_bad_arguments(cuda_device):
     plan = D._thin_plan(128)
     re, im = _planes(128, 64, 8, cuda_device)
     hfr, hfi = _spectrum(128, 1, cuda_device, False)
-    before = (ck.zconv_tmajor.launches, pfb.pfb_fir.launches)
+    before = (ck.zconv_tmajor.launches, ck.zconv_stream.launches, pfb.pfb_fir.launches)
     with pytest.raises(ValueError, match="filter spectrum"):
         ck.zconv_tmajor(plan, re, im, hfr[:64], hfi[:64])
+    with pytest.raises(ValueError, match="float32 or complex64"):
+        ck.zconv_stream(plan, re.double(), hfr, hfi, 65, 100)
+    with pytest.raises(ValueError, match="hop"):
+        ck.zconv_stream(plan, re, hfr, hfi, 129, 100)
     with pytest.raises(ValueError, match="different devices|filter spectrum"):
         ck.zconv_tmajor(plan, re, im, hfr.cpu(), hfi.cpu())
     with pytest.raises(RuntimeError, match="fused conv kernel"):
@@ -336,7 +386,7 @@ def test_fir_kernels_reject_bad_arguments(cuda_device):
         pfb.pfb_fir(torch.ones((10, 64), device=cuda_device), w, 8)
     with pytest.raises(ValueError, match="weights on"):
         pfb.pfb_fir_stream_tmajor(torch.ones((64 * 12,), device=cuda_device), w.cpu(), 8)
-    assert (ck.zconv_tmajor.launches, pfb.pfb_fir.launches) == before
+    assert (ck.zconv_tmajor.launches, ck.zconv_stream.launches, pfb.pfb_fir.launches) == before
 
 
 @pytest.mark.cuda
@@ -358,10 +408,10 @@ def test_fastconv_on_the_card_matches_oracle(cuda_device, flen, flags):
     route = "fused" if fc.nfft <= 2048 else "tmajor"  # CPLX_SINGLE_FFT doubles nfft
     assert D.conv_route_mode(fc.nfft, None, cuda_device) == route
     xt = torch.from_numpy(x.astype(np.complex64 if cplx else np.float32)).to(cuda_device)
-    before = ck.zconv_tmajor.launches
+    before = ck.zconv_stream.launches
     y = fc.apply_batched(xt)
     torch.cuda.synchronize()
-    assert ck.zconv_tmajor.launches == before + (1 if route == "fused" else 0)
+    assert ck.zconv_stream.launches == before + (1 if route == "fused" else 0)
     # valid-mode y[i] = sum_j x[i + j] * c[j] (c = reversed h, or h for
     # correlation) as a complex128 FFT convolution with g = reversed c
     xd = xt.to(torch.complex128)

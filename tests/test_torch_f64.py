@@ -213,6 +213,7 @@ def test_float64_calls_launch_no_kernel(monkeypatch):
                       (pallas_fft, "rfft_bwd_chain_tmajor_fused"),
                       (pallas_fft, "real_split_tmajor"), (fused_stage, "cfft_fused2"),
                       (real_kernel, "real_split"), (conv_kernel, "zconv_tmajor"),
+                      (conv_kernel, "zconv_stream"),
                       (D, "cfft_ksplit2_tmajor")):
         monkeypatch.setattr(mod, name, refuse)
     n = 2048

@@ -130,3 +130,83 @@ def test_chain_coverage_from_sm90_shared_memory():
     # radix 3 and 5 hold 30 of a thread's 32 values: 2400 * 8 > 512 * 30
     assert pk.chain_tile(1920, (16, 8, 5, 3)) == 8
     assert pk.chain_tile(2400, (16, 2, 5, 5, 3)) is None
+
+
+# ---------------------------------------------------------------------------
+# B1's launch shape on the register-resident core (chain_core_tile)
+# ---------------------------------------------------------------------------
+
+# every 2/3/5-smooth length up to 4800: the chain covers those up to 2048
+_SMOOTH = [n for n in range(2, 4801)
+           if pk.thin_factors(n) is not None and n % 2 == 0]
+
+
+def test_core_tile_covers_exactly_the_chains_plans():
+    covered = []
+    for n in _SMOOTH:
+        plan = D._thin_plan(n)
+        if plan is None:
+            continue
+        radices = [st.r for st in plan.stages if st.r != 1]
+        tile = pk.chain_core_tile(plan)
+        assert (tile is not None) == (pk.chain_tile(n, radices) is not None), n
+        if tile is not None:
+            covered.append(n)
+    assert max(covered) == 2048 and 2400 not in covered and 1920 in covered
+
+
+@pytest.mark.parametrize("elems", [None, 16, 32])
+def test_core_tile_shape_holds_the_tile(elems):
+    for n in _SMOOTH:
+        plan = D._thin_plan(n)
+        tile = pk.chain_core_tile(plan, elems=elems) if plan is not None else None
+        if tile is None:
+            continue
+        assert tile.elems == (elems or 32)
+        assert tile.threads * tile.elems >= n * tile.tb          # every value has a thread
+        assert tile.threads % 32 == 0 and tile.threads <= pk.CORE_MAX_THREADS
+        assert tile.tb in (32, 16, 8, 4)
+        assert tile.smem == (pk.core_pad(n - 1, tile.shift) + 1) * tile.tb * 8
+        assert tile.smem <= 232448                                 # sm_90's opt-in shared memory
+        assert tile.blocks_per_sm == pk.core_blocks_per_sm(tile.threads, tile.smem)
+        assert tile.blocks_per_sm >= 1
+
+
+def test_core_tile_defaults_and_sweep_shapes():
+    p2048, p1024 = D._thin_plan(2048), D._thin_plan(1024)
+    t = pk.chain_core_tile(p2048)
+    assert (t.tb, t.threads, t.elems, t.shift, t.blocks_per_sm) == (8, 512, 32, 3, 1)
+    t = pk.chain_core_tile(p1024)
+    assert (t.tb, t.threads, t.elems, t.blocks_per_sm) == (16, 512, 32, 1)
+    # the sweep: tb = 4 at 32 values is two 256-thread blocks per SM
+    t = pk.chain_core_tile(p2048, tb=4)
+    assert (t.tb, t.threads, t.blocks_per_sm) == (4, 256, 2)
+    assert pk.chain_core_tile(p2048, tb=16) is None              # 1024 threads
+    assert pk.chain_core_tile(p2048, tb=8, elems=16) is None     # 1024 threads
+    assert pk.chain_core_tile(D._thin_plan(4096)) is None        # kern2's length
+
+
+def test_core_launch_shape_of_a_refused_tile_is_planned_not_rejected():
+    """An explicit tb past what a block holds is planned as asked, so that
+    the kernel refuses it and the wrapper raises (no fallback)."""
+
+    cpu = torch.device("cpu")
+    t = pk._core_launch(D._thin_plan(2048), cpu, "chain kernel", 64, None)
+    assert t.threads > pk.CORE_MAX_THREADS
+    t = pk._core_launch(D._thin_plan(2400), cpu, "chain kernel", 4, None)
+    assert (t.tb, t.threads) == (4, 320)                        # past the chain's coverage
+    with pytest.raises(ValueError, match="tile limits"):
+        pk._core_launch(D._thin_plan(2400), cpu, "chain kernel", None, None)
+
+
+def test_coverage_answers_as_before():
+    """The core plans inside the chain's coverage: the routes stay."""
+
+    for n, b in ((1024, 16384), (2048, 8192), (4096, 4096), (65536, 256)):
+        plan = tp.new_setup(n)
+        want = "chain" if n <= 2048 else "kern2"
+        assert D.select_engine(plan, b, True) == want
+    assert D._kern2_conf(4096) == (2048, 2) and D._kern2_conf(65536) == (2048, 32)
+    for nfft, route in ((128, "fused"), (2048, "fused"), (4096, "tmajor")):
+        assert D.conv_route_mode(nfft) == route
+
