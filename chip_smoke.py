@@ -32,7 +32,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      and ``process_split_tmajor`` over two steps with the state carried,
      against a float64 polyphase and a complex128 inverse DFT, two chunks
      against one of twice the length, and one ``OversampledChannelizer``
-     (V = 2) step; launch counts per step;
+     (V = 2) step; launch counts per step (one polyphase launch for both
+     planes, one per residue when oversampled);
   8. the batch-major complex path: ``transform_ordered_split`` and the
      complex64 ``transform_ordered`` on [B, N] rows at the band shapes,
      forward and backward, against a complex128 ``torch.fft.fft(dim=-1)``,
@@ -58,8 +59,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
  13. timing with CUDA events (median of 10 after warm-up), per band shape,
      per kernel and per FIR pipeline, beside the bound, the plain version
      and a library yardstick (torch.fft, conv1d); B1's launch-shape sweep
-     (batch columns x values a thread, as kern2's pass A too) and B7's
-     column-map sweep; FastConv's stream map beside the composition of
+     (batch columns x values a thread, as kern2's pass A too), B4's (the
+     packed chain, at real N = 8192 and 131072) and B7's column-map sweep;
+     B8's stream map beside ``conv1d(groups=M)`` and the time-major copy,
+     and its tile sweep; FastConv's stream map beside the composition of
      copies around the column map it replaces; B10 beside kern2 on the
      same planes, with sweeps of its batch columns and cluster size; blocks
      per SM of B1, B9 and B10 from the planner and from the card;
@@ -136,6 +139,8 @@ KSPLIT2_SWEEP = ((8192, None, 4, None), (8192, None, 4, 4), (8192, None, 2, 4),
 CHAIN_SWEEP = ((1024, 16384, None), (2048, 8192, None), (4096, 4096, (2048, 2)),
                (65536, 256, (2048, 32)))
 CHAIN_SWEEP_SHAPES = ((16, 32), (8, 32), (8, 16), (4, 32), (4, 16))
+# B8's stream-map block sizes: warps a block (32 frames a thread each)
+PFB_SWEEP = (4, 1, 2, 8)
 # B7's column map at FastConv's nfft = 2048 column count, (tb, values a thread)
 CONV_SWEEP_SHAPES = ((4, 16), (8, 32), (4, 32))
 # the "ksplit" engine: complex (N, B) and real (N, B)
@@ -249,10 +254,19 @@ def phase_env():
 def phase_build():
     secs = _build.build()
     for name in _build.SOURCES:
-        lines = [ln.strip() for ln in _build.log_path(name).read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-        emit({"phase": "build", "source": name, "ptxas": lines})
+        emit({"phase": "build", "source": name, "ptxas": _build.ptxas_report(name)})
+    spills = {fn: r for fn, r in _build.ptxas_report("chain_packed").items()
+              if r.get("spill_stores") or r.get("spill_loads")}
+    check(not spills, f"B4 (chain_packed.cu) spills: {spills}")
     emit({"phase": "build", "seconds": secs})
+
+
+def ptxas_of(name: str, kernel: str):
+    """Registers and spill bytes ptxas gave the kernel of library ``name``
+    whose mangled name holds ``kernel`` (a template instance)."""
+
+    hits = [r for fn, r in _build.ptxas_report(name).items() if kernel in fn]
+    return hits[0] if len(hits) == 1 else None
 
 
 def phase_kernels(gen):
@@ -319,12 +333,15 @@ def phase_kernels(gen):
         for b in (256, 250):
             combine_case(D._build_ksplit(2048 * r, 2048, r)[1], b)
 
-    def packed_case(plan, m, b, slabs):
-        y = planes(m, slabs * 2 * b, gen)[0]
+    def packed_case(plan, m, b, slabs, tb=None, elems=None, offset=0):
+        # offset: the buffer starts that many floats past an aligned one
+        y = planes(1, m * slabs * 2 * b + offset, gen)[0].view(-1)[offset:]
+        y = y.view(m, slabs * 2 * b)
         hold("chain_packed",
-             lambda bwd: pk.cfft_chain_tmajor_packed(plan, y, slabs=slabs),
+             lambda bwd: pk.cfft_chain_tmajor_packed(plan, y, slabs=slabs, tb=tb, elems=elems),
              lambda bwd: pk.chain_tmajor_packed_plain(plan, y, slabs=slabs),
-             {"n": m, "b": b, "slabs": slabs, "factors": list(plan.factors)},
+             {"n": m, "b": b, "slabs": slabs, "factors": list(plan.factors), "offset": offset,
+              "tile": pk._core_launch(plan, dev, "packed chain kernel", tb, elems)._asdict()},
              dirs=(False,))  # a forward-only kernel: the real forward's input
 
     def fused_case(plan, h, b):
@@ -359,7 +376,9 @@ def phase_kernels(gen):
             combine_case(last, b)
             split_case(h, b)
     # small and non-power-of-two H, ragged and odd batches (B=1001 takes
-    # the scalar loads and stores)
+    # the scalar loads and stores); B4 with a block's columns across two
+    # slabs (B % tb != 0), an odd B and a buffer 4 bytes past an aligned
+    # start, at every launch shape of its sweep
     for b in (1000, 1001):
         for h in (96, 960):
             fused_case(D._thin_plan(h), h, b)
@@ -367,6 +386,10 @@ def phase_kernels(gen):
             split_case(h, b)
         packed_case(D._thin_plan(2048), 2048, b, 2)
         split_case(2400, b)
+    for tb, el in CHAIN_SWEEP_SHAPES:
+        if pk.chain_core_tile(D._thin_plan(2048), dev, tb=tb, elems=el) is not None:
+            for slabs, b, off in ((1, 1001, 1), (2, 250, 0), (2, 1001, 1), (32, 37, 1)):
+                packed_case(D._thin_plan(2048), 2048, b, slabs, tb, el, off)
     def conv_case(n, b, cplx):
         plan = D._thin_plan(n)
         re, im = planes(n, b, gen)
@@ -385,7 +408,7 @@ def phase_kernels(gen):
              {"map": "stream", "n": n, "u": u, "shape": list(x.shape), "total": total,
               "complex": x.is_complex(), "complex_filter": cplx_filter}, dirs=(False,))
 
-    def pfb_case(m, p, r, k, maps=("rows", "stream")):
+    def pfb_case(m, p, r, k, maps=("rows", "stream"), offsets=(0,), sliced=False):
         w = torch.randn((p, m), generator=gen, device="cuda")
         if "rows" in maps:
             rows = torch.randn((r, k + p - 1, m), generator=gen, device="cuda")
@@ -393,10 +416,16 @@ def phase_kernels(gen):
                  lambda bwd: (pfb.pfb_fir_plain(rows, w, k),),
                  {"map": "rows", "m": m, "p": p, "r": r, "k": k}, dirs=(False,))
         if "stream" in maps:
-            ext = torch.randn((r, (p + k) * m), generator=gen, device="cuda")
-            hold("pfb_fir", lambda bwd: (pfb.pfb_fir_stream_tmajor(ext, w, k),),
-                 lambda bwd: (pfb.pfb_fir_stream_tmajor_plain(ext, w, k),),
-                 {"map": "stream", "m": m, "p": p, "r": r, "k": k}, dirs=(False,))
+            hist = planes(r, p * m, gen)
+            # sliced: chunk rows that are slices of wider rows, as a caller's
+            # chunk of a longer stream is (read in place, unaligned)
+            x = planes(r, k * m + 3 * sliced, gen)
+            x = tuple(t[:, 3 * sliced:] for t in x)
+            for off in offsets:
+                hold("pfb_fir", lambda bwd: pfb.pfb_fir_stream_tmajor(hist, x, w, k, off),
+                     lambda bwd: pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k, off),
+                     {"map": "stream", "m": m, "p": p, "r": r, "k": k, "offset": off,
+                      "sliced": sliced}, dirs=(False,))
 
     # the FIR paths' kernel calls, shape for shape: the fused conv kernel's
     # stream map on FastConv's streams (its column map on StreamingConv's
@@ -420,8 +449,9 @@ def phase_kernels(gen):
             x = torch.complex(x, torch.randn((rows, length), generator=gen, device="cuda"))
         for total in (length - (n - u), length - (n - u) - 7):
             stream_case(n, u, x, total, cplx)
-    for m, p, batch, frames in CHAN_CONFIGS:
-        pfb_case(m, p, batch, frames, ("stream",))
+    # (the oversampled step reads the second configuration from offset H)
+    for (m, p, batch, frames), offs in zip(CHAN_CONFIGS, ((0,), (0, CHAN_CONFIGS[1][0] // 2))):
+        pfb_case(m, p, batch, frames, ("stream",), offs)
     pfb_case(4096, 8, 4, 1024, ("rows",))
     # small, non-power-of-two nfft; ragged and odd column counts (scalar
     # loads); real and complex filters
@@ -429,9 +459,13 @@ def phase_kernels(gen):
         for b in (1024, 1000, 1001):
             for cplx in (False, True):
                 conv_case(n, b, cplx)
+    # the polyphase FIR at M not a multiple of the phase tile, P = 33 (the
+    # plain loop), K < P, offsets 0 and H, sliced chunk rows
     for m in (64, 1000, 4096):
-        for p in (1, 4, 8):
-            pfb_case(m, p, 3, 70)
+        for p in (1, 4, 8, 33):
+            pfb_case(m, p, 3, 70, offsets=(0, m // 2))
+    pfb_case(1000, 8, 3, 3, ("stream",), (0, 500))
+    pfb_case(4096, 8, 4, 100, ("stream",), (0, 2048), sliced=True)
 
     def fused2_case(plan, n, b, orders=(True, False)):
         re, im = planes(b, n, gen)  # batch-major rows [B, N]
@@ -743,6 +777,22 @@ def phase_real_timing(gen, per_shape):
                 "plain_split_ms": lambda: pk.real_split_tmajor_plain(zr, zi, tw),
             }
             rec.update(conf=[m, r], **{k: time_ms(f) for k, f in passes.items()})
+            if n in (8192, 131072):
+                # B4's launch shapes, and B1 on the unpacked planes
+                re, im = (t.reshape(m, r * b).contiguous() for t in
+                          (yw.view(m, r, 2, b)[:, :, 0], yw.view(m, r, 2, b)[:, :, 1]))
+                rec["b1_unpacked_ms"] = time_ms(lambda: pk.cfft_chain_tmajor(mplan, re, im))
+                default = pk.chain_core_tile(mplan, dev)
+                for tb, el in CHAIN_SWEEP_SHAPES:
+                    t = pk.chain_core_tile(mplan, dev, tb=tb, elems=el)
+                    if t is None:
+                        continue
+                    emit({"phase": "packed_sweep", "n": n, "b": b, "m": m, "r": r,
+                          "tile": t._asdict(), "default": t == default,
+                          "ptxas": ptxas_of("chain_packed", f"chain_packed_kernelILi{el}E"),
+                          "ms": time_ms(lambda: pk.cfft_chain_tmajor_packed(
+                              mplan, yw, slabs=r, tb=tb, elems=el))})
+                del re, im
             if n == 8192:
                 # each reads 64 MB and writes 64 MB, as the whole call does
                 pbnd = bound(8.0 * n * b, fft_flops(m, r * b))
@@ -1255,7 +1305,7 @@ def phase_channelizer(gen):
     for m, p, batch, frames in CHAN_CONFIGS:
         ch = CH.Channelizer(m, p, device="cuda")
         engine = D.select_engine(ch.plan, batch * frames, True, dev)
-        step_launches = {"pfb_fir_stream_tmajor": 2, "cfft_chain_tmajor": 1}
+        step_launches = {"pfb_fir_stream_tmajor": 1, "cfft_chain_tmajor": 1}
         if engine == "kern2":
             step_launches["cfft_combine_tmajor"] = 1
         xr, xi = planes(batch, 2 * frames * m, gen)
@@ -1300,8 +1350,10 @@ def phase_channelizer(gen):
     m, p, batch, frames = CHAN_CONFIGS[1]
     och = CH.OversampledChannelizer(m, 2, p, device="cuda")
     xr, xi = planes(batch, frames * m, gen)
+    c0 = counts()
     (yr, yi), _ = och.process_split(och.init_state((batch,)), xr, xi)
     torch.cuda.synchronize()
+    over = launched(counts(), c0)
     x0 = torch.complex(xr[0], xi[0])
     ref = torch.empty((frames, 2, m), dtype=torch.complex128, device="cuda")
     for r in range(2):
@@ -1309,9 +1361,13 @@ def phase_channelizer(gen):
         ref[:, r] = pfb_oracle(x0, och.base.weights, r * och.hop) * ph
     err = rel_err(torch.complex(yr[0], yi[0]), ref.reshape(2 * frames, m))
     emit({"phase": "channelizer", "oversampled": 2, "m": m, "p": p, "batch": batch,
-          "frames": frames, "out_shape": list(yr.shape), "oracle_rel_err": err})
+          "frames": frames, "out_shape": list(yr.shape), "oracle_rel_err": err,
+          "launches_per_step": over})
     check(yr.shape == (batch, 2 * frames, m) and err <= ORACLE_TOL,
           f"oversampled channelizer: shape {tuple(yr.shape)}, oracle error {err}")
+    # one polyphase launch (both planes) and one FFT per residue
+    check(over.get("pfb_fir_stream_tmajor") == 2,
+          f"oversampled channelizer: launches {over}, expected 2 polyphase launches")
     launches = counts()
     emit({"phase": "channelizer", "launches": launches})
     return launches, runs
@@ -1332,7 +1388,8 @@ def plain_kernels():
     ck.zconv_tmajor = lambda plan, re, im, hfr, hfi, *, tb=None, elems=None: \
         ck.zconv_tmajor_plain(plan, re, im, hfr, hfi)
     ck.zconv_stream = ck.zconv_stream_plain
-    pfb.pfb_fir_stream_tmajor = pfb.pfb_fir_stream_tmajor_plain
+    pfb.pfb_fir_stream_tmajor = lambda hist, x, w, k, offset=0, warps=None: \
+        pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k, offset)
     try:
         yield
     finally:
@@ -1442,43 +1499,59 @@ def phase_fir_timing(gen, conv_runs, chan_runs):
         samples = xr.numel()
         # both input planes read once, both output planes written once
         bnd = bound(16.0 * samples, 2 * (2.0 * p * samples) + fft_flops(m, batch * frames))
-        # where a step's time goes: the history concatenation, the two
-        # polyphase launches, the FFT over the phases
-        extr, exti, _, _ = ch._extend(st, xr, xi)
+        # where a step's time goes: the new state (a copy of the chunk's
+        # tail), the polyphase launch (both planes), the FFT over the phases
+        x, _, _ = ch._advance(st, xr, xi)
         w = ch._weights(dev)
-        vr = pfb.pfb_fir_stream_tmajor(extr, w, frames)
-        vi = pfb.pfb_fir_stream_tmajor(exti, w, frames)
-        stage = {"history_cat_ms": time_ms(lambda: ch._extend(st, xr, xi), inner=2),
+        v = pfb.pfb_fir_stream_tmajor(st, x, w, frames)
+        k_ms = time_ms(lambda: pfb.pfb_fir_stream_tmajor(st, x, w, frames))
+        stage = {"state_ms": time_ms(lambda: ch._advance(st, xr, xi), inner=2),
+                 "pfb_ms": k_ms,
                  "fft_ms": time_ms(lambda: pt.transform_ordered_split_tmajor(
-                     ch.plan, (vr, vi), pt.BACKWARD), inner=2)}
-        del extr, exti, vr, vi
+                     ch.plan, v, pt.BACKWARD), inner=2)}
         rec = {"phase": "fir_time", "pipeline": "channelizer", "m": m, "p": p, "batch": batch,
                "frames": frames, "engine": engine, "ms": ms,
                "msamples_per_s": samples / ms / 1e3, "bound_ms": bnd[0], "bound_by": bnd[1],
                "frac_bound": bnd[0] / ms, "plain_ms": plain, "launches_per_call": per_call,
                **stage}
-        ext = torch.cat([st.hist_re, xr], dim=-1)
-        k_ms = time_ms(lambda: pfb.pfb_fir_stream_tmajor(ext, w, frames))
-        p_ms = time_ms(lambda: pfb.pfb_fir_stream_tmajor_plain(ext, w, frames), inner=1)
+        p_ms = time_ms(lambda: pfb.pfb_fir_stream_tmajor_plain(st, x, w, frames), inner=1)
         rws = torch.randn((batch, frames + p - 1, m), generator=gen, device="cuda")
         id_ms = time_ms(lambda: pfb.pfb_fir(rws, w, frames))
-        # conv1d(groups=M) computes pfb_fir's function on channels-first rows
-        xin = rws.permute(0, 2, 1).contiguous()
+        # conv1d(groups=M) computes pfb_fir's function on channels-first rows;
+        # the yardstick of the stream map is that call on both planes' rows
+        # followed by the copy into the time-major [M, batch*frames] v
+        xin = torch.randn((2 * batch, m, frames + p - 1), generator=gen, device="cuda")
         wconv = w.t().contiguous().unsqueeze(1)
-        lib = torch.nn.functional.conv1d(xin, wconv, groups=m)
-        lib_err = rel_err(lib.permute(0, 2, 1), pfb.pfb_fir_plain(rws, w, frames))
-        lib_ms = time_ms(lambda: torch.nn.functional.conv1d(xin, wconv, groups=m))
-        kb = bound(4.0 * (ext.numel() + m * batch * frames), 2.0 * p * m * batch * frames)
+        lib = torch.nn.functional.conv1d(xin[:batch], wconv, groups=m)
+        lib_err = rel_err(lib.permute(0, 2, 1),
+                          pfb.pfb_fir_plain(xin[:batch].permute(0, 2, 1), w, frames))
+        to_tmajor = lambda y: y.view(2, batch, m, frames).permute(0, 2, 1, 3).reshape(
+            2, m, batch * frames)
+        lib_ms = time_ms(lambda: to_tmajor(torch.nn.functional.conv1d(xin, wconv, groups=m)))
+        # both planes: history and chunk read once, v written once
+        kb = bound(4.0 * 2 * (batch * p * m + samples + m * batch * frames),
+                   2 * 2.0 * p * m * batch * frames)
         rec.update(pfb_stream_ms=k_ms, pfb_stream_plain_ms=p_ms, pfb_rows_ms=id_ms,
-                   pfb_bound_ms=kb[0], library_conv1d_ms=lib_ms,
-                   library_conv1d_rel_err=lib_err)
+                   pfb_bound_ms=kb[0], pfb_frac_bound=kb[0] / k_ms,
+                   library_conv1d_tmajor_ms=lib_ms, library_conv1d_rel_err=lib_err)
         if m == 4096:
             rows["pfb_fir"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                                   library="torch.nn.functional.conv1d(groups=M)",
+                                   library="torch.nn.functional.conv1d(groups=M) on both "
+                                           "planes' rows, then the time-major copy",
                                    rows_map_ms=id_ms, shape=[m, p, batch, frames],
                                    bound_ms=kb[0], bound_by=kb[1])
         emit(rec)
-        del ext, rws, xin, lib
+        # the stream map's launch shapes at this configuration
+        pm = next(q for q in (4, 8, 16, 32) if p <= q) if p <= 32 else 0
+        for warps in PFB_SWEEP:
+            emit({"phase": "pfb_sweep", "m": m, "p": p, "batch": batch, "frames": frames,
+                  "warps": warps, "frames_a_block": 32 * warps,
+                  "default": warps == pfb.STREAM_WARPS,
+                  "ptxas": ptxas_of("pfb_fir", f"pfb_stream_kernelILi{pm}E"),
+                  "ms": time_ms(lambda: pfb.pfb_fir_stream_tmajor(st, x, w, frames,
+                                                                  warps=warps)),
+                  "bound_ms": kb[0]})
+        del x, v, rws, xin, lib
     return rows
 
 

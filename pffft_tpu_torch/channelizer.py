@@ -15,15 +15,19 @@ Counterpart of ``pffft_tpu/channelizer.py``:
   * :class:`OversampledChannelizer`, hop M/V: V interleaved critically
     sampled passes and a phase table per residue.
 
-On the card the polyphase step is the kernel ``csrc/pfb_fir.cu`` reading
-the stream directly and writing v time-major [M, B*K]
-(``ops/pfb_kernel.pfb_fir_stream_tmajor``); the DFT over the phases is the
-port's time-major complex transform, backward and unscaled (the chain
-kernel for M <= 2048, kern2 above).  ``process_split_tmajor`` returns that
-[M, B*K] output as it is; ``process_split`` moves the channel axis back to
+On the card the polyphase step is one launch of the kernel
+``csrc/pfb_fir.cu`` for both planes (``ops/pfb_kernel.pfb_fir_stream_tmajor``):
+it reads the history and the chunk in place, as one virtual stream, and
+writes v time-major [M, B*K]; the DFT over the phases is the port's
+time-major complex transform, backward and unscaled (the chain kernel for
+M <= 2048, kern2 above).  ``process_split_tmajor`` returns that [M, B*K]
+output as it is; ``process_split`` moves the channel axis back to
 [..., K, M].
 
-State is carried as in the reference: the last P*M input samples, planar.
+State is carried as in the reference: the last P*M input samples, planar,
+in memory of its own, so a caller may refill a chunk's buffer after the
+step (the kernel reads the history in place; only the new state is copied,
+P*M samples a row).
 numpy input goes to the channelizer's ``device`` (default "cuda"); tensors
 stay where they are.  ``DDCChain`` needs the NCO mixer and is not ported
 yet (ROADMAP.md A8).  Float64 is not either (A6): the reference's float64
@@ -37,7 +41,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from . import fft as _fft
 from . import plan as _plan
@@ -73,6 +76,17 @@ def _planes(x, device) -> Tuple[torch.Tensor, torch.Tensor]:
         return x.real, x.imag
     x = np.asarray(x)
     return _fft._as_plane(np.real(x), device), _fft._as_plane(np.imag(x), device)
+
+
+def _chunk_plane(x, device) -> torch.Tensor:
+    """A chunk plane as float32 with unit inner stride: a tensor that is a
+    slice of wider rows stays a view (the kernel reads it in place); numpy
+    arrays go to ``device``."""
+
+    if not isinstance(x, torch.Tensor):
+        return _fft._as_plane(x, device)
+    x = x.to(torch.float32)
+    return x if x.ndim and x.stride(-1) == 1 else x.contiguous()
 
 
 class ChannelizerState(NamedTuple):
@@ -144,34 +158,42 @@ class Channelizer:
         return ChannelizerState(hist_re=z, hist_im=z)
 
     # ------------------------------------------------------------------
-    def _pfb_split_tmajor(self, extr: torch.Tensor, exti: torch.Tensor, k: int):
-        """ext planes [..., (P+K)*M] -> the channels ([M, B*K]) x2,
-        channel-major, columns frame-fastest."""
+    def _pfb_split_tmajor(self, state: ChannelizerState, x, k: int, offset: int = 0):
+        """The history and the chunk planes x = (x_re, x_im) [..., K*M],
+        read from ``offset`` -> the channels ([M, B*K]) x2, channel-major,
+        columns frame-fastest."""
 
-        w = self._weights(extr.device)
-        vr = _pfb.pfb_fir_stream_tmajor(extr, w, k)
-        vi = _pfb.pfb_fir_stream_tmajor(exti, w, k)
-        return _fft.transform_ordered_split_tmajor(self.plan, (vr, vi), _plan.BACKWARD)
+        w = self._weights(x[0].device)
+        v = _pfb.pfb_fir_stream_tmajor(state, x, w, k, offset)
+        return _fft.transform_ordered_split_tmajor(self.plan, v, _plan.BACKWARD)
 
-    def _pfb_split(self, extr: torch.Tensor, exti: torch.Tensor, k: int):
-        """ext planes [..., (P+K)*M] -> ([..., K, M]) x2."""
+    def _pfb_split(self, state: ChannelizerState, x, k: int, offset: int = 0):
+        """As :meth:`_pfb_split_tmajor` -> ([..., K, M]) x2."""
 
-        lead = extr.shape[:-1]
+        lead = x[0].shape[:-1]
         return tuple(y.reshape(self.m, *lead, k).movedim(0, -1).contiguous()
-                     for y in self._pfb_split_tmajor(extr, exti, k))
+                     for y in self._pfb_split_tmajor(state, x, k, offset))
 
-    def _extend(self, state: ChannelizerState, x_re, x_im):
-        """(ext_re, ext_im, K, state'): the history-prefixed planes."""
+    def _advance(self, state: ChannelizerState, x_re, x_im):
+        """((x_re, x_im), K, state'): the chunk as planes on the device and
+        the new state, the last P*M samples of [history, chunk], copied out
+        of the chunk (one copy for both planes when it holds K >= P frames,
+        else a concatenation of at most P*M samples), so the caller may
+        reuse the chunk's buffer."""
 
-        x_re, x_im = _fft._as_plane(x_re, self.device), _fft._as_plane(x_im, self.device)
+        x_re, x_im = _chunk_plane(x_re, self.device), _chunk_plane(x_im, self.device)
         if x_re.shape[-1] % self.m:
             raise ValueError(
                 f"stream chunk length {x_re.shape[-1]} must be a multiple of M={self.m}")
-        extr = torch.cat([state.hist_re, x_re], dim=-1)
-        exti = torch.cat([state.hist_im, x_im], dim=-1)
-        hist = self.p * self.m
-        return (extr, exti, x_re.shape[-1] // self.m,
-                ChannelizerState(hist_re=extr[..., -hist:], hist_im=exti[..., -hist:]))
+        hist, length = self.p * self.m, x_re.shape[-1]
+        if length >= hist:
+            st = ChannelizerState(*torch.stack(
+                (x_re[..., length - hist:], x_im[..., length - hist:])).unbind(0))
+        else:
+            st = ChannelizerState(
+                hist_re=torch.cat([state.hist_re[..., length:], x_re], dim=-1),
+                hist_im=torch.cat([state.hist_im[..., length:], x_im], dim=-1))
+        return (x_re, x_im), length // self.m, st
 
     def process_split_tmajor(
         self, state: ChannelizerState, x_re, x_im
@@ -180,8 +202,8 @@ class Channelizer:
         [..., L] x2 -> (([M, B*K]) x2, state'), with no transpose back
         (columns run frame-fastest, batch-major over any leading dims)."""
 
-        extr, exti, k, st = self._extend(state, x_re, x_im)
-        return self._pfb_split_tmajor(extr, exti, k), st
+        x, k, st = self._advance(state, x_re, x_im)
+        return self._pfb_split_tmajor(state, x, k), st
 
     def process_split(
         self, state: ChannelizerState, x_re, x_im
@@ -189,8 +211,8 @@ class Channelizer:
         """Split-format stream step: planes [..., L] x2 ->
         (([..., L//M, M]) x2, state')."""
 
-        extr, exti, k, st = self._extend(state, x_re, x_im)
-        return self._pfb_split(extr, exti, k), st
+        x, k, st = self._advance(state, x_re, x_im)
+        return self._pfb_split(state, x, k), st
 
     def process(self, state: ChannelizerState, x) -> Tuple[torch.Tensor, ChannelizerState]:
         """Stream step: x [..., L] complex (L % M == 0) ->
@@ -252,22 +274,17 @@ class OversampledChannelizer:
         Output frame k is stream time k*H (H = M/V)."""
 
         b = self.base
-        extr, exti, k, st = b._extend(state, x_re, x_im)
-        lead = extr.shape[:-1]
-        dev = extr.device
+        x, k, st = b._advance(state, x_re, x_im)
+        lead = x[0].shape[:-1]
+        dev = x[0].device
         ph_re = torch.from_numpy(self.ph_re).to(dev)
         ph_im = torch.from_numpy(self.ph_im).to(dev)
         yr = torch.empty((*lead, k, self.v, b.m), dtype=torch.float32, device=dev)
         yi = torch.empty_like(yr)
         for r in range(self.v):
-            off = r * self.hop
-            # residue r samples times k*M + r*H: shift the window right by
-            # off and zero-pad back to (P+K)*M (the pad is never read)
-            er, ei = extr, exti
-            if off:
-                er = F.pad(extr[..., off:], (0, off))
-                ei = F.pad(exti[..., off:], (0, off))
-            vr, vi = b._pfb_split(er, ei, k)
+            # residue r samples times k*M + r*H: the stream read from offset
+            # r*H (zeros past its end are never read)
+            vr, vi = b._pfb_split(state, x, k, r * self.hop)
             pr, pi = ph_re[r], ph_im[r]
             yr[..., r, :] = vr * pr - vi * pi
             yi[..., r, :] = vr * pi + vi * pr

@@ -1,6 +1,6 @@
-// Device code of the single-pass Stockham chain, shared by the kernels that
-// run it: the planar chain (stockham_chain.cu), the chain on a packed input
-// (chain_packed.cu) and the fused real transform (real_fused.cu).
+// Device code of the single-pass Stockham chain of the fused real transform
+// (real_fused.cu, B3).  The planar chain (B1) and the chain on a packed input
+// (B4) run on the register-resident core of regfft.cuh instead.
 //
 // A block owns a tile of TB batch columns x all N rows in ONE dynamic
 // shared-memory buffer of float2.  A stage reads the r inputs of each
@@ -110,20 +110,6 @@ struct Rows {
   }
 };
 
-// Slabs: the packed wide view [m, r*2B] of kern2's pass A.  Column c reads
-// slab c / B at lane c % B; the slab's re lanes start at slab*2B, its im
-// lanes B further (re = y, im = y + B, ld = r*2B).
-struct Slabs {
-  const float* re;
-  const float* im;
-  int ld;
-  int seg;  // B
-  __device__ __forceinline__ size_t at(int row, int c) const {
-    const int s = c / seg;
-    return static_cast<size_t>(row) * ld + static_cast<size_t>(s) * 2 * seg + (c - s * seg);
-  }
-};
-
 // Global <-> shared moves of the [n, tb] tile.  A block runs alone on its SM
 // (the tile fills most of shared memory), so these phases are bound by the
 // loads each thread keeps in flight: every thread issues kUnroll vector
@@ -131,7 +117,7 @@ struct Slabs {
 constexpr int kUnroll = 4;
 
 // VEC: tb, cols and the source's column groups of 4 are 16-byte aligned
-// float4s in both planes (for Slabs, B % 4 == 0 keeps a group in one slab).
+// float4s in both planes.
 template <bool VEC, class Src>
 __device__ __forceinline__ void load_tile(float2* tile, const Src src, int n, int tb,
                                           int b0, int cols) {

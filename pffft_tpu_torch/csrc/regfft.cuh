@@ -1,7 +1,7 @@
 // A register-resident Stockham FFT core for Hopper, shared by the batch-major
 // row FFT (fused2.cu, B9), the clustered one-pass ksplit (ksplit2.cu, B10),
-// the time-major chain (stockham_chain.cu, B1) and the fused block
-// convolution (conv_fused.cu, B7).
+// the time-major chain (stockham_chain.cu, B1), the chain on a packed input
+// (chain_packed.cu, B4) and the fused block convolution (conv_fused.cu, B7).
 //
 // A block runs F independent length-n transforms ("lanes") with the stages
 // of one thin plan (radix 16/8/4/2, then 5 and 3).  Within a stage every
@@ -82,6 +82,24 @@ struct ColsIn {
     if (f >= cols) return make_float2(0.0f, 0.0f);
     const size_t g = static_cast<size_t>(p) * ld + f;
     return make_float2(__ldg(re + g), __ldg(im + g));
+  }
+};
+
+// A packed time-major buffer y [n, ld] (B4): slabs of 2*seg columns, re at
+// columns s*2*seg + j and im at s*2*seg + seg + j of slab s.  Lane f of the
+// block is global column c = c0 + f, which reads slab s = c / seg, lane j =
+// c mod seg, so a block's lanes may straddle two slabs; lanes f >= cols load
+// zeros.  With one slab (ld = 2*seg) it is the free [n, 2B] view of a real
+// signal, re and im side by side.
+struct PackedColsIn {
+  const float* y;
+  int ld, seg, c0, cols;
+  __device__ __forceinline__ float2 load(int f, int p) const {
+    if (f >= cols) return make_float2(0.0f, 0.0f);
+    const int c = c0 + f;
+    const int s = c / seg;
+    const size_t g = static_cast<size_t>(p) * ld + static_cast<size_t>(s) * seg + c;
+    return make_float2(__ldg(y + g), __ldg(y + g + seg));
   }
 };
 

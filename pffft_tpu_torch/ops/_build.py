@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -79,6 +80,30 @@ def log_path(name: str) -> Path:
     """nvcc's output (ptxas register and spill report) of the last build."""
 
     return BUILD_DIR / f"{name}-{_digest(name)}.log"
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel of library ``name``, from
+    the ptxas report of its last build: {mangled entry name: {"registers",
+    "spill_stores", "spill_loads"}}."""
+
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log_path(name).read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def build(names: Iterable[str] = SOURCES) -> float:

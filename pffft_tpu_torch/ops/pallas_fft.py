@@ -10,7 +10,8 @@ CUDA C++ under ``pffft_tpu_torch/csrc/``:
   * ``cfft_combine_tmajor`` -> ``combine.cu`` (``cfft_combine_tmajor``)
   * ``stream_copy``         -> ``stream_copy.cu`` (``stream_copy_pallas``)
   * ``cfft_chain_tmajor_packed`` -> ``chain_packed.cu``
-    (``cfft_pallas_tmajor_packed``)
+    (``cfft_pallas_tmajor_packed``), on ``regfft.cuh`` with B1's launch
+    shape
   * ``rfft_chain_tmajor_fused`` / ``rfft_bwd_chain_tmajor_fused`` ->
     ``real_fused.cu`` (``rfft_pallas_tmajor_fused`` /
     ``rfft_bwd_pallas_tmajor_fused``)
@@ -434,7 +435,7 @@ def tile_elems(radices: Sequence[int] = (2,),
 
 def chain_tile(n: int, radices: Sequence[int] = (2,),
                device: Optional[torch.device] = None) -> Optional[int]:
-    """Batch columns per block of the csrc/chain.cuh kernels (B3, B4) for
+    """Batch columns per block of the csrc/chain.cuh kernel (B3) for
     engine length ``n`` with stage ``radices`` (a power of two, at most
     32), or None when no tile [n, tb] of at least 8 columns fits
     :func:`tile_elems`.  It is also the chain's coverage rule, which B1's
@@ -539,8 +540,7 @@ _SIGNATURES = {
     "pf_chain_occupancy": ("stockham_chain", [_I] * 6 + [_P]),
     "pf_combine_tmajor": ("combine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_stream_copy": ("stream_copy", [_P, _P, _P, _P, ctypes.c_longlong, _I, _P]),
-    "pf_chain_tmajor_packed": ("chain_packed",
-                               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "pf_chain_tmajor_packed": ("chain_packed", [_P] * 5 + [_I] * 9 + [_P]),
     "pf_rfft_tmajor_fused_fwd": ("real_fused",
                                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_rfft_tmajor_fused_bwd": ("real_fused",
@@ -550,16 +550,18 @@ _SIGNATURES = {
     "pf_fused2": ("fused2", [_P] * 6 + [_I] * 13 + [_P]),
     "pf_real_split_bmajor": ("real_split_bmajor",
                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # ops/conv_kernel.zconv_tmajor / zconv_stream, ops/pfb_kernel.pfb_fir(_stream_tmajor)
+    # ops/conv_kernel.zconv_tmajor / zconv_stream, ops/pfb_kernel.pfb_fir / pfb_fir_stream_tmajor
     "pf_conv_fused_tmajor": ("conv_fused", [_P] * 8 + [_I] * 8 + [_P]),
     "pf_conv_stream": ("conv_fused", [_P] * 6 + [_I] * 14 + [_P]),
-    "pf_pfb_fir": ("pfb_fir", [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _P]),
+    "pf_pfb_fir": ("pfb_fir", [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _P]),
+    "pf_pfb_stream": ("pfb_fir", [_P] * 7 + [_I] * 5 + [ctypes.c_longlong] * 3
+                      + [_I] * 3 + [_P]),
     # ops/dispatch.cfft_ksplit2_tmajor (and its occupancy)
     "pf_ksplit2_tmajor": ("ksplit2", [_P] * 6 + [_I, _P] + [_I] * 9 + [_P]),
     "pf_ksplit2_occupancy": ("ksplit2", [_I] * 6 + [_P]),
 }
 # Sources built on csrc/chain.cuh, whose tile limits chain_tile plans with.
-_CHAIN_SOURCES = ("chain_packed", "real_fused")
+_CHAIN_SOURCES = ("real_fused",)
 
 
 @functools.lru_cache(maxsize=None)
@@ -797,15 +799,18 @@ def stream_copy(re: torch.Tensor, im: torch.Tensor):
 stream_copy.launches = 0
 
 
-def cfft_chain_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *, slabs: int = 1):
-    """Forward complex FFT of a PACKED time-major buffer -> planar pair.
+def cfft_chain_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *, slabs: int = 1,
+                             tb: Optional[int] = None, elems: Optional[int] = None):
+    """Forward complex FFT of a PACKED time-major buffer -> planar pair (B4).
 
     ``slabs=1``: y [N, 2B] with columns :B re and B: im, the free
     ``x.reshape(H, 2B)`` of a real [2H, B] signal -> ([N, B]) x2.
     ``slabs=r``: y [N, r*2B], kern2 pass A's wide view of the same buffer
     (slab s holds re at columns s*2B.., im at s*2B+B..) -> the planar
     pass-A state ([N, r*B]) x2.  Unscaled, canonical order.  The pack costs
-    no pass of its own."""
+    no pass of its own.  As :func:`cfft_chain_tmajor`, the kernel runs the
+    thin chain of length N at the launch shape of :func:`chain_core_tile`
+    (``tb`` and ``elems`` override it, for measurement only)."""
 
     if y.ndim != 2 or slabs < 1 or y.shape[1] % (2 * slabs):
         raise ValueError(f"packed buffer must be [N, {slabs}*2B]; got {tuple(y.shape)}")
@@ -814,16 +819,17 @@ def cfft_chain_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *, slabs: int = 
     if y.device.type == "cpu":
         return chain_tmajor_packed_plain(plan, y, slabs=slabs)
     _check_cuda(y)
-    tb = _chain_tb(plan, y.device)
+    t = _core_launch(plan, y.device, "packed chain kernel", tb, elems)
     ore = torch.empty((n, slabs * b), dtype=y.dtype, device=y.device)
     oim = torch.empty_like(ore)
     if b == 0:
         return ore, oim
     lib, fn = _kernel("pf_chain_tmajor_packed")
-    tw, desc, count = _chain_tables(plan.stages, y.device)
+    tw, desc, count = _core_tables(thin_plan(n).stages, y.device)
     err = fn(y.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(), desc, count,
-             n, b, slabs, tb, y.device.index or 0, _stream(y))
-    _build.check(lib, err, f"packed chain kernel (N={n}, B={b}, slabs={slabs}, tb={tb})")
+             n, b, slabs, t.tb, t.threads, t.elems, t.shift, y.device.index or 0, _stream(y))
+    _build.check(lib, err, f"packed chain kernel (N={n}, B={b}, slabs={slabs}, tb={t.tb}, "
+                           f"threads={t.threads}, elems={t.elems})")
     cfft_chain_tmajor_packed.launches += 1
     return ore, oim
 

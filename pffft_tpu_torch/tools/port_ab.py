@@ -2,20 +2,25 @@
 """Time the port's kernels that two checkouts may differ in, for an A/B
 comparison on one card.
 
-    python3 pffft_tpu_torch/tools/port_ab.py CHECKOUT LABEL
+    python3 pffft_tpu_torch/tools/port_ab.py CHECKOUT LABEL [GROUPS]
 
 imports ``pffft_tpu_torch`` from the checkout at CHECKOUT (its kernels are
 built into that checkout's ``pffft_tpu_torch/_build/``) and prints one JSON
 line: LABEL, the card's name and power limit, and ms per call (CUDA events,
-median of 10 windows of 5 calls, after warm-up) of
+median of 10 windows of 5 calls, after warm-up) of the groups named in
+GROUPS (comma-separated; all by default):
 
-  * the time-major chain (B1) at (N, B) = (1024, 16384) and (2048, 8192),
-    and the two-pass kern2 engine at (4096, 4096) and (65536, 256);
-  * the fused block convolution's column map (B7) at (2048, 32736);
-  * FastConv ``apply_batched`` on a [16, 2^22] real stream at 64, 1024 and
-    4096 taps;
-  * the fused real forward (B3) at real (2048, 8192) and the packed chain
-    (B4) at real (8192, 2048).
+  * ``chain``: the time-major chain (B1) at (N, B) = (1024, 16384) and
+    (2048, 8192), and the two-pass kern2 engine at (4096, 4096) and
+    (65536, 256);
+  * ``conv``: the fused block convolution's column map (B7) at (2048,
+    32736); FastConv ``apply_batched`` on a [16, 2^22] real stream at 64,
+    1024 and 4096 taps;
+  * ``real``: the fused real forward (B3) at real (2048, 8192), the packed
+    chain (B4) at real (8192, 2048), and the public real time-major forward
+    at the real band shapes N = 8192 .. 131072 (N*B = 2^24);
+  * ``chan``: a channelizer step (``process_split_tmajor``) at (M, P,
+    batch, frames) = (4096, 8, 4, 1024) and (1024, 8, 16, 1024).
 
 Run it for both checkouts in turns (A, B, B, A) within one call.  Needs a
 CUDA card and nvcc; imports neither jax nor pffft_tpu.
@@ -50,11 +55,14 @@ def time_ms(fn, inner: int = 5, reps: int = 10, warm: int = 3) -> float:
 
 def main() -> int:
     root, label = sys.argv[1], sys.argv[2]
+    groups = set(sys.argv[3].split(",")) if len(sys.argv) > 3 else {"chain", "conv", "real",
+                                                                      "chan"}
     if not torch.cuda.is_available():
         print("port_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, root)
     import pffft_tpu_torch as pt
+    from pffft_tpu_torch import channelizer as CH
     from pffft_tpu_torch import conv as C
     from pffft_tpu_torch.ops import conv_kernel as ck
     from pffft_tpu_torch.ops import dispatch as D
@@ -68,40 +76,60 @@ def main() -> int:
     out = {"label": label, "root": root, "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()}
-    for n, b in ((1024, 16384), (2048, 8192)):
+    if "chain" in groups:
+        for n, b in ((1024, 16384), (2048, 8192)):
+            plan = D._thin_plan(n)
+            re, im = rnd(n, b), rnd(n, b)
+            out[f"chain_{n}x{b}_ms"] = time_ms(lambda: pk.cfft_chain_tmajor(plan, re, im))
+        for n, b in ((4096, 4096), (65536, 256)):
+            plan = pt.new_setup(n)
+            re, im = rnd(n, b), rnd(n, b)
+            out[f"kern2_{n}x{b}_ms"] = time_ms(lambda: D.cfft_kern2_tmajor(plan, re, im))
+        del re, im
+    if "conv" in groups:
+        n, cols = 2048, 32736
         plan = D._thin_plan(n)
-        re, im = rnd(n, b), rnd(n, b)
-        out[f"chain_{n}x{b}_ms"] = time_ms(lambda: pk.cfft_chain_tmajor(plan, re, im))
-    for n, b in ((4096, 4096), (65536, 256)):
-        plan = pt.new_setup(n)
-        re, im = rnd(n, b), rnd(n, b)
-        out[f"kern2_{n}x{b}_ms"] = time_ms(lambda: D.cfft_kern2_tmajor(plan, re, im))
-    del re, im
-    n, cols = 2048, 32736
-    plan = D._thin_plan(n)
-    hfr, hfi = (torch.from_numpy(a).to(dev)
-                for a in ck.filter_spectrum(plan, pt.design_lowpass(1024, 0.1)))
-    re, im = rnd(n, cols), rnd(n, cols)
-    out["conv_cols_2048x32736_ms"] = time_ms(lambda: ck.zconv_tmajor(plan, re, im, hfr, hfi))
-    del re, im
-    x = rnd(16, 1 << 22)
-    for taps in (64, 1024, 4096):
-        fc = C.FastConv(pt.design_lowpass(taps, 0.1))
-        out[f"fastconv_f{taps}_ms"] = time_ms(lambda: fc.apply_batched(x), inner=2)
-    del x
-    n, b = 2048, 8192
-    rplan = pt.new_setup(n, pt.REAL)
-    y = rnd(n // 2, 2 * b)
-    tw = S.real_split_twiddle(rplan, dev)
-    cplan = D._chain_plan(rplan, dev)
-    out["real_fused_2048x8192_ms"] = time_ms(lambda: pk.rfft_chain_tmajor_fused(cplan, y, tw))
-    n, b = 8192, 2048
-    h = n // 2
-    m, r = D._kern2_conf(h, dev)
-    mplan = D._build_ksplit(h, m, r)[0]
-    yw = rnd(m, r * 2 * b)
-    out["chain_packed_8192x2048_ms"] = time_ms(
-        lambda: pk.cfft_chain_tmajor_packed(mplan, yw, slabs=r))
+        hfr, hfi = (torch.from_numpy(a).to(dev)
+                    for a in ck.filter_spectrum(plan, pt.design_lowpass(1024, 0.1)))
+        re, im = rnd(n, cols), rnd(n, cols)
+        out["conv_cols_2048x32736_ms"] = time_ms(
+            lambda: ck.zconv_tmajor(plan, re, im, hfr, hfi))
+        del re, im
+        x = rnd(16, 1 << 22)
+        for taps in (64, 1024, 4096):
+            fc = C.FastConv(pt.design_lowpass(taps, 0.1))
+            out[f"fastconv_f{taps}_ms"] = time_ms(lambda: fc.apply_batched(x), inner=2)
+        del x
+    if "real" in groups:
+        n, b = 2048, 8192
+        rplan = pt.new_setup(n, pt.REAL)
+        y = rnd(n // 2, 2 * b)
+        tw = S.real_split_twiddle(rplan, dev)
+        cplan = D._chain_plan(rplan, dev)
+        out["real_fused_2048x8192_ms"] = time_ms(
+            lambda: pk.rfft_chain_tmajor_fused(cplan, y, tw))
+        n, b = 8192, 2048
+        h = n // 2
+        m, r = D._kern2_conf(h, dev)
+        mplan = D._build_ksplit(h, m, r)[0]
+        yw = rnd(m, r * 2 * b)
+        out["chain_packed_8192x2048_ms"] = time_ms(
+            lambda: pk.cfft_chain_tmajor_packed(mplan, yw, slabs=r))
+        del y, yw
+        for n in (8192, 16384, 32768, 65536, 131072):
+            rplan = pt.new_setup(n, pt.REAL)
+            x = rnd(n, (1 << 24) // n)
+            out[f"real_fwd_{n}_ms"] = time_ms(
+                lambda: pt.transform_ordered_split_tmajor(rplan, x))
+        del x
+    if "chan" in groups:
+        for m, p, batch, frames in ((4096, 8, 4, 1024), (1024, 8, 16, 1024)):
+            ch = CH.Channelizer(m, p)
+            xr, xi = rnd(batch, frames * m), rnd(batch, frames * m)
+            st = ch.init_state((batch,))
+            out[f"chan_step_{m}_ms"] = time_ms(
+                lambda: ch.process_split_tmajor(st, xr, xi), inner=2)
+            del xr, xi
     print(json.dumps(out), flush=True)
     return 0
 

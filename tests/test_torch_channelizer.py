@@ -65,22 +65,73 @@ def test_pfb_fir_matches_reference_kernel(k, p, m, lead):
         assert _rel(got.numpy(), want) <= 4e-6  # the reference test's own bound
 
 
+def _ref_polyphase(ref, hist, chunk, k, offset=0):
+    """The reference's time-major polyphase of one plane on ext = [hist,
+    chunk] read from ``offset`` (zeros past the end, as its oversampled
+    channelizer pads), as v [M, R*K]."""
+
+    ext = np.concatenate([hist, chunk], axis=-1)
+    if offset:
+        ext = np.concatenate([ext[..., offset:], np.zeros((*ext.shape[:-1], offset),
+                                                          np.float32)], axis=-1)
+    return np.asarray(ref._polyphase_tmajor(jnp.asarray(ext), k)).reshape(ref.m, -1)
+
+
+def _stream_planes(lead, p, k, m, seed):
+    """(hist, chunk) pairs of seeded planes: hist [..., P*M], chunk [..., K*M]."""
+
+    rng = np.random.default_rng(seed)
+    return tuple(tuple(rng.standard_normal((*lead, n)).astype(np.float32) for _ in range(2))
+                 for n in (p * m, k * m))
+
+
 @pytest.mark.parametrize("m,p", SHAPES)
 @pytest.mark.parametrize("lead", [(), (3,)])
 def test_pfb_stream_map_matches_reference_polyphase(m, p, lead):
-    """The channelizer's map pair: v[phi, r*K + k] from the stream, equal to
-    the reference's time-major polyphase (``_polyphase_tmajor``)."""
+    """The channelizer's stream map on both planes: v[phi, r*K + k] from the
+    history and the chunk read as one stream, equal to the reference's
+    time-major polyphase (``_polyphase_tmajor``) on the concatenated stream."""
 
-    rng = np.random.default_rng(m + p)
     k = 6
     ref = rch.Channelizer(m, p)
-    ext = rng.standard_normal((*lead, (p + k) * m)).astype(np.float32)
-    want = np.asarray(ref._polyphase_tmajor(jnp.asarray(ext), k)).reshape(m, -1)
+    hist, chunk = _stream_planes(lead, p, k, m, m + p)
+    want = [_ref_polyphase(ref, h, c, k) for h, c in zip(hist, chunk)]
     w = torch.from_numpy(np.array(ref.weights))
-    et = torch.from_numpy(ext)
-    for got in (tpfb.pfb_fir_stream_tmajor_plain(et, w, k), tpfb.pfb_fir_stream_tmajor(et, w, k)):
-        assert got.shape == (m, max(1, int(np.prod(lead))) * k)
-        assert _rel(got.numpy(), want) <= 4e-6
+    ht, ct = (tuple(torch.from_numpy(a) for a in pair) for pair in (hist, chunk))
+    for got in (tpfb.pfb_fir_stream_tmajor_plain(ht, ct, w, k),
+                tpfb.pfb_fir_stream_tmajor(ht, ct, w, k)):
+        for g, wv in zip(got, want, strict=True):
+            assert g.shape == (m, max(1, int(np.prod(lead))) * k)
+            assert _rel(g.numpy(), wv) <= 4e-6
+
+
+@pytest.mark.parametrize("m,p,k,lead", [
+    (16, 4, 6, (2,)),      # K >= P
+    (16, 8, 3, (2,)),      # K < P: most of the window in the history
+    (12, 6, 1, (2, 2)),    # one frame, two leading dims
+    (8, 33, 4, (3,)),      # P > 32: the kernel's plain loop
+    (8, 33, 40, ()),
+])
+@pytest.mark.parametrize("hop", [0, 1, 2])  # offset 0, H = M/2, H = M/4
+def test_pfb_stream_twin_matches_reference_at_offsets(m, p, k, lead, hop):
+    """The two-plane, two-pointer plain twin (and the wrapper, which runs it
+    on the CPU) against the reference's polyphase step on the stream read
+    from offset r*H, as its oversampled channelizer reads it."""
+
+    ref = rch.Channelizer(m, p)
+    off = 0 if hop == 0 else (m // 2 if hop == 1 else m // 4)
+    hist, chunk = _stream_planes(lead, p, k, m, 100 * m + 10 * p + k)
+    want = [_ref_polyphase(ref, h, c, k, off) for h, c in zip(hist, chunk)]
+    w = torch.from_numpy(np.array(ref.weights))
+    ht, ct = (tuple(torch.from_numpy(a) for a in pair) for pair in (hist, chunk))
+    before = tpfb.pfb_fir_stream_tmajor.launches
+    for got in (tpfb.pfb_fir_stream_tmajor_plain(ht, ct, w, k, off),
+                tpfb.pfb_fir_stream_tmajor(ht, ct, w, k, off)):
+        assert len(got) == 2
+        for g, wv in zip(got, want, strict=True):
+            assert g.shape == (m, max(1, int(np.prod(lead))) * k)
+            assert _rel(g.numpy(), wv) <= 4e-6
+    assert tpfb.pfb_fir_stream_tmajor.launches == before  # the CPU launches nothing
 
 
 def test_pfb_wrappers_reject_bad_arguments():
@@ -91,10 +142,19 @@ def test_pfb_wrappers_reject_bad_arguments():
         tpfb.pfb_fir(torch.ones((20, 8)), w, 8)
     with pytest.raises(ValueError, match=r"\[P, M\]"):
         tpfb.pfb_fir(torch.ones((20, 16)), torch.ones(16), 8)
+    hist = (torch.zeros(64), torch.zeros(64))
     with pytest.raises(ValueError, match="stream length"):
-        tpfb.pfb_fir_stream_tmajor(torch.ones(16 * 10), w, 8)
+        tpfb.pfb_fir_stream_tmajor(hist, (torch.ones(16 * 6), torch.ones(16 * 6)), w, 8)
+    with pytest.raises(ValueError, match="history length"):
+        tpfb.pfb_fir_stream_tmajor((torch.zeros(48), torch.zeros(48)),
+                                   (torch.ones(128), torch.ones(128)), w, 8)
+    with pytest.raises(ValueError, match="leading dims"):
+        tpfb.pfb_fir_stream_tmajor(hist, (torch.ones(128), torch.ones((2, 128))), w, 8)
+    with pytest.raises(ValueError, match="offset"):
+        tpfb.pfb_fir_stream_tmajor(hist, (torch.ones(128), torch.ones(128)), w, 8, -1)
     before = (tpfb.pfb_fir.launches, tpfb.pfb_fir_stream_tmajor.launches)
-    tpfb.pfb_fir_stream_tmajor(torch.ones(16 * 12), w, 8)  # the CPU launches nothing
+    # the CPU launches nothing
+    tpfb.pfb_fir_stream_tmajor(hist, (torch.ones(128), torch.ones(128)), w, 8)
     assert (tpfb.pfb_fir.launches, tpfb.pfb_fir_stream_tmajor.launches) == before
 
 
@@ -146,6 +206,68 @@ def test_streaming_continues_from_a_reference_state(m, p):
     assert _rel(got3.numpy(), want3) <= TOL
 
 
+@pytest.mark.parametrize("frames", [1, 3, 8, 11])
+def test_short_and_long_chunks_match_reference_outputs_and_states(frames):
+    """Chunks of K < P frames (the state a concatenation of the history's
+    tail and the chunk) and K >= P (a copy of the chunk's tail) over three
+    steps: outputs and states as the reference's."""
+
+    m, p, lead = 16, 8, (2,)
+    ref, ch = _pair(m, p)
+    rst, st = ref.init_state(lead), ch.init_state(lead)
+    for step in range(3):
+        x = _stream((*lead, frames * m), 50 + 7 * frames + step)
+        want, rst = ref.process(rst, jnp.asarray(x))
+        got, st = ch.process(st, x)
+        assert got.shape == want.shape == (*lead, frames, m)
+        assert _rel(got.numpy(), want) <= TOL
+        assert st.hist_re.shape == (*lead, p * m)
+        np.testing.assert_array_equal(st.hist_re.numpy(), np.asarray(rst.hist_re))
+        np.testing.assert_array_equal(st.hist_im.numpy(), np.asarray(rst.hist_im))
+
+
+@pytest.mark.parametrize("buffer", ["numpy", "tensor"])
+@pytest.mark.parametrize("frames", [3, 8])
+def test_refilled_input_buffer_leaves_the_state_alone(buffer, frames):
+    """A caller that refills one input buffer each step (K < P and K >= P):
+    the state it got back, and the next step's output, are the reference's."""
+
+    m, p, lead = 16, 8, (2,)
+    ref, ch = _pair(m, p)
+    rst, st = ref.init_state(lead), ch.init_state(lead)
+    br = np.zeros((*lead, frames * m), np.float32)
+    bi = np.zeros_like(br)
+    if buffer == "tensor":
+        br, bi = torch.from_numpy(br), torch.from_numpy(bi)
+    for step in range(3):
+        x = _stream((*lead, frames * m), 90 + 7 * frames + step)
+        br[...] = torch.from_numpy(x.real) if buffer == "tensor" else x.real
+        bi[...] = torch.from_numpy(x.imag) if buffer == "tensor" else x.imag
+        (wr, wi), rst = ref.process_split(rst, jnp.asarray(x.real), jnp.asarray(x.imag))
+        (gr, gi), st = ch.process_split(st, br, bi)
+        br[...] = 0.0  # the caller reuses its buffer before the next step
+        bi[...] = 0.0
+        assert _rel(gr.numpy(), wr) <= TOL and _rel(gi.numpy(), wi) <= TOL
+        np.testing.assert_array_equal(st.hist_re.numpy(), np.asarray(rst.hist_re))
+        np.testing.assert_array_equal(st.hist_im.numpy(), np.asarray(rst.hist_im))
+
+
+def test_chunk_slices_of_wider_rows_are_read_in_place():
+    """Planes that are slices of wider rows (a row stride above their
+    length) give what their contiguous copies give, and the state is the
+    chunk's tail."""
+
+    _, ch = _pair(16, 4)
+    rng = np.random.default_rng(3)
+    wide_r = torch.from_numpy(rng.standard_normal((3, 16 * 20)).astype(np.float32))
+    wide_i = torch.from_numpy(rng.standard_normal((3, 16 * 20)).astype(np.float32))
+    xr, xi = wide_r[:, 16:16 * 9], wide_i[:, 16:16 * 9]
+    (yr, yi), st = ch.process_split(ch.init_state((3,)), xr, xi)
+    (cr, ci), cst = ch.process_split(ch.init_state((3,)), xr.contiguous(), xi.contiguous())
+    assert torch.equal(yr, cr) and torch.equal(yi, ci)
+    assert torch.equal(st.hist_re, cst.hist_re) and torch.equal(st.hist_im, xi[:, -64:])
+
+
 def test_two_chunks_equal_one():
     _, ch = _pair(16, 8)
     x = _stream((2, 16 * 12), 4)
@@ -187,13 +309,16 @@ def test_oversampled_matches_reference(m, v):
     ch = tch.OversampledChannelizer(m, v, p, prototype=h, device=CPU)
     assert ch.m == m
     x1, x2 = _stream((2, 8 * m), m), _stream((2, 8 * m), m + 1)
-    want1, rst = ref.process(ref.init_state((2,)), jnp.asarray(x1))
-    want2, _ = ref.process(rst, jnp.asarray(x2))
-    got1, st = ch.process(ch.init_state((2,)), x1)
-    got2, _ = ch.process(st, x2)
+    want1, rst1 = ref.process(ref.init_state((2,)), jnp.asarray(x1))
+    want2, rst2 = ref.process(rst1, jnp.asarray(x2))
+    got1, st1 = ch.process(ch.init_state((2,)), x1)
+    got2, st2 = ch.process(st1, x2)
     assert got1.shape == want1.shape == (2, 8 * v, m)
     assert _rel(got1.numpy(), want1) <= TOL
     assert _rel(got2.numpy(), want2) <= TOL
+    for st, rst in ((st1, rst1), (st2, rst2)):
+        np.testing.assert_array_equal(st.hist_re.numpy(), np.asarray(rst.hist_re))
+        np.testing.assert_array_equal(st.hist_im.numpy(), np.asarray(rst.hist_im))
 
 
 def test_channelizer_errors():

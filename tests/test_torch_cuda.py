@@ -196,6 +196,32 @@ def test_packed_chain_kernel_matches_plain(cuda_device, h, slabs, b):
     assert pk.cfft_chain_tmajor_packed.launches == before + 1
 
 
+# B4 on the register-resident core at B1's launch shapes: (m, slabs, B, tb,
+# values a thread); B % tb != 0 puts a block's columns across two slabs
+PACKED_SHAPES = [(2048, 2, 2048, None, None), (2048, 2, 1001, None, None),
+                 (2048, 4, 12, None, None), (2048, 2, 250, 4, 16), (2048, 32, 37, 4, 32),
+                 (1024, 2, 100, 16, 32), (1024, 1, 1001, 8, 16), (96, 1, 7, None, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,slabs,b,tb,elems", PACKED_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])  # a buffer 4 bytes past an aligned start
+def test_packed_chain_kernel_straddling_odd_and_unaligned(cuda_device, m, slabs, b, tb, elems,
+                                                          offset):
+    plan = D._thin_plan(m)
+    assert pk.chain_core_tile(plan, cuda_device, tb=tb, elems=elems) is not None
+    flat = _planes(1, m * slabs * 2 * b + offset, m + b, cuda_device)[0].view(-1)
+    y = flat[offset:].view(m, slabs * 2 * b)
+    before = pk.cfft_chain_tmajor_packed.launches
+    got = pk.cfft_chain_tmajor_packed(plan, y, slabs=slabs, tb=tb, elems=elems)
+    _hold(got, pk.chain_tmajor_packed_plain(plan, y, slabs=slabs))
+    assert pk.cfft_chain_tmajor_packed.launches == before + 1
+    # the same stages as B1 on the unpacked planes
+    v = y.view(m, slabs, 2, b)
+    re, im = (v[:, :, j].reshape(m, slabs * b).contiguous() for j in (0, 1))
+    _hold(got, pk.cfft_chain_tmajor(plan, re, im, tb=tb, elems=elems))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h", [96, 960, 1024, 2048])
 @pytest.mark.parametrize("b", [1024, 1000, 1001])
@@ -238,9 +264,9 @@ def test_refused_real_launches_raise(cuda_device, monkeypatch):
     wrappers = (pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
                 pk.rfft_bwd_chain_tmajor_fused)
     before = [w.launches for w in wrappers]
-    monkeypatch.setattr(pk, "chain_tile", lambda *a, **k: 64)  # a tile plan gone wrong
     with pytest.raises(RuntimeError, match="packed chain kernel"):
-        pk.cfft_chain_tmajor_packed(plan, y)
+        pk.cfft_chain_tmajor_packed(plan, y, tb=64)  # more than one block holds
+    monkeypatch.setattr(pk, "chain_tile", lambda *a, **k: 64)  # a tile plan gone wrong
     with pytest.raises(RuntimeError, match="fused real forward kernel"):
         pk.rfft_chain_tmajor_fused(plan, y, tw)
     with pytest.raises(RuntimeError, match="fused real backward kernel"):
@@ -352,13 +378,55 @@ def test_pfb_kernel_matches_plain(cuda_device, m, p):
     w = torch.from_numpy(rng.standard_normal((p, m)).astype(np.float32)).to(cuda_device)
     rows = torch.from_numpy(
         rng.standard_normal((3, k + p + 1, m)).astype(np.float32)).to(cuda_device)
-    ext = torch.from_numpy(
-        rng.standard_normal((3, (p + k) * m)).astype(np.float32)).to(cuda_device)
+    hist, x = _stream_planes((3,), p * m, k * m, m + p, cuda_device)
     counts = (pfb.pfb_fir.launches, pfb.pfb_fir_stream_tmajor.launches)
     _hold((pfb.pfb_fir(rows, w, k),), (pfb.pfb_fir_plain(rows, w, k),))
-    _hold((pfb.pfb_fir_stream_tmajor(ext, w, k),), (pfb.pfb_fir_stream_tmajor_plain(ext, w, k),))
+    _hold(pfb.pfb_fir_stream_tmajor(hist, x, w, k),
+          pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k))
     assert (pfb.pfb_fir.launches, pfb.pfb_fir_stream_tmajor.launches) == (
         counts[0] + 1, counts[1] + 1)
+
+
+def _stream_planes(lead, hlen, xlen, seed, dev):
+    """Seeded (hist_re, hist_im), (x_re, x_im) on the card."""
+
+    rng = np.random.default_rng(seed)
+    return tuple(tuple(torch.from_numpy(rng.standard_normal((*lead, n)).astype(np.float32))
+                       .to(dev) for _ in range(2)) for n in (hlen, xlen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p,k,lead", [(4096, 8, 70, (2,)), (1000, 8, 3, (3,)),
+                                        (1024, 8, 1, (2, 2)), (96, 33, 40, (2,)),
+                                        (4096, 4, 300, ())])
+@pytest.mark.parametrize("hop", [0, 2])  # offset 0 and H = M/2
+def test_pfb_stream_map_one_launch_for_both_planes(cuda_device, m, p, k, lead, hop):
+    """B8's stream map: both planes in one launch, against its plain twin,
+    at K >= P and K < P, M not a multiple of the phase tile, P = 33 (the
+    plain loop) and the oversampled channelizer's offset H."""
+
+    w = _stream_planes((p,), m, 1, m + 3, cuda_device)[0][0]
+    hist, x = _stream_planes(lead, p * m, k * m, m + p + k, cuda_device)
+    off = m // hop if hop else 0
+    before = pfb.pfb_fir_stream_tmajor.launches
+    got = pfb.pfb_fir_stream_tmajor(hist, x, w, k, off)
+    assert pfb.pfb_fir_stream_tmajor.launches == before + 1
+    _hold(got, pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k, off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 3, 5, 6, 7, 8])
+def test_pfb_stream_map_every_tile_and_sliced_rows(cuda_device, warps):
+    """Every block size of the stream map but the default (tiles of 32 to
+    256 frames, ragged against K), on chunk planes that are slices of wider
+    rows (read in place, unaligned)."""
+
+    m, p, k = 1024, 8, 100
+    hist, wide = _stream_planes((3,), p * m, (k + 3) * m + 5, 11, cuda_device)
+    x = tuple(t[:, 5 + m: 5 + m + k * m] for t in wide)
+    w = _stream_planes((p,), m, 1, 12, cuda_device)[0][0]
+    got = pfb.pfb_fir_stream_tmajor(hist, x, w, k, warps=warps)
+    _hold(got, pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k))
 
 
 @pytest.mark.cuda
@@ -384,8 +452,18 @@ def test_fir_kernels_reject_bad_arguments(cuda_device):
         pfb.pfb_fir(torch.ones((64, 20), device=cuda_device).t(), w, 8)
     with pytest.raises(ValueError, match="K \\+ P - 1"):
         pfb.pfb_fir(torch.ones((10, 64), device=cuda_device), w, 8)
+    hist = (torch.zeros(256, device=cuda_device),) * 2
+    x = (torch.ones(64 * 8, device=cuda_device),) * 2
+    stream_before = pfb.pfb_fir_stream_tmajor.launches
     with pytest.raises(ValueError, match="weights on"):
-        pfb.pfb_fir_stream_tmajor(torch.ones((64 * 12,), device=cuda_device), w.cpu(), 8)
+        pfb.pfb_fir_stream_tmajor(hist, x, w.cpu(), 8)
+    with pytest.raises(ValueError, match="float32"):
+        pfb.pfb_fir_stream_tmajor(hist, tuple(t.double() for t in x), w, 8)
+    with pytest.raises(ValueError, match="device"):
+        pfb.pfb_fir_stream_tmajor((hist[0].cpu(), hist[1]), x, w, 8)
+    with pytest.raises(RuntimeError, match="stream map"):  # the kernel refuses 9 warps
+        pfb.pfb_fir_stream_tmajor(hist, x, w, 8, warps=9)
+    assert pfb.pfb_fir_stream_tmajor.launches == stream_before
     assert (ck.zconv_tmajor.launches, ck.zconv_stream.launches, pfb.pfb_fir.launches) == before
 
 
@@ -440,7 +518,7 @@ def test_channelizer_on_the_card_matches_oracle(cuda_device, m, p):
     y2, _ = ch.process(st, xt[:, k * m:])
     yall, _ = ch.process(ch.init_state((2,)), xt)
     torch.cuda.synchronize()
-    assert pfb.pfb_fir_stream_tmajor.launches == before + 6
+    assert pfb.pfb_fir_stream_tmajor.launches == before + 3  # one for both planes
     y = torch.cat([y1, y2], dim=-2)
     assert _rel(y, yall) <= 1e-6
     # oracle: the float64 polyphase sum, then an unscaled inverse DFT

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import pffft_tpu as pf
+from pffft_tpu import plan as rp
 from pffft_tpu.ops import dispatch as rdp
 from pffft_tpu.ops import pallas_fft as rpk
 from pffft_tpu_torch import plan as tp
@@ -30,6 +31,18 @@ COMBINE_TOL = 2e-6
 KERN2_TOL = 2e-6
 
 M = 128
+# The reference's tables are bit-exact only where its native long-double
+# planner loaded; its float64 fallback differs from the port's long-double
+# tables at exact zeros (cos(pi/2) = 6.1e-17 against -2.5e-20), by at most
+# 1.84e-16 here.  Unit-modulus entries: an absolute bound.
+TABLE_TOL = 1e-15
+
+
+def _assert_table_equal(port, ref):
+    if rp._native_planner() is not None:
+        assert np.array_equal(port.view(np.int32), ref.view(np.int32))
+    else:
+        assert np.abs(port.astype(np.complex128) - ref).max() <= TABLE_TOL
 
 
 def _planes(n, b, seed):
@@ -42,8 +55,8 @@ def _last_stages(m, r):
     ref = rdp._build_ksplit(m * r, m, r)[1]
     port = D._build_ksplit(m * r, m, r)[1]
     assert (port.l, port.r, port.m) == (ref.l, ref.r, ref.m) == (m, r, 1)
-    # W_N^{c*k} does not depend on how m was factored: bit-identical tables
-    assert np.array_equal(port.twiddle.view(np.int32), ref.twiddle.view(np.int32))
+    # W_N^{c*k} does not depend on how m was factored: the same table
+    _assert_table_equal(port.twiddle, ref.twiddle)
     return ref, port
 
 

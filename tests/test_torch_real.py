@@ -37,6 +37,11 @@ torch.set_num_threads(1)
 # the same stages, twiddles and split arithmetic in f32; XLA may fuse or
 # reorder a few sums
 KERNEL_TOL = 2e-6
+# the split twiddles against the reference's float64 fallback tables (used
+# where its native long-double planner did not load), which differ from the
+# port's long-double tables only at exact zeros (cos(pi/2) = 6.1e-17);
+# unit-modulus entries, so an absolute bound
+TABLE_TOL = 1e-15
 # the split steps: the same elementwise f32 expressions on both sides
 STEP_TOL = 2e-6
 # the public transform, relative to max|ref|: f32 FFTs of the same input
@@ -195,7 +200,11 @@ def test_split_twiddles_equal_reference_and_are_cached():
         wr, wi = tsplit.real_split_twiddle(plan, torch.device(CPU))
         ref = pf.new_setup(n, pf.REAL).real_twiddle
         assert wr.dtype == torch.float32 and wr.shape == (n // 2,)
-        assert np.array_equal(wr.numpy(), ref.real) and np.array_equal(wi.numpy(), ref.imag)
+        if rp._native_planner() is not None:  # the port mirrors its long-double tables
+            assert np.array_equal(wr.numpy(), ref.real) and np.array_equal(wi.numpy(), ref.imag)
+        else:  # the reference's float64 fallback differs at exact zeros
+            got = wr.numpy().astype(np.float64) + 1j * wi.numpy()
+            assert np.abs(got - ref).max() <= TABLE_TOL
         assert tsplit.real_split_twiddle(plan, torch.device(CPU))[0] is wr
 
 
