@@ -9,8 +9,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   2. build: nvcc compiles pffft_tpu_torch/csrc/*.cu (sm_90a), in parallel;
   3. each kernel against its plain version on the card, at the shapes the
      main paths give it and at small, non-power-of-two and ragged ones (B1
-     at its planner's launch shape and at every shape of its sweep; B7's
-     column map and its stream map, with misaligned rows and ragged tails);
+     at its planner's launch shape and at every shape of its sweep; B3 in
+     both directions, its backward as the pair and as the real signal, at
+     every shape of its sweep and on buffers 4 bytes off; B7's column map
+     and its stream map, with misaligned rows and ragged tails);
   4. the complex main path, ``transform_ordered_split_tmajor`` at the bench
      band shapes (64 MB per plane), forward and backward, checked against a
      complex128 oracle, the unscaled round trip and the 140 dB carrier
@@ -19,7 +21,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      shapes (a 64 MB [N, B] signal), checked the same way against a
      complex128 ``torch.fft.rfft``; the launch counts of each shape must
      match its route (the fused real kernel, or the packed chain + combine
-     + split kernel);
+     + split kernel; phase 13 checks that the fused route's backward runs
+     no interleave copy);
   6. FIR filtering by overlap-save: ``FastConv.apply_batched`` on a
      16-channel real stream [16, 2^22] (256 MB) with 64-, 1024- and
      4096-tap lowpass filters (the fused conv kernel's stream map at nfft
@@ -60,12 +63,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      per kernel and per FIR pipeline, beside the bound, the plain version
      and a library yardstick (torch.fft, conv1d); B1's launch-shape sweep
      (batch columns x values a thread, as kern2's pass A too), B4's (the
-     packed chain, at real N = 8192 and 131072) and B7's column-map sweep;
+     packed chain, at real N = 8192 and 131072), B3's (``real_fused_sweep``,
+     at real N = 2048 and 4096, both directions) and B7's column-map sweep;
      B8's stream map beside ``conv1d(groups=M)`` and the time-major copy,
      and its tile sweep; FastConv's stream map beside the composition of
      copies around the column map it replaces; B10 beside kern2 on the
      same planes, with sweeps of its batch columns and cluster size; blocks
-     per SM of B1, B9 and B10 from the planner and from the card;
+     per SM of B1, B3, B9 and B10 from the planner and from the card;
  14. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
@@ -223,6 +227,20 @@ def real_tw(h: int):
                                 torch.device("cuda"))
 
 
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Replace ``module.name`` by a wrapper that records its calls; yields
+    the list of calls."""
+
+    calls = []
+    fn = getattr(module, name)
+    setattr(module, name, lambda *a, **k: (calls.append(1), fn(*a, **k))[1])
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def reset_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
@@ -255,9 +273,10 @@ def phase_build():
     secs = _build.build()
     for name in _build.SOURCES:
         emit({"phase": "build", "source": name, "ptxas": _build.ptxas_report(name)})
-    spills = {fn: r for fn, r in _build.ptxas_report("chain_packed").items()
-              if r.get("spill_stores") or r.get("spill_loads")}
-    check(not spills, f"B4 (chain_packed.cu) spills: {spills}")
+    for name in ("chain_packed", "real_fused"):
+        spills = {fn: r for fn, r in _build.ptxas_report(name).items()
+                  if r.get("spill_stores") or r.get("spill_loads")}
+        check(not spills, f"{name}.cu spills: {spills}")
     emit({"phase": "build", "seconds": secs})
 
 
@@ -344,16 +363,21 @@ def phase_kernels(gen):
               "tile": pk._core_launch(plan, dev, "packed chain kernel", tb, elems)._asdict()},
              dirs=(False,))  # a forward-only kernel: the real forward's input
 
-    def fused_case(plan, h, b):
+    def fused_case(plan, h, b, tb=None, elems=None, offset=0):
+        # the backward writes the real [N, B] signal; offset as for
+        # packed_case
         tw = real_tw(h)
-        y = planes(h, 2 * b, gen)[0]
-        sr, si = planes(h, b, gen)
+        y = planes(1, 2 * h * b + offset, gen)[0].view(-1)[offset:].view(h, 2 * b)
+        sr, si = (p.view(-1)[offset:].view(h, b) for p in planes(1, h * b + offset, gen))
+        kw = dict(tb=tb, elems=elems)
+        case = {"h": h, "b": b, "factors": list(plan.factors), "offset": offset,
+                "tile": pk._core_launch(plan, dev, "fused real kernel", tb, elems)._asdict()}
         hold("real_fused",
-             lambda bwd: (pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw) if bwd
-                          else pk.rfft_chain_tmajor_fused(plan, y, tw)),
-             lambda bwd: (pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw) if bwd
+             lambda bwd: ((pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw, **kw),) if bwd
+                          else pk.rfft_chain_tmajor_fused(plan, y, tw, **kw)),
+             lambda bwd: ((pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw),) if bwd
                           else pk.rfft_chain_tmajor_fused_plain(plan, y, tw)),
-             {"h": h, "b": b, "factors": list(plan.factors)})
+             case)
 
     def split_case(h, b):
         tw = real_tw(h)
@@ -383,6 +407,8 @@ def phase_kernels(gen):
         for h in (96, 960):
             fused_case(D._thin_plan(h), h, b)
             packed_case(D._thin_plan(h), h, b, 1)
+        for h in (16, 1920):
+            fused_case(D._thin_plan(h), h, b)
             split_case(h, b)
         packed_case(D._thin_plan(2048), 2048, b, 2)
         split_case(2400, b)
@@ -390,6 +416,14 @@ def phase_kernels(gen):
         if pk.chain_core_tile(D._thin_plan(2048), dev, tb=tb, elems=el) is not None:
             for slabs, b, off in ((1, 1001, 1), (2, 250, 0), (2, 1001, 1), (32, 37, 1)):
                 packed_case(D._thin_plan(2048), 2048, b, slabs, tb, el, off)
+    # B3 at every launch shape of its sweep (B1's), B % tb != 0, odd B and
+    # buffers 4 bytes past an aligned start
+    for h in (1024, 2048):
+        for tb, el in CHAIN_SWEEP_SHAPES:
+            if pk.chain_core_tile(D._thin_plan(h), dev, tb=tb, elems=el) is not None:
+                for b, off in ((1001, 1), (7, 0)):
+                    fused_case(D._thin_plan(h), h, b, tb, el, off)
+
     def conv_case(n, b, cplx):
         plan = D._thin_plan(n)
         re, im = planes(n, b, gen)
@@ -743,16 +777,31 @@ def phase_real_timing(gen, per_shape):
         y = x.view(h, 2 * b)
         if engine == "chain":
             cplan = D._chain_plan(plan, dev)
+            # the public backward: one B3 launch, which writes the [N, B]
+            # signal itself, and no interleave copy
+            with recording(S, "interleave_to_real_split_tmajor") as inter:
+                c0 = counts()
+                pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD)
+                bwd_launches = launched(counts(), c0)
+            check(bwd_launches == {"rfft_bwd_chain_tmajor_fused": 1} and not inter,
+                  f"real N={n}: backward launches {bwd_launches}, {len(inter)} interleaves")
             k_f = time_ms(lambda: pk.rfft_chain_tmajor_fused(cplan, y, tw))
             k_b = time_ms(lambda: pk.rfft_bwd_chain_tmajor_fused(cplan, yr, yi, tw))
             p_f = time_ms(lambda: pk.rfft_chain_tmajor_fused_plain(cplan, y, tw))
             p_b = time_ms(lambda: pk.rfft_bwd_chain_tmajor_fused_plain(cplan, yr, yi, tw))
-            rec.update(fused_fwd_ms=k_f, fused_bwd_ms=k_b, plain_fwd_ms=p_f,
-                       plain_bwd_ms=p_b)
+            rec.update(fused_fwd_ms=k_f, fused_bwd_ms=k_b,
+                       plain_fwd_ms=p_f, plain_bwd_ms=p_b, bwd_launches=bwd_launches,
+                       bwd_interleaves=len(inter))
             if n == 2048:
-                rows["real_fused"] = dict(ms=k_f, bwd_ms=k_b, plain_ms=p_f,
-                                          plain_bwd_ms=p_b, library_ms=lib_fwd,
-                                          shape=[n, b], bound_ms=bnd[0], bound_by=bnd[1])
+                tile = pk.chain_core_tile(cplan, dev)
+                rows["real_fused"] = dict(
+                    ms=k_f, bwd_ms=k_b, plain_ms=p_f, plain_bwd_ms=p_b,
+                    library_ms=lib_fwd, library_bwd_ms=lib_bwd, shape=[n, b],
+                    bound_ms=bnd[0], bound_by=bnd[1], tile=tile._asdict(),
+                    card_blocks_per_sm={
+                        "fwd": pk.rfft_fused_occupancy(h, tile, dev),
+                        "bwd": pk.rfft_fused_occupancy(h, tile, dev, backward=True)},
+                    ptxas=_build.ptxas_report("real_fused"))
         else:
             m, r = D._kern2_conf(h, dev)
             mplan, last = D._build_ksplit(h, m, r)
@@ -831,6 +880,38 @@ def phase_real_timing(gen, per_shape):
           "public_call_us": (time.perf_counter() - t0) / calls * 1e6,
           "wrappers_event_us": wrappers_ms * 1e3})
     return rows
+
+
+def phase_real_fused_sweep(gen):
+    """B3's launch shapes (batch columns x values a thread) at the fused
+    route's real band shapes, H = 1024 and 2048, both directions, beside
+    the planner's default; blocks per SM by the planner and the card, and the
+    instance's ptxas registers and spills."""
+
+    dev = torch.device("cuda")
+    for n, b in REAL_BAND[:2]:
+        h = n // 2
+        plan = D._thin_plan(h)
+        tw = S.real_split_twiddle(pt.new_setup(n, pt.REAL), dev)
+        y = torch.randn((h, 2 * b), generator=gen, device="cuda")
+        sr, si = planes(h, b, gen)
+        default = pk.chain_core_tile(plan, dev)
+        for tb, el in CHAIN_SWEEP_SHAPES:
+            t = pk.chain_core_tile(plan, dev, tb=tb, elems=el)
+            if t is None:
+                continue
+            kw = dict(tb=tb, elems=el)
+            emit({"phase": "real_fused_sweep", "n": n, "b": b, "h": h, "tile": t._asdict(),
+                  "default": t == default,
+                  "card_blocks_per_sm": {
+                      "fwd": pk.rfft_fused_occupancy(h, t, dev),
+                      "bwd": pk.rfft_fused_occupancy(h, t, dev, backward=True)},
+                  "ptxas": {"fwd": ptxas_of("real_fused", f"rfft_fused_fwdILi{el}E"),
+                            "bwd": ptxas_of("real_fused", f"rfft_fused_bwdILi{el}E")},
+                  "fwd_ms": time_ms(lambda: pk.rfft_chain_tmajor_fused(plan, y, tw, **kw)),
+                  "bwd_ms": time_ms(lambda: pk.rfft_bwd_chain_tmajor_fused(
+                      plan, sr, si, tw, **kw))})
+        del y, sr, si
 
 
 def phase_timing(gen, per_shape):
@@ -1820,6 +1901,7 @@ def main() -> int:
     phase_f64(gen)
     rows = phase_timing(gen, per_shape)
     rows.update(phase_real_timing(gen, real_shapes))
+    phase_real_fused_sweep(gen)
     rows.update(phase_fir_timing(gen, conv_runs, chan_runs))
     rows.update(phase_bmajor_timing(gen, bm_shapes, bmr_shapes))
     rows.update(phase_ksplit2_timing(gen))
@@ -1889,7 +1971,9 @@ def main() -> int:
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": row["shape"],
                         **{k: row[k] for k in ("library", "tile", "card_blocks_per_sm",
-                                               "stream_ms", "stream_bound_ms") if k in row}})
+                                               "stream_ms", "stream_bound_ms", "bwd_ms",
+                                               "plain_bwd_ms",
+                                               "library_bwd_ms", "ptxas") if k in row}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

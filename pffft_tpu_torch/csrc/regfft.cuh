@@ -1,7 +1,8 @@
 // A register-resident Stockham FFT core for Hopper, shared by the batch-major
 // row FFT (fused2.cu, B9), the clustered one-pass ksplit (ksplit2.cu, B10),
 // the time-major chain (stockham_chain.cu, B1), the chain on a packed input
-// (chain_packed.cu, B4) and the fused block convolution (conv_fused.cu, B7).
+// (chain_packed.cu, B4), the fused real transform (real_fused.cu, B3) and the
+// fused block convolution (conv_fused.cu, B7).
 //
 // A block runs F independent length-n transforms ("lanes") with the stages
 // of one thin plan (radix 16/8/4/2, then 5 and 3).  Within a stage every
@@ -15,7 +16,7 @@
 // and writes its last stage's outputs once (to device memory, or to shared
 // memory where the caller needs them there).
 //
-// Stockham indexing, as chain.cuh and the plain version `_stage_values`:
+// Stockham indexing, as the plain version `_stage_values`:
 // butterfly b = k*m + j of stage (l, R, m) reads element (k*R + i)*m + j and
 // writes element (t*l + k)*m + j = t*(l*m) + b, t in [0, R).
 //

@@ -504,10 +504,9 @@ def _real_backward_tmajor(plan: Plan, sr: torch.Tensor, si: torch.Tensor):
     batch = sr.shape[1]
     fused = _dispatch.fused_real_bwd_route(plan, batch, sr.device)
     if fused is not None:
-        wr, wi = fused(sr, si)
-    else:
-        zr, zi = _split_step(plan, True, True)(sr, si)
-        wr, wi = _dispatch.cfft_dispatch(plan, zr, zi, backward=True)
+        return fused(sr, si)  # the kernel writes [N, B] itself
+    zr, zi = _split_step(plan, True, True)(sr, si)
+    wr, wi = _dispatch.cfft_dispatch(plan, zr, zi, backward=True)
     return _split.interleave_to_real_split_tmajor(wr, wi)
 
 

@@ -663,8 +663,9 @@ def fused_real_fwd_route(plan: _plan.Plan, batch: int, device=None):
 
 
 def fused_real_bwd_route(plan: _plan.Plan, batch: int, device=None):
-    """Callable (sr, si) -> the planar pre-interleave pair through the
-    fused real kernel when the real plan's engine is the chain, else None."""
+    """Callable (sr, si) -> the real [N, B] signal through the fused real
+    kernel, which writes it directly (no interleave copy), when the real
+    plan's engine is the chain, else None."""
 
     if not _real_f32(plan) or select_engine(plan, batch, True, device) != "chain":
         return None

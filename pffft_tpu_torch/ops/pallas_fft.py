@@ -14,7 +14,8 @@ CUDA C++ under ``pffft_tpu_torch/csrc/``:
     shape
   * ``rfft_chain_tmajor_fused`` / ``rfft_bwd_chain_tmajor_fused`` ->
     ``real_fused.cu`` (``rfft_pallas_tmajor_fused`` /
-    ``rfft_bwd_pallas_tmajor_fused``)
+    ``rfft_bwd_pallas_tmajor_fused``), on ``regfft.cuh`` with B1's launch
+    shape; the backward writes the real [N, B] signal directly
   * ``real_split_tmajor``   -> ``real_split.cu`` (``real_split_tmajor_pallas``)
 
 ``cfft_pallas`` is the batch-major convenience: one transpose each way
@@ -71,6 +72,7 @@ __all__ = [
     "cfft_chain_tmajor_packed",
     "rfft_chain_tmajor_fused",
     "rfft_bwd_chain_tmajor_fused",
+    "rfft_fused_occupancy",
     "real_split_tmajor",
     "chain_tmajor_plain",
     "combine_tmajor_plain",
@@ -86,10 +88,9 @@ __all__ = [
 CHAIN_RADICES = (2, 3, 4, 5, 8, 16)
 COMBINE_RADICES = (2, 3, 4, 5, 8, 16, 32)
 
-# Tile limits of csrc/chain.cuh (kElems, kMaxThreads): a thread holds at
-# most 32 complex values across a stage barrier, a block has at most 512
-# threads.  They also fix the chain's coverage (chain_tile), which the
-# register-resident B1 (chain_core_tile) keeps.
+# The chain's coverage (chain_tile): a thread holds at most 32 complex
+# values a stage, a block has at most 512 threads.  The kernels on the
+# register-resident core (chain_core_tile) keep this rule.
 _CHAIN_ELEMS = 32
 _CHAIN_MAX_THREADS = 512
 # Shared memory a block may use on sm_90 (232,448 bytes = 227 KB), the
@@ -310,10 +311,12 @@ def rfft_chain_tmajor_fused_plain(plan: _plan.Plan, y, real_twiddle):
 
 
 def rfft_bwd_chain_tmajor_fused_plain(plan: _plan.Plan, sr, si, real_twiddle):
-    """Plain PyTorch version of the fused real backward kernel."""
+    """Plain PyTorch version of the fused real backward kernel: the
+    pre-interleave pair, interleaved into the real [N, B] signal."""
 
     zr, zi = _split.real_backward_split_planar_tmajor_flat(sr, si, real_twiddle)
-    return chain_tmajor_plain(plan, zr, zi, backward=True)
+    wr, wi = chain_tmajor_plain(plan, zr, zi, backward=True)
+    return _split.interleave_to_real_split_tmajor(wr, wi)
 
 
 # ---------------------------------------------------------------------------
@@ -424,10 +427,9 @@ def core_pad(p: int, shift: int) -> int:
 
 def tile_elems(radices: Sequence[int] = (2,),
                device: Optional[torch.device] = None) -> int:
-    """Complex values one block of a csrc/chain.cuh kernel holds with stage
-    ``radices``: the block's registers (kMaxThreads threads x kElems
-    values, rounded down to whole butterflies per radix), capped by one
-    float2 buffer in shared memory."""
+    """Complex values one block holds under the chain's coverage rule with
+    stage ``radices``: 512 threads x 32 values, rounded down to whole
+    butterflies per radix, capped by one float2 buffer in shared memory."""
 
     per_thread = min(r * (_CHAIN_ELEMS // r) for r in radices)
     return min(_CHAIN_MAX_THREADS * per_thread, smem_per_block(device) // 8)
@@ -435,11 +437,11 @@ def tile_elems(radices: Sequence[int] = (2,),
 
 def chain_tile(n: int, radices: Sequence[int] = (2,),
                device: Optional[torch.device] = None) -> Optional[int]:
-    """Batch columns per block of the csrc/chain.cuh kernel (B3) for
-    engine length ``n`` with stage ``radices`` (a power of two, at most
-    32), or None when no tile [n, tb] of at least 8 columns fits
-    :func:`tile_elems`.  It is also the chain's coverage rule, which B1's
-    planner (:func:`chain_core_tile`) keeps."""
+    """The chain's coverage rule: batch columns per block for engine length
+    ``n`` with stage ``radices`` (a power of two, at most 32), or None when
+    no tile [n, tb] of at least 8 columns fits :func:`tile_elems`.  The
+    planner of the core kernels (:func:`chain_core_tile`: B1, B3, B4)
+    serves the lengths it covers."""
 
     cap = tile_elems(radices, device)
     tb = _CHAIN_MAX_TB
@@ -541,10 +543,9 @@ _SIGNATURES = {
     "pf_combine_tmajor": ("combine", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pf_stream_copy": ("stream_copy", [_P, _P, _P, _P, ctypes.c_longlong, _I, _P]),
     "pf_chain_tmajor_packed": ("chain_packed", [_P] * 5 + [_I] * 9 + [_P]),
-    "pf_rfft_tmajor_fused_fwd": ("real_fused",
-                                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "pf_rfft_tmajor_fused_bwd": ("real_fused",
-                                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "pf_rfft_tmajor_fused_fwd": ("real_fused", [_P] * 7 + [_I] * 8 + [_P]),
+    "pf_rfft_tmajor_fused_bwd": ("real_fused", [_P] * 7 + [_I] * 8 + [_P]),
+    "pf_rfft_fused_occupancy": ("real_fused", [_I] * 7 + [_P]),
     "pf_real_split_tmajor": ("real_split", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # ops/fused_stage.cfft_fused2, ops/real_kernel.real_split
     "pf_fused2": ("fused2", [_P] * 6 + [_I] * 13 + [_P]),
@@ -560,8 +561,6 @@ _SIGNATURES = {
     "pf_ksplit2_tmajor": ("ksplit2", [_P] * 6 + [_I, _P] + [_I] * 9 + [_P]),
     "pf_ksplit2_occupancy": ("ksplit2", [_I] * 6 + [_P]),
 }
-# Sources built on csrc/chain.cuh, whose tile limits chain_tile plans with.
-_CHAIN_SOURCES = ("real_fused",)
 
 
 @functools.lru_cache(maxsize=None)
@@ -574,11 +573,6 @@ def _kernel(fname: str, library: Optional[str] = None):
     fn = getattr(lib, fname)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    if name in _CHAIN_SOURCES:
-        limits = (lib.pf_chain_elems_per_thread(), lib.pf_chain_max_threads())
-        if limits != (_CHAIN_ELEMS, _CHAIN_MAX_THREADS):
-            raise RuntimeError(f"{name}.cu tile limits {limits} differ from "
-                               f"{(_CHAIN_ELEMS, _CHAIN_MAX_THREADS)} planned with here")
     return lib, fn
 
 
@@ -646,17 +640,6 @@ def _chain_plan_fits(plan: _plan.Plan, n: int) -> None:
         raise ValueError(f"data length {n} != plan engine length {plan.engine_n}")
 
 
-def _chain_tb(plan: _plan.Plan, device: torch.device) -> int:
-    """The chain tile's batch columns: the widest that fits (ValueError
-    when none does)."""
-
-    n = plan.engine_n
-    tb = chain_tile(n, [st.r for st in plan.stages if st.r != 1], device)
-    if tb is None:
-        raise ValueError(f"N={n} exceeds the chain kernel's tile limits")
-    return tb
-
-
 def _check_real_twiddle(real_twiddle, h: int, device: torch.device) -> None:
     wr, wi = real_twiddle
     if wr.shape != (h,) or wi.shape != (h,):
@@ -668,7 +651,7 @@ def _check_real_twiddle(real_twiddle, h: int, device: torch.device) -> None:
 
 def _core_launch(plan: _plan.Plan, device: torch.device, what: str, tb: Optional[int],
                  elems: Optional[int]) -> ChainCoreTile:
-    """The column launch shape of B1 (and of B7's column map): the
+    """The column launch shape of B1 (and of B3, B4 and B7's column map): the
     planner's at the caller's ``tb`` / ``elems``, or that shape even where
     no block holds it or the chain does not cover the plan (the kernel then
     refuses what it cannot run, and the wrapper raises).  ValueError where
@@ -837,12 +820,15 @@ def cfft_chain_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *, slabs: int = 
 cfft_chain_tmajor_packed.launches = 0
 
 
-def rfft_chain_tmajor_fused(plan: _plan.Plan, y: torch.Tensor, real_twiddle):
-    """ONE-pass real forward: packed [H, 2B] buffer (the free
+def rfft_chain_tmajor_fused(plan: _plan.Plan, y: torch.Tensor, real_twiddle, *,
+                            tb: Optional[int] = None, elems: Optional[int] = None):
+    """ONE-pass real forward (B3): packed [H, 2B] buffer (the free
     ``x.reshape(H, 2B)`` of a real [N, B] signal) -> the packed real
     spectrum planes ([H, B]) x2, bin0 = DC + i*Nyquist.
 
-    ``plan`` is the length-H chain plan."""
+    ``plan`` is the length-H chain plan; the kernel runs the thin chain of
+    length H at the launch shape of :func:`chain_core_tile` (``tb`` and
+    ``elems`` override it, for measurement only)."""
 
     if y.ndim != 2 or y.shape[1] % 2:
         raise ValueError(f"packed real input must be [H, 2B]; got {tuple(y.shape)}")
@@ -853,16 +839,18 @@ def rfft_chain_tmajor_fused(plan: _plan.Plan, y: torch.Tensor, real_twiddle):
         return rfft_chain_tmajor_fused_plain(plan, y, real_twiddle)
     wr, wi = real_twiddle
     _check_cuda(y, wr, wi)
-    tb = _chain_tb(plan, y.device)
+    t = _core_launch(plan, y.device, "fused real forward kernel", tb, elems)
     ore = torch.empty((h, b), dtype=y.dtype, device=y.device)
     oim = torch.empty_like(ore)
     if b == 0:
         return ore, oim
     lib, fn = _kernel("pf_rfft_tmajor_fused_fwd")
-    tw, desc, count = _chain_tables(plan.stages, y.device)
+    tw, desc, count = _core_tables(thin_plan(h).stages, y.device)
     err = fn(y.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(), wr.data_ptr(),
-             wi.data_ptr(), desc, count, h, b, tb, y.device.index or 0, _stream(y))
-    _build.check(lib, err, f"fused real forward kernel (H={h}, B={b}, tb={tb})")
+             wi.data_ptr(), desc, count, h, b, t.tb, t.threads, t.elems, t.shift,
+             y.device.index or 0, _stream(y))
+    _build.check(lib, err, f"fused real forward kernel (H={h}, B={b}, tb={t.tb}, "
+                           f"threads={t.threads}, elems={t.elems})")
     rfft_chain_tmajor_fused.launches += 1
     return ore, oim
 
@@ -871,11 +859,14 @@ rfft_chain_tmajor_fused.launches = 0
 
 
 def rfft_bwd_chain_tmajor_fused(plan: _plan.Plan, sr: torch.Tensor, si: torch.Tensor,
-                                real_twiddle):
-    """ONE-pass real backward core: packed spectrum planes [H, B] x2 ->
-    the planar pre-interleave pair ([H, B]) x2 (REAL_PREPROCESS, then the
-    backward length-H chain; the caller interleaves to [N, B]).  Unscaled:
-    with the forward it gives 2H = N times the signal."""
+                                real_twiddle, *, tb: Optional[int] = None,
+                                elems: Optional[int] = None):
+    """ONE-pass real backward (B3): packed spectrum planes [H, B] x2 ->
+    the real [N, B] signal (REAL_PREPROCESS, then the backward length-H
+    chain, whose pre-interleave pair the kernel writes as the two halves of
+    one [H, 2B] buffer, so no interleave copy follows).  Unscaled: with the
+    forward it gives 2H = N times the signal.  Launch shape as
+    :func:`rfft_chain_tmajor_fused`."""
 
     h, b = _planes(sr, si)
     _chain_plan_fits(plan, h)
@@ -884,21 +875,36 @@ def rfft_bwd_chain_tmajor_fused(plan: _plan.Plan, sr: torch.Tensor, si: torch.Te
         return rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, real_twiddle)
     wr, wi = real_twiddle
     _check_cuda(sr, si, wr, wi)
-    tb = _chain_tb(plan, sr.device)
-    ore, oim = torch.empty_like(sr), torch.empty_like(si)
+    t = _core_launch(plan, sr.device, "fused real backward kernel", tb, elems)
+    out = torch.empty((2 * h, b), dtype=sr.dtype, device=sr.device)
     if b == 0:
-        return ore, oim
+        return out
     lib, fn = _kernel("pf_rfft_tmajor_fused_bwd")
-    tw, desc, count = _chain_tables(plan.stages, sr.device)
-    err = fn(sr.data_ptr(), si.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
-             wr.data_ptr(), wi.data_ptr(), desc, count, h, b, tb, sr.device.index or 0,
-             _stream(sr))
-    _build.check(lib, err, f"fused real backward kernel (H={h}, B={b}, tb={tb})")
+    tw, desc, count = _core_tables(thin_plan(h).stages, sr.device)
+    err = fn(sr.data_ptr(), si.data_ptr(), out.data_ptr(), tw.data_ptr(), wr.data_ptr(),
+             wi.data_ptr(), desc, count, h, b, t.tb, t.threads, t.elems, t.shift,
+             sr.device.index or 0, _stream(sr))
+    _build.check(lib, err, f"fused real backward kernel (H={h}, B={b}, tb={t.tb}, "
+                           f"threads={t.threads}, elems={t.elems})")
     rfft_bwd_chain_tmajor_fused.launches += 1
-    return ore, oim
+    return out
 
 
 rfft_bwd_chain_tmajor_fused.launches = 0
+
+
+def rfft_fused_occupancy(h: int, tile: ChainCoreTile, device: torch.device, *,
+                         backward: bool = False) -> int:
+    """Blocks of B3 (forward, or ``backward``) one SM holds at ``tile`` for
+    length H, from the card's occupancy calculator (registers as ptxas
+    gave them)."""
+
+    lib, fn = _kernel("pf_rfft_fused_occupancy")
+    out = ctypes.c_int()
+    err = fn(h, tile.tb, tile.threads, tile.elems, tile.shift, int(backward),
+             device.index or 0, ctypes.byref(out))
+    _build.check(lib, err, f"fused real kernel occupancy (H={h}, tb={tile.tb})")
+    return out.value
 
 
 def real_split_tmajor(zr: torch.Tensor, zi: torch.Tensor, real_twiddle, *,

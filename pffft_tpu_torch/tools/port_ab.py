@@ -16,9 +16,10 @@ GROUPS (comma-separated; all by default):
   * ``conv``: the fused block convolution's column map (B7) at (2048,
     32736); FastConv ``apply_batched`` on a [16, 2^22] real stream at 64,
     1024 and 4096 taps;
-  * ``real``: the fused real forward (B3) at real (2048, 8192), the packed
-    chain (B4) at real (8192, 2048), and the public real time-major forward
-    at the real band shapes N = 8192 .. 131072 (N*B = 2^24);
+  * ``real``: the fused real transform (B3) at real (2048, 8192) and (4096,
+    4096), forward and backward, the packed chain (B4) at real (8192,
+    2048), the public real time-major forward and backward at N = 2048 and
+    4096 (B3's route) and the forward at N = 8192 .. 131072 (N*B = 2^24);
   * ``chan``: a channelizer step (``process_split_tmajor``) at (M, P,
     batch, frames) = (4096, 8, 4, 1024) and (1024, 8, 16, 1024).
 
@@ -101,13 +102,20 @@ def main() -> int:
             out[f"fastconv_f{taps}_ms"] = time_ms(lambda: fc.apply_batched(x), inner=2)
         del x
     if "real" in groups:
-        n, b = 2048, 8192
-        rplan = pt.new_setup(n, pt.REAL)
-        y = rnd(n // 2, 2 * b)
-        tw = S.real_split_twiddle(rplan, dev)
-        cplan = D._chain_plan(rplan, dev)
-        out["real_fused_2048x8192_ms"] = time_ms(
-            lambda: pk.rfft_chain_tmajor_fused(cplan, y, tw))
+        for n, b in ((2048, 8192), (4096, 4096)):
+            rplan = pt.new_setup(n, pt.REAL)
+            y = rnd(n // 2, 2 * b)
+            sr, si = rnd(n // 2, b), rnd(n // 2, b)
+            tw = S.real_split_twiddle(rplan, dev)
+            cplan = D._chain_plan(rplan, dev)
+            out[f"real_fused_{n}x{b}_ms"] = time_ms(
+                lambda: pk.rfft_chain_tmajor_fused(cplan, y, tw))
+            out[f"real_fused_bwd_{n}x{b}_ms"] = time_ms(
+                lambda: pk.rfft_bwd_chain_tmajor_fused(cplan, sr, si, tw))
+            x = y.view(n, b)
+            out[f"real_fwd_{n}_ms"] = time_ms(lambda: pt.transform_ordered_split_tmajor(rplan, x))
+            out[f"real_bwd_{n}_ms"] = time_ms(
+                lambda: pt.transform_ordered_split_tmajor(rplan, (sr, si), pt.BACKWARD))
         n, b = 8192, 2048
         h = n // 2
         m, r = D._kern2_conf(h, dev)
@@ -115,7 +123,7 @@ def main() -> int:
         yw = rnd(m, r * 2 * b)
         out["chain_packed_8192x2048_ms"] = time_ms(
             lambda: pk.cfft_chain_tmajor_packed(mplan, yw, slabs=r))
-        del y, yw
+        del y, yw, sr, si
         for n in (8192, 16384, 32768, 65536, 131072):
             rplan = pt.new_setup(n, pt.REAL)
             x = rnd(n, (1 << 24) // n)

@@ -222,21 +222,37 @@ def test_packed_chain_kernel_straddling_odd_and_unaligned(cuda_device, m, slabs,
     _hold(got, pk.cfft_chain_tmajor(plan, re, im, tb=tb, elems=elems))
 
 
+# B3's launch-shape overrides: batch columns x values a thread (those a
+# block holds at each H)
+FUSED_REAL_SHAPES = [(tb, el) for tb in (4, 8, 16, 32) for el in (16, 32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [96, 960, 1024, 2048])
-@pytest.mark.parametrize("b", [1024, 1000, 1001])
+@pytest.mark.parametrize("h", [16, 96, 960, 1024, 1920, 2048])
+@pytest.mark.parametrize("b", [1024, 1000, 1001, 7])
 def test_fused_real_kernel_matches_plain(cuda_device, h, b):
+    """B3 in both directions (the backward writes the real signal), at the
+    planner's launch shape and every override a block holds, and on buffers
+    4 bytes past an aligned start."""
+
     plan = D._thin_plan(h)
     tw = _real_tw(h, cuda_device)
-    y = _planes(h, 2 * b, h, cuda_device)[0]
-    sr, si = _planes(h, b, h + 1, cuda_device)
-    counts = (pk.rfft_chain_tmajor_fused.launches, pk.rfft_bwd_chain_tmajor_fused.launches)
-    _hold(pk.rfft_chain_tmajor_fused(plan, y, tw),
-          pk.rfft_chain_tmajor_fused_plain(plan, y, tw))
-    _hold(pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw),
-          pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw))
-    assert (pk.rfft_chain_tmajor_fused.launches,
-            pk.rfft_bwd_chain_tmajor_fused.launches) == (counts[0] + 1, counts[1] + 1)
+    flat = _planes(1, 2 * h * b + 1, h, cuda_device)[0].view(-1)
+    sflat = _planes(2, h * b + 1, h + 1, cuda_device)
+    shapes = [(None, None)] + [(tb, el) for tb, el in FUSED_REAL_SHAPES
+                               if pk.chain_core_tile(plan, cuda_device, tb=tb, elems=el)]
+    for off in (0, 1):
+        y = flat[off:off + 2 * h * b].view(h, 2 * b)
+        sr, si = (p.view(-1)[off:off + h * b].view(h, b) for p in sflat)
+        for tb, el in shapes if off == 0 else shapes[:1]:
+            counts = (pk.rfft_chain_tmajor_fused.launches,
+                      pk.rfft_bwd_chain_tmajor_fused.launches)
+            _hold(pk.rfft_chain_tmajor_fused(plan, y, tw, tb=tb, elems=el),
+                  pk.rfft_chain_tmajor_fused_plain(plan, y, tw))
+            _hold([pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw, tb=tb, elems=el)],
+                  [pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw)])
+            assert (pk.rfft_chain_tmajor_fused.launches,
+                    pk.rfft_bwd_chain_tmajor_fused.launches) == (counts[0] + 1, counts[1] + 1)
 
 
 @pytest.mark.cuda
@@ -253,7 +269,7 @@ def test_split_kernel_matches_plain(cuda_device, h, b):
 
 
 @pytest.mark.cuda
-def test_refused_real_launches_raise(cuda_device, monkeypatch):
+def test_refused_real_launches_raise(cuda_device):
     """Tiles too large for one block are refused before launch and raise;
     the counters do not move."""
 
@@ -264,13 +280,13 @@ def test_refused_real_launches_raise(cuda_device, monkeypatch):
     wrappers = (pk.cfft_chain_tmajor_packed, pk.rfft_chain_tmajor_fused,
                 pk.rfft_bwd_chain_tmajor_fused)
     before = [w.launches for w in wrappers]
+    # more than one block holds
     with pytest.raises(RuntimeError, match="packed chain kernel"):
-        pk.cfft_chain_tmajor_packed(plan, y, tb=64)  # more than one block holds
-    monkeypatch.setattr(pk, "chain_tile", lambda *a, **k: 64)  # a tile plan gone wrong
+        pk.cfft_chain_tmajor_packed(plan, y, tb=64)
     with pytest.raises(RuntimeError, match="fused real forward kernel"):
-        pk.rfft_chain_tmajor_fused(plan, y, tw)
+        pk.rfft_chain_tmajor_fused(plan, y, tw, tb=64)
     with pytest.raises(RuntimeError, match="fused real backward kernel"):
-        pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw)
+        pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw, tb=64)
     assert [w.launches for w in wrappers] == before
     with pytest.raises(ValueError, match="contiguous float32"):
         pk.real_split_tmajor(sr.t(), si.t(), _real_tw(64, cuda_device))

@@ -104,7 +104,33 @@ def test_plain_fused_real_matches_pallas_interpret(h):
                                               rplan.real_twiddle, tb=TB, interpret=True)
     got = pk.rfft_bwd_chain_tmajor_fused_plain(port_chain, torch.from_numpy(sr),
                                                torch.from_numpy(si), tw)
-    _assert_close([g.numpy() for g in got], [er, ei], KERNEL_TOL)
+    # the real [N, B] signal is the pair side by side in [H, 2B]
+    pair = got.view(h, 2 * B)
+    _assert_close([pair[:, :B].numpy(), pair[:, B:].numpy()], [er, ei], KERNEL_TOL)
+
+
+@pytest.mark.parametrize("h", [96, 256, 1024])
+def test_plain_interleaved_backward_matches_reference(h):
+    """The fused backward's real [N, B] signal (which the kernel writes on
+    the "chain" route) against the reference's pair, then its interleave.  The reference's fused kernel needs a power-of-two H;
+    at H = 96 its flat split step and its chain kernel give the same pair."""
+
+    rplan = pf.new_setup(2 * h, pf.REAL)
+    ref_chain = rdp._thin_plan(h)
+    sr, si = _rng_planes((h, B), 7 * h)
+    if h & (h - 1):
+        zr, zi = rsplit.real_backward_split_planar_tmajor_flat(
+            jnp.asarray(sr), jnp.asarray(si), rplan.real_twiddle)
+        er, ei = rpk.cfft_pallas_tmajor(ref_chain, zr, zi, backward=True, tb=TB,
+                                        interpret=True)
+    else:
+        er, ei = rpk.rfft_bwd_pallas_tmajor_fused(ref_chain, jnp.asarray(sr), jnp.asarray(si),
+                                                  rplan.real_twiddle, tb=TB, interpret=True)
+    ref = rsplit.interleave_to_real_split_tmajor(er, ei)
+    got = pk.rfft_bwd_chain_tmajor_fused_plain(_port_plan(ref_chain), torch.from_numpy(sr),
+                                               torch.from_numpy(si), _tw(rplan))
+    assert got.shape == (2 * h, B)
+    _assert_close([got.numpy()], [ref], KERNEL_TOL)
 
 
 @pytest.mark.parametrize("h,conf", [(256, None), (1024, None), (1024, (128, 8))])
@@ -387,6 +413,61 @@ def test_real_routes_launch_their_kernels(n, engine, monkeypatch):
     assert (fwd, calls) == (want[0], want[1])
 
 
+@pytest.mark.parametrize("n,engine", ROUTES[:2] + ROUTES[4:5] + ROUTES[-1:])
+def test_real_backward_interleaves_off_the_chain_route(n, engine, monkeypatch):
+    """On the "chain" route the public backward returns B3's output as it
+    is: the kernel writes the real signal, so nothing follows it (on the
+    CPU the interleave happens inside the wrapper's plain version; that the
+    card path makes no copy is chip_smoke.py's check).  The kern2 and stage
+    routes interleave their pair once, outside any kernel wrapper."""
+
+    inside, outside, fused_out = [], [], []
+    inter = tsplit.interleave_to_real_split_tmajor
+    fused = pk.rfft_bwd_chain_tmajor_fused
+
+    def recorded(*a, **k):
+        inside.append(1)
+        try:
+            fused_out.append(fused(*a, **k))
+        finally:
+            inside.pop()
+        return fused_out[-1]
+
+    monkeypatch.setattr(tsplit, "interleave_to_real_split_tmajor",
+                        lambda *a: (outside.append(not inside), inter(*a))[1])
+    monkeypatch.setattr(pk, "rfft_bwd_chain_tmajor_fused", recorded)
+    plan = pt.new_setup(n, pt.REAL)
+    spec = _rng_planes((n // 2, 4), 12)
+    got = pt.transform_ordered_split_tmajor(plan, tuple(spec), pt.BACKWARD, device=CPU)
+    assert got.shape == (n, 4)
+    if engine == "chain":
+        assert len(fused_out) == 1 and got is fused_out[0]
+        assert sum(outside) == 0
+    else:
+        assert not fused_out and sum(outside) == 1
+
+
+# B3's launch shape is B1's planner's at every H the fused route serves, and
+# there is none past the chain's coverage (H = 4096)
+@pytest.mark.parametrize("h", [96, 960, 1024, 1920, 2048, 4096])
+def test_fused_real_launch_shape_is_the_core_tile(h):
+    plan = pt.new_setup(2 * h, pt.REAL)
+    cplan = D._chain_plan(plan)
+    tile = pk.chain_core_tile(D._thin_plan(h))
+    assert (D.fused_real_fwd_route(plan, 256) is not None) == (tile is not None)
+    if tile is None:
+        assert cplan is None
+        with pytest.raises(ValueError, match="fused real forward kernel"):
+            pk._core_launch(D._thin_plan(h), torch.device(CPU), "fused real forward kernel",
+                            None, None)
+        return
+    assert pk._core_launch(cplan, torch.device(CPU), "fused real forward kernel",
+                           None, None) == tile
+    assert tile.elems == 32 and tile.threads <= pk.CORE_MAX_THREADS
+    assert tile.tb == {1024: 16, 2048: 8}.get(h, tile.tb)
+    assert tile.threads * tile.elems >= h * tile.tb
+
+
 def test_real_and_complex_tables_stay_apart():
     """A measured row for real plans never moves a complex plan of the same
     engine length, and the other way round."""
@@ -423,8 +504,8 @@ def test_real_wrappers_on_cpu_run_the_plain_versions():
         (pk.cfft_chain_tmajor_packed(plan, y), pk.chain_tmajor_packed_plain(plan, y)),
         (pk.rfft_chain_tmajor_fused(plan, y, tw),
          pk.rfft_chain_tmajor_fused_plain(plan, y, tw)),
-        (pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw),
-         pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw)),
+        ([pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw)],
+         [pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw)]),
         (pk.real_split_tmajor(sr, si, tw, backward=True),
          pk.real_split_tmajor_plain(sr, si, tw, backward=True)),
     ]
@@ -439,3 +520,26 @@ def test_real_wrappers_on_cpu_run_the_plain_versions():
         pk.real_split_tmajor(sr, si, (tw[0][:-1], tw[1][:-1]))
     with pytest.raises(ValueError, match=r"\[H, 2B\]"):
         pk.rfft_chain_tmajor_fused(plan, y[:, :11], tw)
+
+
+@pytest.mark.parametrize("tb,elems", [(None, None), (8, 16), (4, 32), (64, 32)])
+def test_fused_real_wrappers_on_cpu_take_launch_overrides(tb, elems):
+    """On the CPU the B3 wrappers run their plain versions whatever launch
+    shape is asked for (even one no block holds), and launch nothing; the
+    backward gives the real signal."""
+
+    h = 96
+    plan = D._thin_plan(h)
+    tw = tsplit.real_split_twiddle(pt.new_setup(2 * h, pt.REAL), torch.device(CPU))
+    (x,) = _rng_planes((2 * h, 6), 14, 1)
+    y = torch.from_numpy(x).view(h, 12)
+    sr, si = (torch.from_numpy(a) for a in _rng_planes((h, 6), 15))
+    wrappers = (pk.rfft_chain_tmajor_fused, pk.rfft_bwd_chain_tmajor_fused)
+    before = [w.launches for w in wrappers]
+    got = pk.rfft_chain_tmajor_fused(plan, y, tw, tb=tb, elems=elems)
+    want = pk.rfft_chain_tmajor_fused_plain(plan, y, tw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+    sig = pk.rfft_bwd_chain_tmajor_fused(plan, sr, si, tw, tb=tb, elems=elems)
+    assert torch.equal(sig, pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw))
+    assert sig.shape == (2 * h, 6)
+    assert [w.launches for w in wrappers] == before
