@@ -21,7 +21,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      shapes (a 64 MB [N, B] signal), checked the same way against a
      complex128 ``torch.fft.rfft``; the launch counts of each shape must
      match its route (the fused real kernel, or the packed chain + combine
-     + split kernel; phase 13 checks that the fused route's backward runs
+     + split kernel; phase 15 checks that the fused route's backward runs
      no interleave copy);
   6. FIR filtering by overlap-save: ``FastConv.apply_batched`` on a
      16-channel real stream [16, 2^22] (256 MB) with 64-, 1024- and
@@ -59,7 +59,27 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      = (4096, 2048) and (65536, 128) (64 MB per f64 plane) against complex128
      ``torch.fft``, the 215 dB carrier, one float64 FastConv run; no f32
      kernel may launch;
- 13. timing with CUDA events (median of 10 after warm-up), per band shape,
+ 13. the PFDSP chain (BASELINE.json config #4): ``mixer_apply_split`` at
+     2^22 samples and on a [16, 2^22] stream through one NCO, against the
+     float64 carrier of the exact fixed-point phase; ``CicDDC`` at 2^22 and
+     2^24 samples for R = 16 and 64, two chunks with the state carried,
+     against a float64 FFT convolution of the mixed stream with the triple
+     boxcar at stride R; ``DDCChain`` on two chunks of 2^24 complex samples
+     at 129 and 1024 taps (decim 8) and one float64 chunk, against a
+     complex128 FFT convolution of the float64-mixed stream, one
+     ``zconv_stream`` launch a float32 chunk; the ALGO C/E/I wrappers and
+     the carriers at 2^14 against the port's CPU result; the CIC's and the
+     resampler's products in full fp32 (the matmul precision checked);
+ 14. the STFT front end and the resampler on a [4, 2^22] signal:
+     ``stft_split`` by both routes and ``stft_split_tmajor`` at n_fft 1024
+     (hop 512) and 8192, against complex128 ``torch.fft.rfft`` of the
+     windowed frames; an ``istft`` round trip, ``welch_psd``, and
+     ``Resampler(3, 2, 16)`` against a float64 zero-stuff, FFT convolution
+     and stride M; launches per call (B3 on the time-major route, B9 and B6
+     on the batch-major one and in ``istft``); each call timed beside its
+     bound (and the banded products' fp32 operation time), the STFT beside
+     ``torch.stft``;
+ 15. timing with CUDA events (median of 10 after warm-up), per band shape,
      per kernel and per FIR pipeline, beside the bound, the plain version
      and a library yardstick (torch.fft, conv1d); B1's launch-shape sweep
      (batch columns x values a thread, as kern2's pass A too), B4's (the
@@ -70,7 +90,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      copies around the column map it replaces; B10 beside kern2 on the
      same planes, with sweeps of its batch columns and cluster size; blocks
      per SM of B1, B3, B9 and B10 from the planner and from the card;
- 14. the ``kernels`` line, the card line, and the final ``ok`` line.
+ 16. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 repository checkout.  It imports neither jax nor pffft_tpu.
@@ -154,6 +174,21 @@ KSPLIT_REAL_BAND = ((4096, 4096), (8192, 2048))
 F64_SHAPES = ((4096, 2048), (65536, 128))
 F64_TOL = 1e-12      # vs the complex128 oracle, relative to max|oracle|
 F64_CARRIER_DB = 215.0
+# the dsp phase (BASELINE.json config #4): bench_pipeline's mixer_shift and
+# cic_ddc (benchmarks/bench_pipeline.py:71-136), a 16-channel stream [16,
+# 2^22] through one NCO, the DDC chain of examples/example_sdr_capture_chain.py:50-52
+# on two chunks of 2^24 complex samples (and at 1024 taps), the ALGO C/E/I
+# wrappers and the carriers at 2^14
+MIX_N, MIX_CHANNELS, MIX_RATE = 1 << 22, 16, 0.123
+CIC_NS, CIC_FACTORS = (1 << 22, 1 << 24), (16, 64)
+DDC_N, DDC_DECIM, DDC_TAPS, DDC_RATE = 1 << 24, 8, (129, 1024), -0.1
+ALGO_N = 1 << 14
+MIXER_TOL = 2e-6     # vs the float64 carrier of the exact fixed-point phase
+# the spectral phase: bench_pipeline's stft (:181-222) at a 64 MB input, one
+# n_fft = 8192 case, and its resample_3_2 (:224-240) on the same signal
+STFT_SHAPE, STFT_NFFT, STFT_HOP, STFT_BIG_NFFT = (4, 1 << 22), 1024, 512, 8192
+RESAMPLE_UP, RESAMPLE_DOWN, RESAMPLE_TAPS = 3, 2, 16
+DEV = "cuda"
 
 
 def emit(obj) -> None:
@@ -387,8 +422,9 @@ def phase_kernels(gen):
              lambda bwd: pk.real_split_tmajor_plain(zr, zi, tw, backward=bwd),
              {"h": h, "b": b})
 
-    # the real path's kernel calls, shape for shape
-    for n, b in REAL_BAND:
+    def real_tmajor_cases(n, b):
+        # the kernels of the time-major real transform of length n on B
+        # columns, as its route gives them
         plan, h = pt.new_setup(n, pt.REAL), n // 2
         if D.select_engine(plan, b, True, dev) == "chain":
             fused_case(D._chain_plan(plan, dev), h, b)
@@ -399,6 +435,10 @@ def phase_kernels(gen):
             chain_case(mplan, m, r * b)  # the backward's pass A
             combine_case(last, b)
             split_case(h, b)
+
+    # the real path's kernel calls, shape for shape
+    for n, b in REAL_BAND:
+        real_tmajor_cases(n, b)
     # small and non-power-of-two H, ragged and odd batches (B=1001 takes
     # the scalar loads and stores); B4 with a block's columns across two
     # slabs (B % tb != 0), an odd B and a buffer 4 bytes past an aligned
@@ -558,6 +598,25 @@ def phase_kernels(gen):
     for n, conf in ((640, (128, 5)), (384, (128, 3)), (2048, (128, 16)), (4096, (128, 32))):
         for b in (1024, 1000, 1001):
             ksplit2_case(n, b, conf)
+    # the dsp and spectral paths' kernel calls, shape for shape: B7's stream
+    # map on DDCChain's [I; Q] rows, the STFT's real transforms on its rows*K
+    # frames time-major (B3, or B4, B1, B2 and B5 past n_fft 4096) and
+    # batch-major (B9 and B6, both directions as istft runs them)
+    for taps in DDC_TAPS:
+        fc = CH.DDCChain(DDC_RATE, pt.design_lowpass(taps, 0.5 / DDC_DECIM), DDC_DECIM).conv
+        if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+            xs = torch.randn((2, DDC_N + taps - 1), generator=gen, device="cuda")
+            stream_case(fc.nfft, fc.num_out_per_block, xs, DDC_N, False)
+            del xs
+    rows, length = STFT_SHAPE
+    for n_fft in (STFT_NFFT, STFT_BIG_NFFT):
+        hop = STFT_HOP if n_fft == STFT_NFFT else n_fft // 2
+        b = rows * ((length - n_fft) // hop + 1)
+        real_tmajor_cases(n_fft, b)
+        plan = pt.new_setup(n_fft, pt.REAL)
+        if D.select_engine(plan, b, False, dev) == "fused2":
+            fused2_case(plan, n_fft // 2, b, (True,))
+        split_b_case(n_fft // 2, b)
     re, im = planes(1024, 16384, gen)
     cr, ci = pk.stream_copy(re, im)
     torch.cuda.synchronize()
@@ -1880,6 +1939,388 @@ def phase_f64(gen):
     check(delta == {}, f"float64 calls launched f32 kernels: {delta}")
 
 
+def check_fp32_matmul() -> None:
+    """The CIC's and the resampler's banded products run in full fp32."""
+
+    prec = torch.get_float32_matmul_precision()
+    emit({"phase": "fp32", "float32_matmul_precision": prec,
+          "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    check(prec == "highest" and not torch.backends.cuda.matmul.allow_tf32,
+          f"float32 matmuls are not full fp32: precision {prec!r}")
+
+
+def exact_phase(phase_fp: int, rate_fp: int, n: int) -> torch.Tensor:
+    """The NCO's phase of samples 0..n-1 in turns, float64, from the exact
+    fixed-point phase (phase_fp + k*rate_fp) mod 2^32."""
+
+    k = torch.arange(n, dtype=torch.int64, device=DEV)
+    return ((k * rate_fp + phase_fp) & 0xFFFFFFFF).double() / 2.0 ** 32
+
+
+def time_once(fn) -> float:
+    """ms of one call (CUDA events), after one call of warm-up."""
+
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
+def phase_dsp(gen):
+    """The PFDSP chain (BASELINE.json config #4) at full size: the NCO mixer,
+    the CIC downconverter and DDCChain against float64 oracles, the ALGO
+    C/E/I wrappers and the carriers against the port's own CPU result;
+    times beside their bounds.  Returns the launch counts of the run."""
+
+    check_fp32_matmul()
+    reset_counts()
+    dsp = pt.dsp
+    # the mixer: one NCO over 2^22 samples, then over a 16-channel stream
+    st = dsp.mixer_init(MIX_RATE, 0.7)
+    car = torch.exp(2j * math.pi * exact_phase(st.phase_fp, st.rate_fp, MIX_N))
+    xr, xi = planes(MIX_CHANNELS, MIX_N, gen)
+    for name, (ar, ai) in (("mixer_shift", (xr[0], xi[0])), ("mixer_multichannel", (xr, xi))):
+        (yr, yi), st2 = dsp.mixer_apply_split(st, ar, ai)
+        torch.cuda.synchronize()
+        rows = (0,) if ar.ndim == 1 else (0, MIX_CHANNELS - 1)
+        pick = (lambda t, r: t) if ar.ndim == 1 else (lambda t, r: t[r])
+        err = max(rel_err(torch.complex(pick(yr, r), pick(yi, r)).to(torch.complex128),
+                          torch.complex(pick(ar, r), pick(ai, r)).to(torch.complex128) * car)
+                  for r in rows)
+        ms = time_ms(lambda: dsp.mixer_apply_split(st, ar, ai))
+        # where the time goes: the carrier (the int64 phase, its angle, cos, sin)
+        angles = lambda: dsp.mixer.nco_angles(st.phase_fp, st.rate_fp, MIX_N, ar.device)
+        carrier_ms = time_ms(lambda: (lambda a: (torch.cos(a), torch.sin(a)))(angles()))
+        # both planes read once, both written once
+        bnd = bound(16.0 * ar.numel(), 8.0 * ar.numel())
+        emit({"phase": "dsp", "call": name, "shape": list(ar.shape), "oracle_rel_err": err,
+              "ms": ms, "carrier_ms": carrier_ms,
+              "bound_ms": bnd[0], "bound_by": bnd[1], "frac_bound": bnd[0] / ms,
+              "msamples_per_s": ar.numel() / ms / 1e3, "library_ms": None,
+              "next_phase_fp": st2.phase_fp})
+        check(err <= MIXER_TOL, f"{name}: oracle error {err}")
+        check(st2.phase_fp == (st.phase_fp + MIX_N * st.rate_fp) & 0xFFFFFFFF,
+              f"{name}: next phase {st2.phase_fp}")
+    del xr, xi, yr, yi, car
+    # the CIC: two chunks with the state carried, against the float64 mix
+    # convolved with the triple boxcar, taken at stride R
+    for n in CIC_NS:
+        xr, xi = planes(1, n, gen)
+        xr, xi = xr[0], xi[0]
+        rate_fp = int(round(MIX_RATE * 2.0 ** 32)) & 0xFFFFFFFF
+        ph = exact_phase(0, rate_fp, n) * (2 * math.pi)
+        mixed = torch.complex(xr.double(), xi.double()) * torch.complex(-torch.sin(ph),
+                                                                         torch.cos(ph))
+        del ph
+        for r in CIC_FACTORS:
+            cic = dsp.CicDDC(r, device=DEV)
+            cst = cic.init_state()
+            outs = []
+            for half in (slice(0, n // 2), slice(n // 2, n)):
+                (yr, yi), cst = cic.apply_split(cst, xr[half], xi[half], MIX_RATE)
+                outs.append(torch.complex(yr, yi))
+            y = torch.cat(outs)
+            # the full convolution: the valid part of the zero-prefixed stream
+            full = conv_oracle(torch.cat([mixed.new_zeros(3 * r - 3), mixed]), cic.b3_rev[::-1])
+            ref = full[r - 3 :: r][: n // r] / r ** 3
+            err = rel_err(y.to(torch.complex128), ref)
+            ms = time_ms(lambda: cic.apply_split(cic.init_state(), xr, xi, MIX_RATE), inner=2)
+            rows_n = -(-(n // r) // cic.BLOCK_S)
+            # where the time goes: the overlapping rows' copy and the product
+            ext = torch.randn((2, r * rows_n * cic.BLOCK_S + 2 * r), generator=gen, device=DEV)
+            view = ext.unfold(1, (cic.BLOCK_S + 2) * r, cic.BLOCK_S * r)
+            rows = view.reshape(-1, (cic.BLOCK_S + 2) * r)
+            parts = {"rows_ms": time_ms(lambda: view.reshape(-1, (cic.BLOCK_S + 2) * r)),
+                     "matmul_ms": time_ms(lambda: torch.matmul(rows, cic._weight(rows.device)))}
+            del ext, view, rows
+            # the bound: both planes read once and the outputs written once,
+            # against the function's own operations (the mix, and 3R-2 taps
+            # an output a plane); the banded product's dense FLOPs, zeros
+            # included, are printed beside it
+            mm_flops = 2.0 * 2 * rows_n * (cic.BLOCK_S + 2) * r * cic.BLOCK_S
+            bnd = bound(4.0 * (2 * n + 2 * n // r), 6.0 * n + 2 * 2.0 * (3 * r - 2) * (n // r))
+            emit({"phase": "dsp", "call": "cic_ddc", "factor": r, "samples": n,
+                  "out_shape": list(y.shape), "oracle_rel_err": err, "ms": ms, **parts,
+                  "bound_ms": bnd[0], "bound_by": bnd[1], "frac_bound": bnd[0] / ms,
+                  "bytes_ms": 4.0 * (2 * n + 2 * n // r) / HBM_BYTES_PER_S * 1e3,
+                  "matmul_fp32_ms": mm_flops / F32_FLOPS_PER_S * 1e3,
+                  "msamples_per_s": n / ms / 1e3, "library_ms": None})
+            check(y.shape == (n // r,) and bool(torch.isfinite(torch.view_as_real(y)).all()),
+                  f"CIC R={r} n={n}: output not finite/shaped")
+            check(err <= ORACLE_TOL, f"CIC R={r} n={n}: oracle error {err}")
+            del y, full, ref, outs
+        del xr, xi, mixed
+    # DDCChain: two chunks of 2^24 with the state carried, against the
+    # float64 mix convolved with the taps by a complex128 FFT, decimated
+    x = torch.complex(*planes(1, 2 * DDC_N, gen))[0]
+    ddc_runs = []
+    for taps, dtype in [(t, "float32") for t in DDC_TAPS] + [(DDC_TAPS[0], "float64")]:
+        h = pt.design_lowpass(taps, 0.5 / DDC_DECIM)
+        ddc = CH.DDCChain(DDC_RATE, h, DDC_DECIM, dtype=dtype, device=DEV)
+        chunks = 2 if dtype == "float32" else 1
+        ref_n = chunks * DDC_N
+        dst = ddc.init_state()
+        outs, deltas = [], []
+        for j in range(chunks):
+            c0 = counts()
+            y, dst = ddc.process(dst, x[j * DDC_N:(j + 1) * DDC_N])
+            torch.cuda.synchronize()
+            deltas.append(launched(counts(), c0))
+            outs.append(y)
+        y = torch.cat(outs)
+        st0 = ddc.init_state().mixer
+        car = torch.exp(2j * math.pi * exact_phase(st0.phase_fp, st0.rate_fp, ref_n))
+        mixed = x[:ref_n].to(torch.complex128) * car
+        del car
+        ref = conv_oracle(torch.cat([mixed.new_zeros(taps - 1), mixed]), h)[::DDC_DECIM]
+        del mixed
+        err = rel_err(y.to(torch.complex128), ref)
+        want_dtype = torch.complex64 if dtype == "float32" else torch.complex128
+        want_launches = {"zconv_stream": 1} if dtype == "float32" else {}
+        rec = {"phase": "dsp", "call": "ddc_chain", "taps": taps, "decim": DDC_DECIM,
+               "dtype": dtype, "nfft": ddc.conv.nfft, "chunks": chunks, "chunk": DDC_N,
+               "route": ddc.conv._route(torch.device(DEV)), "oracle_rel_err": err,
+               "launches_per_chunk": deltas}
+        check(y.shape == (ref_n // DDC_DECIM,) and y.dtype == want_dtype,
+              f"DDCChain {taps} {dtype}: output {tuple(y.shape)} {y.dtype}")
+        check(err <= ORACLE_TOL, f"DDCChain {taps} {dtype}: oracle error {err}")
+        check(all(d == want_launches for d in deltas),
+              f"DDCChain {taps} {dtype}: launches {deltas}, expected {want_launches}")
+        if dtype == "float32":
+            ddc_runs.append((rec, ddc))  # timed after the launch counts are read
+        else:
+            rec["ms_one_call"] = time_once(lambda: ddc.process(ddc.init_state(), x[:DDC_N]))
+            emit(rec)
+        del y, ref, outs
+    # the ALGO C/E/I wrappers and the carriers on the card against the
+    # port's CPU result
+    xa = torch.complex(*planes(1, ALGO_N, gen))[0]
+    xc = xa.cpu()
+    algo = {
+        "C": lambda dv, xx: dsp.shift_addfast_cc(xx, dsp.shift_addfast_init(0.0123), 0.4)[0],
+        "E": lambda dv, xx: dsp.shift_limited_unroll_cc(
+            xx, dsp.shift_limited_unroll_init(0.0123, 0.4)),
+        "I": lambda dv, xx: dsp.shift_recursive_osc_cc(
+            xx, dsp.shift_recursive_osc_init(0.0123, 0.4)),
+        "I_gen": lambda dv, xx: dsp.gen_recursive_osc_c(
+            ALGO_N, dsp.shift_recursive_osc_init(0.0123, 0.4), device=dv),
+    }
+    errs = {}
+    for name, fn in algo.items():
+        got, want = fn(DEV, xa), fn("cpu", xc)
+        errs[name] = rel_err(got.cpu(), want)
+    carriers_equal = all(
+        torch.equal(getattr(dsp, c)(ALGO_N, device=DEV).cpu(),
+                    getattr(dsp, c)(ALGO_N, device="cpu"))
+        for c in dsp.carrier.__all__)
+    emit({"phase": "dsp", "call": "algo_c_e_i", "n": ALGO_N, "rel_err_vs_cpu": errs,
+          "carriers_equal_cpu": carriers_equal})
+    check(max(errs.values()) <= KERNEL_TOL and carriers_equal,
+          f"ALGO C/E/I on the card vs the CPU: {errs}, carriers equal {carriers_equal}")
+    launches = counts()
+    emit({"phase": "dsp", "launches": launches})
+    check(launches["zconv_stream"] > 0, f"DDCChain did not launch zconv_stream: {launches}")
+    xc = x[:DDC_N]
+    for rec, ddc in ddc_runs:
+        st1 = ddc.init_state()
+        ms = time_ms(lambda: ddc.process(st1, xc), inner=2)
+        # the bound: the chunk read once, the decimated output written once,
+        # against the mix's operations; the filter's least operations depend
+        # on the algorithm, so the overlap-save blocks' transforms on both
+        # rows (every output, before the decimation) are printed beside it
+        cols = -(-DDC_N // ddc.conv.num_out_per_block)
+        bnd = bound(8.0 * DDC_N * (1 + 1 / DDC_DECIM), 6.0 * DDC_N)
+        os_flops = 2 * fft_flops(ddc.conv.nfft, cols) + 6.0 * ddc.conv.nfft * cols
+        # where the time goes: the mixer, and the lowpass on [I; Q] (one
+        # launch of B7's stream map)
+        ext = torch.randn((2, DDC_N + ddc.filter_len - 1), generator=gen, device=DEV)
+        rec.update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], frac_bound=bnd[0] / ms,
+                   overlap_save_fp32_ms=os_flops / F32_FLOPS_PER_S * 1e3,
+                   msamples_per_s=DDC_N / ms / 1e3, library_ms=None,
+                   mixer_ms=time_ms(lambda: dsp.mixer_apply_split(st1.mixer, xc.real, xc.imag)),
+                   conv_ms=time_ms(lambda: ddc.conv._conv_stream(ext, DDC_N)))
+        emit(rec)
+        del ext
+    del x, xc, ddc_runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stft_oracle(x: torch.Tensor, n_fft: int, hop: int, w: np.ndarray) -> torch.Tensor:
+    """Packed [..., K, H] complex128 STFT: ``torch.fft.rfft`` of the
+    windowed frames in float64, bin0 = DC + i*Nyquist."""
+
+    fr = x.double().unfold(-1, n_fft, hop) * torch.from_numpy(w.astype(np.float64)).to(x.device)
+    full = torch.fft.rfft(fr, dim=-1)
+    h = n_fft // 2
+    packed = full[..., :h].clone()
+    packed[..., 0] = torch.complex(full[..., 0].real, full[..., h].real)
+    return packed
+
+
+def phase_spectral(gen):
+    """The STFT front end and the resampler at full size: ``stft_split`` by
+    both routes and ``stft_split_tmajor`` on a 64 MB signal (n_fft 1024 and
+    8192), an ``istft`` round trip, ``welch_psd`` and ``Resampler(3, 2,
+    16)``, against float64 / complex128 oracles; launch counts per call;
+    times beside their bounds and ``torch.stft``.  Returns the launch counts
+    of the run."""
+
+    check_fp32_matmul()
+    reset_counts()
+    sp = pt.spectral
+    x = torch.randn(STFT_SHAPE, generator=gen, device=DEV)
+    rows, length = STFT_SHAPE
+    runs = []
+    for n_fft in (STFT_NFFT, STFT_BIG_NFFT):
+        hop = STFT_HOP if n_fft == STFT_NFFT else n_fft // 2
+        w = sp.hann(n_fft)
+        ref = stft_oracle(x, n_fft, hop, w)
+        k, h = ref.shape[-2], n_fft // 2
+        for route in ("bmajor", "tmajor", "tmajor_out"):
+            sp._TMAJOR_STFT = route != "bmajor"
+            c0 = counts()
+            if route == "tmajor_out":
+                sr, si = sp.stft_split_tmajor(x, n_fft, hop)
+                sr, si = sr.permute(1, 2, 0), si.permute(1, 2, 0)
+            else:
+                sr, si = sp.stft_split(x, n_fft, hop)
+            torch.cuda.synchronize()
+            delta = launched(counts(), c0)
+            sp._TMAJOR_STFT = None
+            err = rel_err(torch.complex(sr.double(), si.double()), ref)
+            emit({"phase": "spectral", "call": "stft", "route": route, "n_fft": n_fft,
+                  "hop": hop, "shape": list(x.shape), "out_shape": list(sr.shape),
+                  "oracle_rel_err": err, "launches": delta})
+            check(sr.shape == (rows, k, h) and bool(torch.isfinite(sr).all()),
+                  f"STFT {route} n_fft={n_fft}: output not finite/shaped {tuple(sr.shape)}")
+            check(err <= ORACLE_TOL, f"STFT {route} n_fft={n_fft}: oracle error {err}")
+            if n_fft <= 4096:
+                want = ("cfft_fused2", "real_split") if route == "bmajor" else (
+                    "rfft_chain_tmajor_fused",)
+                check(all(delta.get(name, 0) > 0 for name in want),
+                      f"STFT {route} n_fft={n_fft}: launches {delta}, expected {want}")
+            runs.append((n_fft, hop, route))
+            del sr, si
+        del ref
+    # the round trip and the PSD at bench_pipeline's shape
+    s = sp.stft(x, STFT_NFFT, STFT_HOP)
+    c0 = counts()
+    y = sp.istft(s, STFT_HOP, length=length)
+    torch.cuda.synchronize()
+    d_istft = launched(counts(), c0)
+    core = slice(STFT_NFFT, length - STFT_NFFT)
+    e_rt = rel_err(y[:, core], x[:, core])
+    psd = sp.welch_psd(x, STFT_NFFT, STFT_HOP)
+    w64 = torch.from_numpy(sp.hann(STFT_NFFT).astype(np.float64)).to(DEV)
+    full = torch.fft.rfft(x.double().unfold(-1, STFT_NFFT, STFT_HOP) * w64, dim=-1)
+    psd_ref = (full.abs() ** 2).mean(dim=-2) / float((w64 ** 2).sum())
+    e_psd = rel_err(psd.double(), psd_ref)
+    del full
+    emit({"phase": "spectral", "call": "istft_welch", "roundtrip_rel_err": e_rt,
+          "welch_rel_err": e_psd, "istft_launches": d_istft, "istft_shape": list(y.shape),
+          "psd_shape": list(psd.shape)})
+    check(y.shape == x.shape and e_rt <= ROUND_TRIP_TOL, f"istft: {tuple(y.shape)}, {e_rt}")
+    check(psd.shape == (rows, STFT_NFFT // 2 + 1) and e_psd <= ORACLE_TOL,
+          f"welch_psd: {tuple(psd.shape)}, {e_psd}")
+    check(all(d_istft.get(n, 0) > 0 for n in ("cfft_fused2", "real_split")),
+          f"istft launches {d_istft}, expected cfft_fused2 and real_split")
+    # the resampler against the float64 zero-stuff, FFT convolution, stride M
+    rs = pt.resample.Resampler(RESAMPLE_UP, RESAMPLE_DOWN, RESAMPLE_TAPS, device=DEV)
+    yr = rs(x)
+    torch.cuda.synchronize()
+    n_out = length * rs.up // rs.down
+    proto = rs.taps_rev[::-1].reshape(-1)
+    e_rs = 0.0
+    for r in (0, rows - 1):
+        u = torch.zeros(length * rs.up, dtype=torch.complex128, device=DEV)
+        u[:: rs.up] = x[r].double()
+        ref = conv_oracle(torch.cat([u.new_zeros(proto.size - 1), u]), proto)[:: rs.down][:n_out]
+        e_rs = max(e_rs, rel_err(yr[r].to(torch.complex128), ref))
+        del u, ref
+    emit({"phase": "spectral", "call": "resample", "up": rs.up, "down": rs.down,
+          "taps_per_phase": rs.p, "out_shape": list(yr.shape), "oracle_rel_err": e_rs})
+    check(yr.shape == (rows, n_out) and e_rs <= ORACLE_TOL,
+          f"resampler: {tuple(yr.shape)}, oracle error {e_rs}")
+    launches = counts()
+    emit({"phase": "spectral", "launches": launches})
+    for name in ("rfft_chain_tmajor_fused", "cfft_fused2", "real_split"):
+        check(launches[name] > 0, f"spectral path did not launch {name}: {launches}")
+    del s, y, yr, psd
+    # times: each call at its shape, beside its bound and torch.stft
+    for n_fft, hop, route in runs:
+        w = torch.from_numpy(sp.hann(n_fft)).to(DEV)
+        k = (length - n_fft) // hop + 1
+        if route == "tmajor_out":
+            fn = lambda: sp.stft_split_tmajor(x, n_fft, hop)
+        else:
+            fn = lambda: sp.stft_split(x, n_fft, hop)
+        sp._TMAJOR_STFT = route != "bmajor"
+        ms = time_ms(fn, inner=2)
+        sp._TMAJOR_STFT = None
+        # where the time goes: the windowed frames, the transform and (public
+        # layout, time-major) the two transposes back
+        plan = pt.new_setup(n_fft, pt.REAL)
+        wv = w.reshape(n_fft, 1, 1)
+        if route == "bmajor":
+            frame = lambda: sp.frame_signal(x, n_fft, hop) * w
+            fr = frame()
+            parts = {"frame_ms": time_ms(frame, inner=2),
+                     "transform_ms": time_ms(lambda: pt.transform_ordered_split(plan, fr),
+                                             inner=2)}
+        else:
+            frame = lambda: sp.frame_signal(x, n_fft, hop).movedim(-1, 0) * wv
+            fr = frame().reshape(n_fft, -1)
+            sr, si = pt.transform_ordered_split_tmajor(plan, fr)
+            parts = {"frame_ms": time_ms(frame, inner=2),
+                     "transform_ms": time_ms(lambda: pt.transform_ordered_split_tmajor(plan, fr),
+                                             inner=2)}
+            if route == "tmajor":
+                sr, si = sr.reshape(-1, rows, k), si.reshape(-1, rows, k)
+                parts["transpose_ms"] = time_ms(
+                    lambda: (sr.movedim(0, -1).contiguous(), si.movedim(0, -1).contiguous()),
+                    inner=2)
+            del sr, si
+        del fr
+        # the signal read once, the packed spectrum planes written once
+        bnd = bound(4.0 * x.numel() + 8.0 * rows * k * (n_fft // 2),
+                    fft_flops(n_fft // 2, rows * k) + 16.0 * (n_fft // 2) * rows * k)
+        lib = time_ms(lambda: torch.stft(x, n_fft, hop_length=hop, window=w, center=False,
+                                         onesided=True, return_complex=True), inner=2)
+        emit({"phase": "spectral_time", "call": "stft", "route": route, "n_fft": n_fft,
+              "hop": hop, "ms": ms, **parts, "bound_ms": bnd[0], "bound_by": bnd[1],
+              "frac_bound": bnd[0] / ms, "msamples_per_s": x.numel() / ms / 1e3,
+              "library_ms": lib, "library": "torch.stft(center=False, onesided=True, "
+                                            "return_complex=True), unpacked bins"})
+    sp._TMAJOR_STFT = None
+    s = sp.stft(x, STFT_NFFT, STFT_HOP)
+    k = s.shape[-2]
+    ms_istft = time_ms(lambda: sp.istft(s, STFT_HOP, length=length), inner=2)
+    b_istft = bound(8.0 * rows * k * (STFT_NFFT // 2) + 4.0 * x.numel(),
+                    fft_flops(STFT_NFFT // 2, rows * k))
+    ms_welch = time_ms(lambda: sp.welch_psd(x, STFT_NFFT, STFT_HOP), inner=2)
+    b_welch = bound(4.0 * x.numel(), fft_flops(STFT_NFFT // 2, rows * k))
+    ms_rs = time_ms(lambda: rs(x), inner=2)
+    # the resampler's bound: the signal read once, the output written once,
+    # against P taps an output; the banded product's dense FLOPs beside it
+    jn = -(-n_out // (rs.g_blk * rs.up))
+    mm_flops = 2.0 * rows * jn * rs.w_frame * rs.g_blk * rs.up
+    b_rs = bound(4.0 * (x.numel() + rows * n_out), 2.0 * rs.p * rows * n_out)
+    emit({"phase": "spectral_time", "istft_ms": ms_istft, "istft_bound_ms": b_istft[0], "istft_bound_by": b_istft[1],
+          "welch_ms": ms_welch, "welch_bound_ms": b_welch[0], "welch_bound_by": b_welch[1],
+          "resample_ms": ms_rs, "resample_bound_ms": b_rs[0], "resample_bound_by": b_rs[1],
+          "resample_bytes_ms": 4.0 * (x.numel() + rows * n_out) / HBM_BYTES_PER_S * 1e3,
+          "resample_matmul_fp32_ms": mm_flops / F32_FLOPS_PER_S * 1e3,
+          "resample_msamples_per_s": x.numel() / ms_rs / 1e3, "library_ms": None})
+    del x, s
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1899,6 +2340,8 @@ def main() -> int:
     ks2_launches = phase_ksplit2(gen)
     ksplit_launches = phase_ksplit(gen)
     phase_f64(gen)
+    dsp_launches = phase_dsp(gen)
+    spectral_launches = phase_spectral(gen)
     rows = phase_timing(gen, per_shape)
     rows.update(phase_real_timing(gen, real_shapes))
     phase_real_fused_sweep(gen)
@@ -1932,10 +2375,10 @@ def main() -> int:
               f"ksplit path did not launch every path kernel: {ksplit_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    # launches: the count over the eight main-path runs (each from zero); the
+    # launches: the count over the ten main-path runs (each from zero); the
     # float64 phase launches none
     paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
-             bmr_launches, ks2_launches, ksplit_launches)
+             bmr_launches, ks2_launches, ksplit_launches, dsp_launches, spectral_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),

@@ -13,14 +13,18 @@ real, on batch-major arrays [..., N] (the pffft.h parity API:
 ``rfft_packed`` and the spectrum and frequency helpers) and on time-major
 planes, :func:`transform_ordered_split_tmajor`; FIR filtering by
 overlap-save, :mod:`conv` (``FastConv``, ``StreamingConv``, float32 and
-float64); the polyphase channelizers, :mod:`channelizer` (float32).  Every
-kernel is f32; float64 plans run the einsum stage engine.
+float64); the polyphase channelizers and the ``DDCChain`` downconverter,
+:mod:`channelizer`; the PFDSP mixers, carriers and CIC, :mod:`dsp`; the
+STFT front end, :mod:`spectral`; the rational resampler, :mod:`resample`.
+Every kernel is f32; float64 plans run the einsum stage engine.
 """
 
-from . import channelizer, conv, fft, ops, runtime
+from . import channelizer, conv, dsp, fft, ops, resample, runtime, spectral
 from .channelizer import (
     Channelizer,
     ChannelizerState,
+    DDCChain,
+    DDCState,
     OversampledChannelizer,
     design_lowpass,
     state_from_arrays,
@@ -74,9 +78,12 @@ from .plan import (
 __all__ = [
     "channelizer",
     "conv",
+    "dsp",
     "fft",
     "ops",
+    "resample",
     "runtime",
+    "spectral",
     "transform",
     "transform_ordered",
     "zreorder",
@@ -100,6 +107,8 @@ __all__ = [
     "ifftshift",
     "Channelizer",
     "ChannelizerState",
+    "DDCChain",
+    "DDCState",
     "OversampledChannelizer",
     "design_lowpass",
     "state_from_arrays",

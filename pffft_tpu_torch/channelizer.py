@@ -29,10 +29,13 @@ in memory of its own, so a caller may refill a chunk's buffer after the
 step (the kernel reads the history in place; only the new state is copied,
 P*M samples a row).
 numpy input goes to the channelizer's ``device`` (default "cuda"); tensors
-stay where they are.  ``DDCChain`` needs the NCO mixer and is not ported
-yet (ROADMAP.md A8).  Float64 is not either (A6): the reference's float64
-FIR is its XLA multiply-accumulate path, which needs a torch counterpart
-of its own.
+stay where they are.  Float64 channelizers are not ported (ROADMAP.md A5):
+the reference's float64 FIR is its XLA multiply-accumulate path, which
+needs a torch counterpart of its own.
+
+:class:`DDCChain` is the explicit-stage downconverter of BASELINE.json
+config #4: the NCO mixer, an overlap-save lowpass (``conv.FastConv``) and
+decimation, in float32 or float64.
 """
 
 from __future__ import annotations
@@ -42,12 +45,14 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import conv as _conv
 from . import fft as _fft
 from . import plan as _plan
+from .dsp import mixer as _mixer
 from .ops import pfb_kernel as _pfb
 
 __all__ = ["Channelizer", "OversampledChannelizer", "ChannelizerState", "design_lowpass",
-           "state_from_arrays"]
+           "state_from_arrays", "DDCChain", "DDCState", "ddc_state_from_arrays"]
 
 
 def design_lowpass(num_taps: int, cutoff: float, window: str = "hamming") -> np.ndarray:
@@ -121,7 +126,7 @@ class Channelizer:
         m, p = int(num_channels), int(taps_per_channel)
         self.dtype = np.dtype(dtype)
         if self.dtype == np.float64:
-            raise NotImplementedError("float64 channelizers are not ported yet (ROADMAP.md A6)")
+            raise NotImplementedError("float64 channelizers are not ported yet (ROADMAP.md A5)")
         if prototype is None:
             prototype = design_lowpass(p * m, 0.5 / m)
         prototype = np.asarray(prototype, dtype=np.float64)
@@ -294,3 +299,71 @@ class OversampledChannelizer:
     def process(self, state: ChannelizerState, x):
         (yr, yi), st = self.process_split(state, *_planes(x, self.base.device))
         return torch.complex(yr, yi), st
+
+
+class DDCState(NamedTuple):
+    mixer: _mixer.MixerState
+    tail: torch.Tensor  # [filterLen-1] complex64: the carried mixed samples
+
+
+def ddc_state_from_arrays(phase_fp, rate_fp, tail, device="cuda") -> DDCState:
+    """The port's state from a reference ``DDCState`` as numpy (its mixer's
+    phase_fp and rate_fp, and its tail): the stream carries on from there."""
+
+    return DDCState(_mixer.state_from_arrays(phase_fp, rate_fp),
+                    _mixer._to_device(tail, device, torch.complex64))
+
+
+class DDCChain:
+    """Mixer -> FIR lowpass (overlap-save) -> decimate, streaming.
+
+    Each call mixes the chunk with the NCO carrier, convolves it with the
+    lowpass and keeps every ``decim``-th sample.  The carried state is what
+    the reference APIs carry: the NCO phase and the last filterLen-1 mixed
+    samples.  The lowpass convolves I and Q as the two real rows of one
+    ``FastConv._conv_stream`` call (one launch of the conv kernel's stream
+    map where nfft <= 2048); with dtype="float64" the conv runs in float64
+    on the "tmajor" route (the mixer stays the float32 NCO, as in the
+    reference).
+    """
+
+    def __init__(self, shift_rate: float, filter_taps, decim: int, dtype="float32",
+                 device="cuda"):
+        self.decim = int(decim)
+        h = np.asarray(filter_taps, dtype=np.float64)
+        self.filter_len = h.size
+        self.device = device
+        self.conv = _conv.FastConv(h, flags=_conv.ConvFlags.CPLX_INP_OUT, dtype=dtype,
+                                   device=device)
+        self.shift_rate = float(shift_rate)
+
+    def init_state(self, device=None) -> DDCState:
+        return DDCState(
+            mixer=_mixer.mixer_init(self.shift_rate),
+            tail=torch.zeros(self.filter_len - 1, dtype=torch.complex64,
+                             device=self.device if device is None else device),
+        )
+
+    def process(self, state: DDCState, x) -> Tuple[torch.Tensor, DDCState]:
+        """x [L] complex chunk -> (y [L/decim] complex, state').
+
+        L must be a multiple of ``decim`` so that the decimation phase is
+        the same in every chunk (streaming == one-shot)."""
+
+        x = _mixer._to_device(x, self.device, torch.complex64)
+        n = x.shape[0]
+        if n % self.decim != 0:
+            raise ValueError(
+                f"chunk length {n} must be a multiple of decim="
+                f"{self.decim} (keeps the decimation phase chunk-invariant)"
+            )
+        (mr, mi), mst = _mixer.mixer_apply_split(state.mixer, x.real, x.imag)
+        # [I; Q] rows of the stream [tail, mixed chunk]
+        f1 = self.filter_len - 1
+        ext = torch.empty((2, f1 + n), dtype=torch.float32, device=x.device)
+        ext[:, :f1] = torch.view_as_real(state.tail).T
+        ext[0, f1:], ext[1, f1:] = mr, mi
+        y = self.conv._conv_stream(ext.to(_fft._real_dtype(self.conv.plan)), n)
+        tail = ext[:, n:]
+        return (torch.complex(y[0, :: self.decim], y[1, :: self.decim]),
+                DDCState(mixer=mst, tail=torch.complex(tail[0], tail[1])))

@@ -800,3 +800,115 @@ def test_float64_on_the_card_matches_oracle(cuda_device, n):
     assert _rel(torch.complex(sr, si), packed) <= 1e-12
     assert _rel(s, packed.T) <= 1e-12
     assert _rel(back / (2 * n), x) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# The PFDSP chain, the STFT front end and the resampler: the card's result
+# against the port's own CPU result on the same inputs
+# ---------------------------------------------------------------------------
+
+MIXER_TOL = 2e-6   # cos/sin and the complex product, a few ulp apart
+DSP_TOL = 1e-5     # products and transforms summed in another order
+
+
+def _cplx(n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.123, -0.3, 0.49])
+def test_mixer_on_the_card_matches_cpu(cuda_device, rate):
+    dsp = pt.dsp
+    x = _cplx(3 * 5000, 1).reshape(3, 5000)
+    st = dsp.mixer_init(rate, 0.7)
+    got, st_g = dsp.mixer_apply(st, x)
+    want, st_w = dsp.mixer_apply(st, x, device="cpu")
+    assert got.device.type == "cuda" and st_g == st_w
+    assert _rel(got.cpu(), want) <= MIXER_TOL
+    (gr, gi), _ = dsp.mixer_apply_split(st, x.real.copy(), x.imag.copy())
+    assert max(_rel(gr.cpu(), want.real), _rel(gi.cpu(), want.imag)) <= MIXER_TOL
+    x0 = x[0, :4096]
+    algos = {  # ALGO C, E and I: the same host carries, the products on each device
+        "C": lambda dev: dsp.shift_addfast_cc(x0, dsp.shift_addfast_init(rate), 0.3,
+                                              device=dev)[0],
+        "E": lambda dev: dsp.shift_limited_unroll_cc(x0, dsp.shift_limited_unroll_init(rate),
+                                                     device=dev),
+        "I": lambda dev: dsp.shift_recursive_osc_cc(x0, dsp.shift_recursive_osc_init(rate),
+                                                    device=dev),
+    }
+    for name, fn in algos.items():
+        assert _rel(fn("cuda").cpu(), fn("cpu")) <= MIXER_TOL, name
+    for name in dsp.carrier.__all__:
+        assert torch.equal(getattr(dsp, name)(64).cpu(), getattr(dsp, name)(64, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1, 16, 64])
+@pytest.mark.parametrize("fmt", ["f", "s16", "cs16", "cu8"])
+def test_cic_on_the_card_matches_cpu(cuda_device, factor, fmt):
+    rng = np.random.default_rng(factor)
+    n = 300 * factor
+    x = {"f": _cplx(n, 2), "s16": rng.integers(-32000, 32000, n).astype(np.int16),
+         "cs16": rng.integers(-32000, 32000, 2 * n).astype(np.int16),
+         "cu8": rng.integers(0, 256, 2 * n).astype(np.uint8)}[fmt]
+    per = 1 if fmt in ("f", "s16") else 2
+    gpu, cpu = pt.dsp.CicDDC(factor), pt.dsp.CicDDC(factor, device="cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    for half in (slice(0, n // 2 * per), slice(n // 2 * per, n * per)):
+        yg, sg = gpu.apply(sg, x[half], 0.1239, fmt)
+        yc, sc = cpu.apply(sc, x[half], 0.1239, fmt)
+        assert yg.device.type == "cuda" and _rel(yg.cpu(), yc) <= DSP_TOL
+    assert sg.phase_fp == sc.phase_fp and _rel(sg.hist_re.cpu(), sc.hist_re) <= DSP_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps,dtype", [(129, "float32"), (1024, "float32"), (129, "float64")])
+def test_ddc_chain_on_the_card_matches_cpu(cuda_device, taps, dtype):
+    h = pt.design_lowpass(taps, 0.5 / 8)
+    gpu = pt.DDCChain(-0.1, h, 8, dtype=dtype)
+    cpu = pt.DDCChain(-0.1, h, 8, dtype=dtype, device="cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    for j in range(2):
+        x = _cplx(1 << 14, 3 + j)
+        before = ck.zconv_stream.launches
+        yg, sg = gpu.process(sg, x)
+        yc, sc = cpu.process(sc, x)
+        torch.cuda.synchronize()
+        assert ck.zconv_stream.launches - before == (1 if dtype == "float32" else 0)
+        assert yg.dtype == yc.dtype and _rel(yg.cpu(), yc) <= DSP_TOL
+    assert sg.mixer == sc.mixer and _rel(sg.tail.cpu(), sc.tail) <= DSP_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop", [(1024, 512), (256, 64), (8192, 4096)])
+@pytest.mark.parametrize("tmajor", [False, True])
+def test_stft_on_the_card_matches_cpu(cuda_device, monkeypatch, n_fft, hop, tmajor):
+    sp = pt.spectral
+    monkeypatch.setattr(sp, "_TMAJOR_STFT", tmajor)
+    x = np.random.default_rng(n_fft).standard_normal((3, 40000)).astype(np.float32)
+    gr, gi = sp.stft_split(x, n_fft, hop)
+    cr, ci = sp.stft_split(x, n_fft, hop, device="cpu")
+    assert gr.device.type == "cuda" and gr.shape == cr.shape
+    assert max(_rel(gr.cpu(), cr), _rel(gi.cpu(), ci)) <= DSP_TOL
+    tr, ti = sp.stft_split_tmajor(x, n_fft, hop)
+    assert _rel(tr.permute(1, 2, 0).cpu(), cr) <= DSP_TOL
+    s = torch.complex(gr, gi)
+    before = (fs.cfft_fused2.launches, rk.real_split.launches)
+    y = sp.istft(s, hop, length=40000)
+    torch.cuda.synchronize()
+    if n_fft <= 4096:
+        assert (fs.cfft_fused2.launches, rk.real_split.launches) > before
+    core = slice(n_fft, 40000 - n_fft)
+    assert _rel(y[:, core].cpu(), torch.from_numpy(x[:, core])) <= DSP_TOL
+    assert _rel(sp.welch_psd(x, n_fft).cpu(), sp.welch_psd(x, n_fft, device="cpu")) <= DSP_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up,down", [(3, 2), (2, 3), (7, 5)])
+def test_resampler_on_the_card_matches_cpu(cuda_device, up, down):
+    x = np.random.default_rng(up).standard_normal((4, 30000)).astype(np.float32)
+    assert torch.get_float32_matmul_precision() == "highest"
+    got = pt.resample.Resampler(up, down, 16)(x)
+    want = pt.resample.Resampler(up, down, 16, device="cpu")(x)
+    assert got.device.type == "cuda" and _rel(got.cpu(), want) <= DSP_TOL
