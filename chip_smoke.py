@@ -79,7 +79,20 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      on the batch-major one and in ``istft``); each call timed beside its
      bound (and the banded products' fp32 operation time), the STFT beside
      ``torch.stft``;
- 15. timing with CUDA events (median of 10 after warm-up), per band shape,
+ 15. the transforms past the 2/3/5-smooth size contract and long-FIR
+     streaming (``anylen``), at the sizes of bench_pipeline's
+     bluestein_prime, zoom_czt, fft2 and pconv_fdl: Bluestein at N = 4099
+     (B9 at the inner M = 8640) and 12289 (kern2 at M = 25600) both ways,
+     ``rfft_any`` at N = 4099 and 4096, ``zoom_fft`` / ``czt_split``, 2-D
+     ``fftn_split`` on [64, 512, 512], ``dct2`` / ``dct3`` on [4096, 4096],
+     ``dct1`` / ``dst1`` at N = 4097 / 4095, ``PartitionedConv`` at 48000
+     and 4096 taps (B = 512, 8 channels, two calls with the state carried)
+     and the ``Fft`` object, each path driven with the counts at 0, its
+     kernels asserted, and held to a complex128 / float64 oracle (the
+     direct sums and matrix products on 64 sampled rows); one float64 case
+     per module; then each call timed beside its bytes bound, the PyTorch
+     yardstick and its parts;
+ 16. timing with CUDA events (median of 10 after warm-up), per band shape,
      per kernel and per FIR pipeline, beside the bound, the plain version
      and a library yardstick (torch.fft, conv1d); B1's launch-shape sweep
      (batch columns x values a thread, as kern2's pass A too), B4's (the
@@ -90,7 +103,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      copies around the column map it replaces; B10 beside kern2 on the
      same planes, with sweeps of its batch columns and cluster size; blocks
      per SM of B1, B3, B9 and B10 from the planner and from the card;
- 16. the ``kernels`` line, the card line, and the final ``ok`` line.
+ 17. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 repository checkout.  It imports neither jax nor pffft_tpu.
@@ -188,6 +201,25 @@ MIXER_TOL = 2e-6     # vs the float64 carrier of the exact fixed-point phase
 # n_fft = 8192 case, and its resample_3_2 (:224-240) on the same signal
 STFT_SHAPE, STFT_NFFT, STFT_HOP, STFT_BIG_NFFT = (4, 1 << 22), 1024, 512, 8192
 RESAMPLE_UP, RESAMPLE_DOWN, RESAMPLE_TAPS = 3, 2, 16
+# the anylen phase, at the full sizes of benchmarks/bench_pipeline.py:247-343
+# (bluestein_prime, zoom_czt, fft2, pconv_fdl; 64 MB per f32 plane) and
+# BASELINE.json config #1's N for the Fft object: Bluestein at a prime N
+# (inner M 8640 on B9) and at N = 12289 (M 25600 = 1600 * 16 on kern2),
+# rfft_any, the zoom (inner 4608 on B9), fftn_split on [64, 512, 512],
+# DCT/DST (B9 at 4096 and 8192), PartitionedConv at 48000 taps (P = 94)
+# and 4096 (P = 8), Fft real and complex
+BS_N, BS_B = 4099, 4092
+BS_TMAJOR_N, BS_TMAJOR_B = 12289, 1024
+BS_M_SWEEP = (8640, 9216, 10240, 12288, 16384)   # smooth M >= 2*4099 - 1 on B9
+RFFT_ANY_NS, RFFT_ANY_B = (4099, 4096), 4092
+ZOOM_N, ZOOM_M, ZOOM_F, ZOOM_B = 4096, 512, (0.2, 0.3), 4096
+FFT2_SHAPE = (64, 512, 512)
+DCT_SHAPE = (4096, 4096)
+DCT1_N, DST1_N, DCT_I_B = 4097, 4095, 2048
+PCONV_TAPS, PCONV_BLOCK, PCONV_CH, PCONV_BLOCKS = (48000, 4096), 512, 8, 256
+FFT_REAL_N, FFT_REAL_B = 1024, 16384
+FFT_CPLX_N, FFT_CPLX_B = 4096, 4096
+ORACLE_ROWS = 64     # rows of the direct-sum and matrix oracles
 DEV = "cuda"
 
 
@@ -617,6 +649,25 @@ def phase_kernels(gen):
         if D.select_engine(plan, b, False, dev) == "fused2":
             fused2_case(plan, n_fft // 2, b, (True,))
         split_b_case(n_fft // 2, b)
+    # the anylen paths' kernel calls, shape for shape: B9 ordered at their
+    # row lengths (Bluestein's and the zoom's inner M, fftn_split's rows, the
+    # DCTs' inner lengths, the real H of rfft_any, PartitionedConv and Fft,
+    # Fft's complex rows), B6 at the real H, and kern2's chain and combine at
+    # Bluestein's inner M = 25600
+    for n, b in ((pt.new_setup_any(BS_N).m, BS_B),
+                 (pt.zoom_fft_setup(ZOOM_N, ZOOM_F, ZOOM_M).m, ZOOM_B),
+                 (FFT2_SHAPE[-1], FFT2_SHAPE[0] * FFT2_SHAPE[1]), (DCT_SHAPE[1], DCT_SHAPE[0]),
+                 (2 * (DCT1_N - 1), DCT_I_B), (FFT_CPLX_N, FFT_CPLX_B)):
+        fused2_case(pt.new_setup(n, strict=False), n, b, (True,))
+    for h, b in ((RFFT_ANY_NS[1] // 2, RFFT_ANY_B), (PCONV_BLOCK, PCONV_CH * PCONV_BLOCKS),
+                 (FFT_REAL_N // 2, FFT_REAL_B)):
+        fused2_case(pt.new_setup(h, strict=False), h, b, (True,))
+        split_b_case(h, b)
+    m = pt.new_setup_any(BS_TMAJOR_N).m
+    km, kr = D._kern2_conf(m, dev)
+    mplan, last = D._build_ksplit(m, km, kr)
+    chain_case(mplan, km, kr * BS_TMAJOR_B)
+    combine_case(last, BS_TMAJOR_B)
     re, im = planes(1024, 16384, gen)
     cr, ci = pk.stream_copy(re, im)
     torch.cuda.synchronize()
@@ -2321,6 +2372,382 @@ def phase_spectral(gen):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Any-length transforms, N-D, DCT/DST, the partitioned convolution, Fft
+# ---------------------------------------------------------------------------
+
+
+def any_rows(b: int) -> torch.Tensor:
+    """ORACLE_ROWS rows spread over a batch of b."""
+
+    return torch.arange(0, b, max(1, b // ORACLE_ROWS), device=DEV)[:ORACLE_ROWS]
+
+
+def drive(name: str, fn, want):
+    """Run ``fn`` with every count at 0 and read the counts just after;
+    fails unless each wrapper named in ``want`` launched.  Returns (fn's
+    result, the counts)."""
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = counts()
+    emit({"phase": "anylen", "path": name, "launches": launched(got, {k: 0 for k in got})})
+    check(all(got[w] > 0 for w in want), f"{name}: launches {got}, expected {want}")
+    return out, got
+
+
+def hold_oracle(name: str, err: float, tol: float = ORACLE_TOL, **extra) -> None:
+    emit({"phase": "anylen", "path": name, "oracle_rel_err": err, **extra})
+    check(math.isfinite(err) and err <= tol, f"{name}: oracle error {err} > {tol}")
+
+
+def cplx(re, im) -> torch.Tensor:
+    return torch.complex(re.double(), im.double())
+
+
+def dct_oracle(name: str, x: torch.Tensor) -> torch.Tensor:
+    """FFTPACK's DCT-I/DST-I/DCT-II/DCT-III of the rows of x as a float64
+    matrix product, the phases reduced exactly in integers."""
+
+    n = x.shape[-1]
+    j = torch.arange(n, dtype=torch.int64, device=x.device)
+    k = j[:, None]
+    w = torch.full((n,), 2.0, dtype=torch.float64, device=x.device)
+    trig = torch.cos
+    if name == "dct1":
+        period, e = 2 * (n - 1), j[None, :] * k
+        w[0] = w[-1] = 1.0
+    elif name == "dst1":
+        period, e, trig = 2 * (n + 1), (j[None, :] + 1) * (k + 1), torch.sin
+    elif name == "dct2":
+        period, e = 4 * n, k * (2 * j[None, :] + 1)
+    else:  # dct3
+        period, e = 4 * n, j[None, :] * (2 * k + 1)
+        w[0] = 1.0
+    mat = trig((e % period).double() * (2.0 * math.pi / period)) * w[None, :]
+    return x.double() @ mat.T
+
+
+def czt_oracle(x: torch.Tensor, cp) -> torch.Tensor:
+    """sum_j x[j] A^-j W^jk of the rows of x, complex128."""
+
+    j = torch.arange(cp.n, dtype=torch.float64, device=x.device)
+    k = torch.arange(cp.m_out, dtype=torch.float64, device=x.device)[:, None]
+    turns = cp.a_phase * j[None, :] + cp.w_phase * (k * j[None, :])
+    return x.to(torch.complex128) @ torch.exp(-2j * math.pi * turns).T
+
+
+def stream_oracle(x: torch.Tensor, h: np.ndarray) -> torch.Tensor:
+    """np.convolve(x, h)[:len(x)] of one stream (zero history), float64."""
+
+    return conv_oracle(torch.cat([x.new_zeros(h.size - 1), x]), h)
+
+
+def phase_anylen(gen):
+    """The transform family past the 2/3/5-smooth size contract and
+    long-FIR streaming, at the full sizes of bench_pipeline's
+    bluestein_prime, zoom_czt, fft2 and pconv_fdl: Bluestein at N = 4099 (B9
+    at M = 8640) and 12289 (kern2 at M = 25600), ``rfft_any``,
+    ``zoom_fft`` / ``czt_split``, 2-D ``fftn_split``, DCT/DST, the
+    partitioned convolution at P = 94 and 8 and the ``Fft`` object, each
+    path driven with the counts at 0 and held to a float64 / complex128
+    oracle; one float64 case per module, no f32 kernel launched.  Returns
+    the launch counts of each path."""
+
+    check_fp32_matmul()
+    paths = []
+    # Bluestein, both directions, on [B, N] planes
+    for n, b, want in ((BS_N, BS_B, ("cfft_fused2",)),
+                       (BS_TMAJOR_N, BS_TMAJOR_B, ("cfft_chain_tmajor", "cfft_combine_tmajor"))):
+        plan = pt.new_setup_any(n)
+        re, im = planes(b, n, gen)
+        (fwd, bwd), got = drive(f"bluestein N={n}", lambda: (
+            pt.transform_ordered_split(plan, (re, im)),
+            pt.transform_ordered_split(plan, (re, im), pt.BACKWARD)), want)
+        paths.append(got)
+        z = cplx(re, im)
+        ref = torch.fft.fft(z, dim=-1)
+        e_fwd = rel_err(cplx(*fwd), ref)
+        del ref
+        e_bwd = rel_err(cplx(*bwd), torch.fft.ifft(z, dim=-1) * n)
+        hold_oracle(f"bluestein N={n}", max(e_fwd, e_bwd), m=plan.m, b=b, fwd=e_fwd, bwd=e_bwd,
+                    engine=D.select_engine(plan.inner, b, False, torch.device(DEV)))
+        check(fwd[0].shape == (b, n), f"bluestein N={n}: shape {tuple(fwd[0].shape)}")
+        del re, im, z, fwd, bwd
+    # rfft_any: Bluestein at N = 4099, the real plan (B9 at H, B6) at 4096
+    for n in RFFT_ANY_NS:
+        x = torch.randn((RFFT_ANY_B, n), generator=gen, device=DEV)
+        want = ("cfft_fused2", "real_split") if n % 2 == 0 else ("cfft_fused2",)
+        s, got = drive(f"rfft_any N={n}", lambda: pt.rfft_any(x), want)
+        paths.append(got)
+        back = pt.irfft_any(s, n)
+        hold_oracle(f"rfft_any N={n}", rel_err(s.to(torch.complex128),
+                                              torch.fft.rfft(x.double(), dim=-1)),
+                    roundtrip=rel_err(back / n, x))
+        check(s.shape == (RFFT_ANY_B, n // 2 + 1) and rel_err(back / n, x) <= ROUND_TRIP_TOL,
+              f"rfft_any N={n}: {tuple(s.shape)}")
+        del x, s, back
+    # zoom_fft and czt_split (B9 at M = 4608), oracle on sampled rows
+    cp = pt.zoom_fft_setup(ZOOM_N, ZOOM_F, ZOOM_M)
+    re, im = planes(ZOOM_B, ZOOM_N, gen)
+    (zoom, (zr, zi)), got = drive("zoom", lambda: (
+        pt.zoom_fft(re, ZOOM_F, ZOOM_M), pt.czt_split(cp, (re, im))), ("cfft_fused2",))
+    paths.append(got)
+    rows = any_rows(ZOOM_B)
+    e_zoom = rel_err(zoom[rows].to(torch.complex128), czt_oracle(re[rows], cp))
+    e_czt = rel_err(cplx(zr, zi)[rows], czt_oracle(cplx(re, im)[rows], cp))
+    hold_oracle("zoom", max(e_zoom, e_czt), m=cp.m, zoom=e_zoom, czt=e_czt)
+    check(zr.shape == (ZOOM_B, ZOOM_M), f"czt_split: shape {tuple(zr.shape)}")
+    del re, im, zoom, zr, zi
+    # 2-D fftn_split, both directions
+    nd = pt.fftn_setup(FFT2_SHAPE[-2:])
+    re = torch.randn(FFT2_SHAPE, generator=gen, device=DEV)
+    im = torch.randn(FFT2_SHAPE, generator=gen, device=DEV)
+    (fwd, bwd), got = drive("fftn_split", lambda: (
+        pt.fftn_split(nd, (re, im)), pt.fftn_split(nd, (re, im), pt.BACKWARD)),
+        ("cfft_fused2",))
+    paths.append(got)
+    z = cplx(re, im)
+    e_fwd = rel_err(cplx(*fwd), torch.fft.fft2(z))
+    e_bwd = rel_err(cplx(*bwd), torch.fft.ifft2(z) * nd.size)
+    hold_oracle("fftn_split", max(e_fwd, e_bwd), fwd=e_fwd, bwd=e_bwd)
+    del re, im, z, fwd, bwd
+    # DCT/DST: B9 at N = 4096 (dct2, dct3) and 8192 (dct1, dst1)
+    xq = torch.randn(DCT_SHAPE, generator=gen, device=DEV)
+    x1 = torch.randn((DCT_I_B, DCT1_N), generator=gen, device=DEV)
+    xs = torch.randn((DCT_I_B, DST1_N), generator=gen, device=DEV)
+    outs, got = drive("dct", lambda: {"dct2": pt.dct2(xq), "dct3": pt.dct3(xq),
+                                      "dct1": pt.dct1(x1), "dst1": pt.dst1(xs)},
+                      ("cfft_fused2",))
+    paths.append(got)
+    errs = {}
+    for name, x in (("dct2", xq), ("dct3", xq), ("dct1", x1), ("dst1", xs)):
+        rows = any_rows(x.shape[0])
+        errs[name] = rel_err(outs[name][rows].double(), dct_oracle(name, x[rows]))
+    hold_oracle("dct", max(errs.values()), **errs)
+    del xq, x1, xs, outs
+    # the partitioned convolution, two calls with the state carried
+    for taps in PCONV_TAPS:
+        h = np.random.default_rng(SEED + taps).standard_normal(taps).astype(np.float32) * 0.01
+        pc = pt.PartitionedConv(h, PCONV_BLOCK, device=DEV)
+        n = PCONV_BLOCKS * PCONV_BLOCK
+        x = torch.randn((PCONV_CH, 2 * n), generator=gen, device=DEV)
+
+        def run():
+            st = pc.init_state((PCONV_CH,))
+            y1, st = pc.process(st, x[:, :n])
+            y2, st = pc.process(st, x[:, n:])
+            return torch.cat([y1, y2], dim=-1)
+
+        y, got = drive(f"pconv taps={taps}", run, ("cfft_fused2", "real_split"))
+        paths.append(got)
+        err = max(rel_err(y[r].double(), stream_oracle(x[r].double(), h))
+                  for r in (0, PCONV_CH - 1))
+        hold_oracle(f"pconv taps={taps}", err, parts=pc.parts, block=PCONV_BLOCK)
+        del x, y
+    # the Fft object: a real and a complex setup, each equal to
+    # transform_ordered on the same input
+    fr = pt.Fft(np.float32, FFT_REAL_N, device=DEV)
+    fc = pt.Fft(np.complex64, FFT_CPLX_N, device=DEV)
+    xr = torch.randn((FFT_REAL_B, FFT_REAL_N), generator=gen, device=DEV)
+    xc = torch.complex(*planes(FFT_CPLX_B, FFT_CPLX_N, gen))
+    (sr, br, sc, bc), got = drive("Fft", lambda: (
+        fr.forward(xr), fr.inverse(fr.forward(xr)), fc.forward(xc), fc.inverse(fc.forward(xc))),
+        ("cfft_fused2", "real_split"))
+    paths.append(got)
+    same = bool(torch.equal(sr, pt.transform_ordered(fr.plan, xr))
+                and torch.equal(sc, pt.transform_ordered(fc.plan, xc)))
+    e_r = rel_err(pt.spectrum_unpack(sr).to(torch.complex128), torch.fft.rfft(xr.double(), dim=-1))
+    e_c = rel_err(sc.to(torch.complex128), torch.fft.fft(xc.to(torch.complex128), dim=-1))
+    e_rt = max(rel_err(br / FFT_REAL_N, xr), rel_err(bc / FFT_CPLX_N, xc))
+    hold_oracle("Fft", max(e_r, e_c), real=e_r, complex=e_c, roundtrip=e_rt,
+                equals_transform_ordered=same)
+    check(same and e_rt <= ROUND_TRIP_TOL, f"Fft: equal {same}, round trip {e_rt}")
+    del xr, xc, sr, br, sc, bc
+    # float64, one shape per module: the stage engine, no f32 kernel
+    reset_counts()
+    f64 = {"dtype": torch.float64, "device": DEV, "generator": gen}
+    e64 = {}
+    re, im = torch.randn((64, BS_N), **f64), torch.randn((64, BS_N), **f64)
+    e64["bluestein"] = rel_err(cplx(*pt.transform_ordered_split(
+        pt.new_setup_any(BS_N, dtype="float64"), (re, im))), torch.fft.fft(cplx(re, im), dim=-1))
+    re, im = torch.randn((4, 512, 512), **f64), torch.randn((4, 512, 512), **f64)
+    e64["fftn"] = rel_err(cplx(*pt.fftn_split(pt.fftn_setup((512, 512), "float64"), (re, im))),
+                          torch.fft.fft2(cplx(re, im)))
+    x = torch.randn((ORACLE_ROWS, DCT_SHAPE[1]), **f64)
+    e64["dct2"] = rel_err(pt.dct2(x), dct_oracle("dct2", x))
+    h = np.random.default_rng(SEED).standard_normal(PCONV_TAPS[1]) * 0.01
+    pc = pt.PartitionedConv(h, PCONV_BLOCK, dtype="float64", device=DEV)
+    x = torch.randn((2, 16 * PCONV_BLOCK), **f64)
+    y, _ = pc.process(pc.init_state((2,)), x)
+    e64["pconv"] = max(rel_err(y[r], stream_oracle(x[r], h)) for r in (0, 1))
+    z = torch.complex(torch.randn((64, FFT_CPLX_N), **f64), torch.randn((64, FFT_CPLX_N), **f64))
+    e64["Fft"] = rel_err(pt.Fft(np.complex128, FFT_CPLX_N, device=DEV).forward(z),
+                         torch.fft.fft(z, dim=-1))
+    torch.cuda.synchronize()
+    delta = launched(counts(), {k: 0 for k in counts()})
+    emit({"phase": "anylen", "path": "float64", **{k + "_rel_err": v for k, v in e64.items()},
+          "f32_kernel_launches": delta})
+    check(max(e64.values()) <= F64_TOL, f"anylen float64: errors {e64}")
+    check(delta == {}, f"anylen float64 calls launched f32 kernels: {delta}")
+    del re, im, x, y, z
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_anylen_timing(gen):
+    """Times of the any-length, N-D, DCT, partitioned-convolution and Fft
+    calls at their full sizes: ms per call beside the bytes bound (the planes
+    read once and written once; bench_pipeline's FDL model for the
+    partitioned convolution), the PyTorch yardstick where one call computes
+    the function, and the parts (chirps, transforms, product, copies)."""
+
+    dev = torch.device(DEV)
+
+    def row(call, shape, ms, nbytes, flops, library_ms=None, library=None, **parts):
+        bnd = bound(nbytes, flops)
+        emit({"phase": "anylen_time", "call": call, "shape": list(shape), "ms": ms,
+              "bound_ms": bnd[0], "bound_by": bnd[1], "frac_bound": bnd[0] / ms,
+              "library_ms": library_ms, "library": library, **parts})
+
+    def chirp_parts(plan, re, im, n_out):
+        """The chirp-Z pipeline's steps apart (pre-chirp and pad, one inner
+        transform, the product, the post-chirp), each elementwise step
+        beside its bytes bound (f32 planes read once and written once)."""
+
+        pre, kern, post = plan._device_tables(dev, False)
+        b, n = re.shape
+        pad = (0, plan.m - n)
+        ar, ai = S.split_mul((re, im), pre)
+        ar, ai = torch.nn.functional.pad(ar, pad), torch.nn.functional.pad(ai, pad)
+        sr, si = D.cfft_dispatch(plan.inner, ar, ai, time_major=False)
+        out = {"chirp_ms": time_ms(lambda: tuple(torch.nn.functional.pad(t, pad) for t in
+                                                 S.split_mul((re, im), pre)), inner=2),
+               "transform_ms": time_ms(lambda: D.cfft_dispatch(plan.inner, ar, ai,
+                                                               time_major=False), inner=2),
+               "product_ms": time_ms(lambda: S.split_mul((sr, si), kern), inner=2),
+               "post_ms": time_ms(lambda: S.split_mul(
+                   (sr[..., :n_out], si[..., :n_out]), (post[0][:n_out], post[1][:n_out])),
+                   inner=2),
+               "inner_m": plan.m,
+               "inner_engine": D.select_engine(plan.inner, b, False, dev),
+               "chirp_bound_ms": bound(8.0 * b * (n + plan.m), 0)[0],
+               "product_bound_ms": bound(16.0 * b * plan.m, 0)[0],
+               "post_bound_ms": bound(16.0 * b * n_out, 0)[0]}
+        return out
+
+    for n, b in ((BS_N, BS_B), (BS_TMAJOR_N, BS_TMAJOR_B)):
+        plan = pt.new_setup_any(n)
+        re, im = planes(b, n, gen)
+        z = torch.complex(re, im)
+        row("bluestein", (b, n), time_ms(lambda: pt.transform_ordered_split(plan, (re, im)),
+                                         inner=2),
+            16.0 * n * b, fft_flops(n, b),
+            time_ms(lambda: torch.fft.fft(z, dim=-1), inner=2), "torch.fft.fft(dim=-1)",
+            bwd_ms=time_ms(lambda: pt.transform_ordered_split(plan, (re, im), pt.BACKWARD),
+                           inner=2),
+            **chirp_parts(plan, re, im, n))
+        del re, im, z
+    # the inner transform at other smooth lengths >= 2N - 1 that B9 runs, on
+    # Bluestein's batch at N = 4099: what the inner-length rule trades
+    sweep = {}
+    for m in BS_M_SWEEP:
+        ar, ai = planes(BS_B, m, gen)
+        sweep[m] = time_ms(lambda: D.cfft_dispatch(pt.new_setup(m, strict=False), ar, ai,
+                                                   time_major=False), inner=2)
+        del ar, ai
+    emit({"phase": "anylen_time", "call": "bluestein inner transform", "b": BS_B,
+          "fused2_ms_by_m": sweep})
+    for n in RFFT_ANY_NS:
+        x = torch.randn((RFFT_ANY_B, n), generator=gen, device=DEV)
+        row("rfft_any", (RFFT_ANY_B, n), time_ms(lambda: pt.rfft_any(x), inner=2),
+            4.0 * n * RFFT_ANY_B + 8.0 * (n // 2 + 1) * RFFT_ANY_B, fft_flops(n, RFFT_ANY_B) / 2,
+            time_ms(lambda: torch.fft.rfft(x, dim=-1), inner=2), "torch.fft.rfft(dim=-1)")
+        del x
+    cp = pt.zoom_fft_setup(ZOOM_N, ZOOM_F, ZOOM_M)
+    re, im = planes(ZOOM_B, ZOOM_N, gen)
+    row("czt_split (zoom)", (ZOOM_B, ZOOM_N), time_ms(lambda: pt.czt_split(cp, (re, im)),
+                                                      inner=2),
+        8.0 * ZOOM_B * ZOOM_N * (1 + ZOOM_M / ZOOM_N), 2 * fft_flops(cp.m, ZOOM_B),
+        zoom_fft_ms=time_ms(lambda: pt.zoom_fft(re, ZOOM_F, ZOOM_M), inner=2),
+        **chirp_parts(cp, re, im, ZOOM_M))
+    del re, im
+    nd = pt.fftn_setup(FFT2_SHAPE[-2:])
+    re = torch.randn(FFT2_SHAPE, generator=gen, device=DEV)
+    im = torch.randn(FFT2_SHAPE, generator=gen, device=DEV)
+    z = torch.complex(re, im)
+    p1 = nd.plans[1]
+    numel = re.numel()
+    row("fftn_split (2-D)", FFT2_SHAPE, time_ms(lambda: pt.fftn_split(nd, (re, im)), inner=2),
+        16.0 * numel, fft_flops(nd.size, FFT2_SHAPE[0]),
+        time_ms(lambda: torch.fft.fft2(z), inner=2), "torch.fft.fft2",
+        axis_transform_ms=time_ms(lambda: pt.transform_ordered_split(p1, (re, im)), inner=2),
+        movedim_copy_ms=time_ms(lambda: (re.movedim(-2, -1).contiguous(),
+                                         im.movedim(-2, -1).contiguous()), inner=2))
+    del re, im, z
+    xq = torch.randn(DCT_SHAPE, generator=gen, device=DEV)
+    x1 = torch.randn((DCT_I_B, DCT1_N), generator=gen, device=DEV)
+    xs = torch.randn((DCT_I_B, DST1_N), generator=gen, device=DEV)
+    for name, x, m in (("dct2", xq, DCT_SHAPE[1]), ("dct3", xq, DCT_SHAPE[1]),
+                       ("dct1", x1, 2 * (DCT1_N - 1)), ("dst1", xs, 2 * (DST1_N + 1))):
+        b = x.shape[0]
+        ip = pt.new_setup(m)
+        zr, zi = torch.randn((b, m), generator=gen, device=DEV), torch.zeros((b, m), device=DEV)
+        fn = getattr(pt, name)
+        row(name, tuple(x.shape), time_ms(lambda: fn(x), inner=2),
+            8.0 * x.numel(), fft_flops(m, b),
+            inner_n=m, transform_ms=time_ms(lambda: D.cfft_dispatch(
+                ip, zr, zi, time_major=False), inner=2))
+        del zr, zi
+    del xq, x1, xs
+    for taps in PCONV_TAPS:
+        h = np.random.default_rng(SEED + taps).standard_normal(taps).astype(np.float32) * 0.01
+        pc = pt.PartitionedConv(h, PCONV_BLOCK, device=DEV)
+        n = PCONV_BLOCKS * PCONV_BLOCK
+        x = torch.randn((PCONV_CH, n), generator=gen, device=DEV)
+        st = pc.init_state((PCONV_CH,))
+        y, st = pc.process(st, x)
+        frames = torch.randn((PCONV_CH, PCONV_BLOCKS, 2 * PCONV_BLOCK), generator=gen,
+                             device=DEV)
+        xr, xi = pt.transform_ordered_split(pc.plan, frames)
+        ar, ai = torch.cat([st.sr, xr], dim=-2), torch.cat([st.si, xi], dim=-2)
+        acc = pc._accumulate(ar, ai, PCONV_BLOCKS)
+        tot = PCONV_CH * n
+        ms = time_ms(lambda: pc.process(st, x), inner=2)
+        # bench_pipeline's FDL model: the input read and the output written
+        # (4 bytes each), P spectra read and one written a block, both planes
+        row(f"PartitionedConv.process, taps={taps}", (PCONV_CH, n), ms,
+            tot * (8.0 + 8.0 * (pc.parts + 1)),
+            2 * fft_flops(PCONV_BLOCK, PCONV_CH * PCONV_BLOCKS) + 8.0 * pc.parts * tot,
+            parts=pc.parts, msamples_per_s=tot / ms / 1e3,
+            forward_ms=time_ms(lambda: pt.transform_ordered_split(pc.plan, frames), inner=2),
+            frame_ms=time_ms(lambda: torch.cat([st.tail, x], dim=-1).unfold(
+                -1, 2 * PCONV_BLOCK, PCONV_BLOCK).contiguous(), inner=2),
+            history_ms=time_ms(lambda: (torch.cat([st.sr, xr], dim=-2),
+                                        torch.cat([st.si, xi], dim=-2)), inner=2),
+            accumulate_ms=time_ms(lambda: pc._accumulate(ar, ai, PCONV_BLOCKS), inner=2),
+            backward_ms=time_ms(lambda: pt.transform_ordered_split(pc.plan, acc, pt.BACKWARD),
+                                inner=2))
+        del x, y, st, frames, xr, xi, ar, ai, acc
+    fr = pt.Fft(np.float32, FFT_REAL_N, device=DEV)
+    fc = pt.Fft(np.complex64, FFT_CPLX_N, device=DEV)
+    xr = torch.randn((FFT_REAL_B, FFT_REAL_N), generator=gen, device=DEV)
+    xc = torch.complex(*planes(FFT_CPLX_B, FFT_CPLX_N, gen))
+    sr, sc = fr.forward(xr), fc.forward(xc)
+    row("Fft(float32).forward", tuple(xr.shape), time_ms(lambda: fr.forward(xr)),
+        8.0 * xr.numel(), fft_flops(FFT_REAL_N, FFT_REAL_B) / 2,
+        time_ms(lambda: torch.fft.rfft(xr, dim=-1)), "torch.fft.rfft(dim=-1)",
+        inverse_ms=time_ms(lambda: fr.inverse(sr)))
+    row("Fft(complex64).forward", tuple(xc.shape), time_ms(lambda: fc.forward(xc)),
+        16.0 * xc.numel(), fft_flops(FFT_CPLX_N, FFT_CPLX_B),
+        time_ms(lambda: torch.fft.fft(xc, dim=-1)), "torch.fft.fft(dim=-1)",
+        inverse_ms=time_ms(lambda: fc.inverse(sc)),
+        to_split_ms=time_ms(lambda: S.to_split(xc)))
+    del xr, xc, sr, sc
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2342,12 +2769,14 @@ def main() -> int:
     phase_f64(gen)
     dsp_launches = phase_dsp(gen)
     spectral_launches = phase_spectral(gen)
+    anylen_launches = phase_anylen(gen)
     rows = phase_timing(gen, per_shape)
     rows.update(phase_real_timing(gen, real_shapes))
     phase_real_fused_sweep(gen)
     rows.update(phase_fir_timing(gen, conv_runs, chan_runs))
     rows.update(phase_bmajor_timing(gen, bm_shapes, bmr_shapes))
     rows.update(phase_ksplit2_timing(gen))
+    phase_anylen_timing(gen)
     for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split",
                  "conv_fused", "pfb_fir", "fused2", "real_split_bmajor", "ksplit2"):
         check(name in rows, f"no timing row for {name}")
@@ -2375,10 +2804,11 @@ def main() -> int:
               f"ksplit path did not launch every path kernel: {ksplit_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    # launches: the count over the ten main-path runs (each from zero); the
-    # float64 phase launches none
+    # launches: the count over the main-path runs, each from zero (the ten
+    # paths, then the anylen paths); the float64 phases launch none
     paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
-             bmr_launches, ks2_launches, ksplit_launches, dsp_launches, spectral_launches)
+             bmr_launches, ks2_launches, ksplit_launches, dsp_launches, spectral_launches,
+             *anylen_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),

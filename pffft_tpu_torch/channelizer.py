@@ -227,6 +227,13 @@ class Channelizer:
         (yr, yi), st = self.process_split(state, *_planes(x, self.device))
         return torch.complex(yr, yi), st
 
+    @property
+    def jitted_process(self):
+        """The reference's ``jax.jit(self.process)``: ``process`` itself
+        (there is no trace to compile)."""
+
+        return self.process
+
     def one_shot(self, x) -> torch.Tensor:
         """Zero history, process, drop state."""
 
@@ -367,3 +374,10 @@ class DDCChain:
         tail = ext[:, n:]
         return (torch.complex(y[0, :: self.decim], y[1, :: self.decim]),
                 DDCState(mixer=mst, tail=torch.complex(tail[0], tail[1])))
+
+    @property
+    def jitted_process(self):
+        """The reference's ``jax.jit(self.process)``: ``process`` itself
+        (there is no trace to compile)."""
+
+        return self.process

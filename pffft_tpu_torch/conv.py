@@ -38,6 +38,7 @@ the fused kernel is f32 only, as the reference's is.
 from __future__ import annotations
 
 import enum
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -165,6 +166,19 @@ class FastConv:
         if self.cplx_factor == 2:
             u &= ~1
         return u
+
+    @functools.cached_property
+    def hf(self) -> torch.Tensor:
+        """The filter spectrum as the reference holds it: a complex tensor
+        on the setup's device, unscaled, in internal layout: the transform
+        of the time-arranged filter g through a REAL plan of length nfft
+        (packed bin0) for a real filter, through the COMPLEX block plan for
+        a complex one.  The block pipeline uses its own canonical planes
+        scaled by 1/nfft (:meth:`_spectrum`)."""
+
+        plan = (self.plan if self.cplx_filter else
+                _plan.new_setup(self.nfft, _plan.REAL, dtype=self.dtype, strict=False))
+        return _fft.transform(plan, self._g, _plan.FORWARD, device=self.device)
 
     def _spectrum(self, device: torch.device):
         """Hf = FFT(g) / nfft as planes [nfft] of the setup's dtype on

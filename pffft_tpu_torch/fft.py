@@ -17,8 +17,9 @@ pffft's packed bin0 = DC + i*Nyquist.
 torch tensors stay on their device; numpy input goes to ``device``
 (default "cuda").  The caller's tensors are not modified, except by the
 ``_inplace`` forms, which write the result into the caller's planes (the C
-API's input == output aliasing).  Plans must be ``Plan`` objects (Bluestein
-plans are not ported, ROADMAP.md A9).  A float64 plan takes and gives
+API's input == output aliasing).  Plans are ``Plan`` objects; the ordered
+calls also take a ``bluestein.BluesteinPlan`` (any length N).  A float64
+plan takes and gives
 float64 planes and complex128 arrays, and runs the stage engine
 (``ops/dispatch.py``); a real float64 plan's split steps are the torch
 steps of ``ops/split.py``, in float64.
@@ -126,7 +127,8 @@ def _check_plan(plan, name: str) -> None:
     if not isinstance(plan, Plan):
         raise TypeError(
             f"unsupported plan type {type(plan).__name__} for {name} "
-            f"(Bluestein and CZT plans are not ported yet, ROADMAP.md A9)")
+            f"(a BluesteinPlan goes through transform_ordered / "
+            f"transform_ordered_split; CztPlan through czt/czt_split)")
 
 
 def _check_len(plan: Plan, x, backward: bool) -> None:
@@ -245,6 +247,15 @@ def transform_ordered(plan: Plan, x, direction=FORWARD, *, device: Optional[str]
     """
 
     d = _plan._coerce_direction(direction)
+    if not isinstance(plan, Plan):
+        from . import bluestein as _bs
+
+        if isinstance(plan, _bs.BluesteinPlan):  # arbitrary-N chirp-Z plan
+            return _bs.transform_any(plan, x, d, device=device)
+        raise TypeError(
+            f"unsupported plan type {type(plan).__name__} for "
+            f"transform_ordered (CztPlan goes through czt/czt_split; "
+            f"FourStepPlan through its forward/backward methods)")
     return _complex_call(plan, x, d, True, device, "transform_ordered")
 
 
@@ -369,6 +380,14 @@ def transform_ordered_split(plan: Plan, x, direction=FORWARD, *,
     """
 
     d = _plan._coerce_direction(direction)
+    if not isinstance(plan, Plan):
+        from . import bluestein as _bs
+
+        if isinstance(plan, _bs.BluesteinPlan):  # arbitrary-N chirp-Z plan
+            return _bs.transform_any_split(plan, x, d, device=device)
+        raise TypeError(
+            f"unsupported plan type {type(plan).__name__} for "
+            f"transform_ordered_split (CztPlan goes through czt_split)")
     return _split_call(plan, x, d, True, device, "transform_ordered_split")
 
 

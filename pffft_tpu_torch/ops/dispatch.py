@@ -205,7 +205,7 @@ def _kern2_conf(n: int, device=None) -> Optional[Tuple[int, int]]:
     if conf is not None:
         return conf
     for r in _pk.COMBINE_RADICES:
-        if n % r:
+        if n % r or n // r < 2:
             continue
         m = n // r
         mplan = _thin_plan(m)

@@ -175,16 +175,20 @@ def _apply_twiddle(ar, ai, twc, l_axis: int):
 
 @contextlib.contextmanager
 def _full_fp32():
-    """No TF32 and "highest" matmul precision inside the block."""
+    """No TF32 (matmuls and cuDNN convolutions) and "highest" matmul
+    precision inside the block."""
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
+    conv_tf32 = torch.backends.cudnn.allow_tf32
     prec = torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(prec)
+        torch.backends.cudnn.allow_tf32 = conv_tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 

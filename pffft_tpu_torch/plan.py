@@ -34,6 +34,8 @@ __all__ = [
     "StageTables",
     "Plan",
     "new_setup",
+    "simd_size",
+    "simd_arch",
     "min_fft_size",
     "is_valid_size",
     "nearest_transform_size",
@@ -76,6 +78,19 @@ DEFAULT_MAX_FACTOR = 5
 
 # long double pi, the literal of the native planner
 _PI_LD = np.longdouble("3.14159265358979323846264338327950288")
+
+
+def simd_size() -> int:
+    """pffft_simd_size parity: the original library's SIMD width (4), the
+    unit of the size contract (complex N a multiple of 16, real of 32)."""
+
+    return _REFERENCE_SIMD_SZ
+
+
+def simd_arch() -> str:
+    """pffft_simd_arch parity: the CUDA target the kernels are built for."""
+
+    return "cuda-sm_90a"
 
 
 def next_power_of_two(n: int) -> int:

@@ -286,10 +286,21 @@ def test_errors_match_reference():
 
 
 def test_unported_plans_raise():
+    # the port's Bluestein plan runs and matches the reference
+    x = (np.random.default_rng(97).standard_normal((3, 97))
+         + 1j * np.random.default_rng(98).standard_normal((3, 97))).astype(np.complex64)
+    want = np.asarray(pf.transform_ordered(pf.bluestein.new_setup_any(97), jnp.asarray(x)))
+    got = pt.transform_ordered(pt.new_setup_any(97), x, device=CPU)
+    assert got.dtype == torch.complex64
+    assert np.abs(got.numpy() - want).max() <= TOL * np.abs(want).max()
+    # plan objects of the JAX package are foreign types: the reference's text
     bplan = pf.bluestein.new_setup_any(97)
-    with pytest.raises(TypeError, match="A9"):
+    with pytest.raises(TypeError) as te:
         pt.transform_ordered(bplan, np.zeros(97, np.complex64), device=CPU)
-    with pytest.raises(TypeError, match="A9"):
+    with pytest.raises(TypeError) as rf:
+        pf.transform_ordered(pf.bluestein.CztPlan(97), jnp.zeros(97, jnp.complex64))
+    assert str(te.value) == str(rf.value).replace("CztPlan for", "BluesteinPlan for")
+    with pytest.raises(TypeError, match="unsupported plan type BluesteinPlan"):
         pt.transform_ordered_split(bplan, (np.zeros(97), np.zeros(97)), device=CPU)
     # float64 plans are ported (tests/test_torch_f64.py): they run
     x = np.zeros((2, 64), np.float32)

@@ -912,3 +912,125 @@ def test_resampler_on_the_card_matches_cpu(cuda_device, up, down):
     got = pt.resample.Resampler(up, down, 16)(x)
     want = pt.resample.Resampler(up, down, 16, device="cpu")(x)
     assert got.device.type == "cuda" and _rel(got.cpu(), want) <= DSP_TOL
+
+
+# ---------------------------------------------------------------------------
+# Any-length transforms, N-D, DCT/DST, the partitioned convolution and Fft
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return (fs.cfft_fused2.launches, rk.real_split.launches, pk.cfft_chain_tmajor.launches,
+            pk.cfft_combine_tmajor.launches)
+
+
+def _crand(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [97, 4099, 12289])
+def test_bluestein_on_the_card_matches_oracle(cuda_device, n):
+    """B9 for inner lengths up to 16384 (N = 97, 4099), kern2 behind the
+    "tmajor" route above (N = 12289, M = 25600)."""
+
+    plan = pt.new_setup_any(n)
+    x = torch.from_numpy(_crand((5, n), n)).to(cuda_device)
+    ref = torch.fft.fft(x.to(torch.complex128), dim=-1)
+    before = _launches()
+    got = pt.transform_ordered(plan, x)
+    back = pt.transform_ordered(plan, got, pt.BACKWARD)
+    torch.cuda.synchronize()
+    delta = [a - b for a, b in zip(_launches(), before)]
+    if plan.m <= fs.MAX_N:
+        assert delta[0] == 4
+    else:
+        assert delta[2] == 4 and delta[3] == 4
+    assert _rel(got.to(torch.complex128), ref) <= ORACLE_TOL
+    assert _rel(back / n, x) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4099, 101])
+def test_rfft_any_on_the_card_matches_cpu(cuda_device, n):
+    x = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32)
+    got = pt.rfft_any(x)
+    want = pt.rfft_any(x, device="cpu")
+    assert got.device.type == "cuda" and _rel(got.cpu(), want) <= ORACLE_TOL
+    assert _rel(pt.irfft_any(got, n).cpu(), pt.irfft_any(want, n)) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+def test_zoom_and_czt_on_the_card_match_cpu(cuda_device):
+    x = np.random.default_rng(7).standard_normal((4, 4096)).astype(np.float32)
+    got = pt.zoom_fft(x, (0.2, 0.3), 512)
+    want = pt.zoom_fft(x, (0.2, 0.3), 512, device="cpu")
+    assert got.device.type == "cuda" and _rel(got.cpu(), want) <= ORACLE_TOL
+    plan = pt.CztPlan(53, 29, w_phase=0.013, a_phase=0.21)
+    z = _crand((3, 53), 8)
+    assert _rel(pt.czt(plan, z).cpu(), pt.czt(plan, z, device="cpu")) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64, 128), (17, 30)])
+def test_fftn_on_the_card_matches_oracle(cuda_device, shape):
+    x = torch.from_numpy(_crand(shape, len(shape))).to(cuda_device)
+    nd = pt.fftn_setup(shape[-2:])
+    gr, gi = pt.fftn_split(nd, (x.real, x.imag))
+    ref = torch.fft.fft2(x.to(torch.complex128))
+    assert _rel(torch.complex(gr, gi).to(torch.complex128), ref) <= ORACLE_TOL
+    got = pt.rfftn(x.real.contiguous())
+    assert _rel(got.to(torch.complex128), torch.fft.rfftn(x.real.double())) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("dct1", 4097), ("dst1", 4095), ("dct2", 4096),
+                                    ("dct3", 4096), ("dst2", 97), ("dst3", 60)])
+def test_dct_on_the_card_matches_cpu(cuda_device, name, n):
+    x = np.random.default_rng(n).standard_normal((8, n)).astype(np.float32)
+    before = fs.cfft_fused2.launches
+    got = getattr(pt.dct, name)(x)
+    torch.cuda.synchronize()
+    assert fs.cfft_fused2.launches > before
+    want = getattr(pt.dct, name)(x, device="cpu")
+    assert got.device.type == "cuda" and _rel(got.cpu(), want) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps,block", [(4096, 512), (48000, 512), (1000, 96)])
+def test_pconv_on_the_card_matches_cpu(cuda_device, taps, block):
+    """P <= 16 and P > 16; two calls with the state carried; B9 and B6 a
+    transform."""
+
+    h = np.random.default_rng(taps).standard_normal(taps).astype(np.float32)
+    gpu, cpu = pt.PartitionedConv(h, block), pt.PartitionedConv(h, block, device="cpu")
+    x = np.random.default_rng(block).standard_normal((2, 8 * block)).astype(np.float32)
+    sg, sc = gpu.init_state((2,)), cpu.init_state((2,))
+    for j in range(2):
+        chunk = x[:, 4 * j * block:4 * (j + 1) * block]
+        before = _launches()
+        yg, sg = gpu.process(sg, chunk)
+        torch.cuda.synchronize()
+        delta = [a - b for a, b in zip(_launches(), before)]
+        assert delta[0] == 2 and delta[1] == 2
+        yc, sc = cpu.process(sc, chunk)
+        assert _rel(yg.cpu(), yc) <= ORACLE_TOL
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(np.float32, 1024), (np.complex64, 4096),
+                                     (np.float64, 256), (np.complex128, 96)])
+def test_fft_object_on_the_card_matches_transform(cuda_device, dtype, n):
+    f = pt.Fft(dtype, n)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((16, n))
+    if np.iscomplexobj(np.zeros(1, dtype)):
+        x = x + 1j * rng.standard_normal((16, n))
+    x = x.astype(dtype)
+    spec = f.forward(x)
+    assert spec.device.type == "cuda"
+    assert torch.equal(spec, pt.transform_ordered(f.plan, x))
+    assert _rel(f.inverse(spec).cpu() / n, torch.from_numpy(x)) <= ORACLE_TOL
+    assert f.value_vector(2).device.type == "cuda"

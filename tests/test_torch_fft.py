@@ -90,9 +90,24 @@ def test_errors_match_reference():
 
 
 def test_unported_plans_raise():
+    # the port's Bluestein plan runs through the batch-major split call and
+    # matches the reference; the time-major call takes Plans only
+    re, im = _planes(2, 97, 5)
+    er, ei = pf.transform_ordered_split(pf.bluestein.new_setup_any(97),
+                                        (jnp.asarray(re), jnp.asarray(im)))
+    gr, gi = pt.transform_ordered_split(pt.new_setup_any(97), (re, im), device=CPU)
+    scale = max(np.abs(er).max(), np.abs(ei).max())
+    assert np.abs(gr.numpy() - er).max() <= TOL * scale
+    assert np.abs(gi.numpy() - ei).max() <= TOL * scale
     x = np.zeros((97, 2), np.float32)
-    with pytest.raises(TypeError, match="A9"):
-        pt.transform_ordered_split_tmajor(pf.bluestein.new_setup_any(97), (x, x), device=CPU)
+    with pytest.raises(TypeError, match="unsupported plan type BluesteinPlan"):
+        pt.transform_ordered_split_tmajor(pt.new_setup_any(97), (x, x), device=CPU)
+    # a plan object of the JAX package is a foreign type: the reference's text
+    with pytest.raises(TypeError) as te:
+        pt.transform_ordered_split(pf.bluestein.new_setup_any(97), (x.T, x.T), device=CPU)
+    with pytest.raises(TypeError) as rf:
+        pf.transform_ordered_split(pf.bluestein.CztPlan(97), (jnp.asarray(x.T),) * 2)
+    assert str(te.value) == str(rf.value).replace("CztPlan for", "BluesteinPlan for")
     # float64 plans are ported (tests/test_torch_f64.py): they run
     y = pt.transform_ordered_split_tmajor(pt.new_setup(64, pt.REAL, dtype="float64"),
                                           x[:64].astype(np.float64), device=CPU)
