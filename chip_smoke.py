@@ -103,15 +103,31 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      copies around the column map it replaces; B10 beside kern2 on the
      same planes, with sweeps of its batch columns and cluster size; blocks
      per SM of B1, B3, B9 and B10 from the planner and from the card;
- 17. the ``kernels`` line, the card line, and the final ``ok`` line.
+ 17. the SDR capture path (``capture``): 4 channels x 2^23 complex samples,
+     seeded noise and two tones quantized to cs16 by the port's
+     ``runtime.convert_planar_f32_cs16``, converted back by the native
+     ``convert_cs16_planar_f32``, moved to the card and channelized by
+     ``Channelizer(4096, 8)`` in two chunks (B8 + kern2); cu8 at [16, 2^20]
+     through ``convert_cu8_planar_f32`` into ``OversampledChannelizer(1024,
+     2, 8)`` (B8 from offsets 0 and H, then B1); each against the float64
+     polyphase / complex128-DFT oracle, two chunks against one, the tones in
+     their channels; one float64 step of each channelizer (no f32 kernel,
+     1e-12 of the oracle); ``StreamingConv`` at 1024 taps on the native ring
+     buffer over 2^22 samples in seeded chunks of 1 .. 2^17 (B7's column
+     map) against a float64 convolution; then the converters' GB/s, the
+     framer's push + frames() native against its numpy arm, the whole
+     capture step against the channelizer step alone, and float64 steps
+     against float32 ones;
+ 18. the ``kernels`` line, the card line, and the final ``ok`` line.
 
-Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
-repository checkout.  It imports neither jax nor pffft_tpu.
+Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda), g++ (the
+host runtime) and the repository checkout.  It imports neither jax nor pffft_tpu.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -124,6 +140,7 @@ import torch
 import pffft_tpu_torch as pt
 from pffft_tpu_torch import channelizer as CH
 from pffft_tpu_torch import conv as C
+from pffft_tpu_torch import runtime as RT
 from pffft_tpu_torch.ops import _build
 from pffft_tpu_torch.ops import conv_kernel as ck
 from pffft_tpu_torch.ops import dispatch as D
@@ -220,6 +237,21 @@ PCONV_TAPS, PCONV_BLOCK, PCONV_CH, PCONV_BLOCKS = (48000, 4096), 512, 8, 256
 FFT_REAL_N, FFT_REAL_B = 1024, 16384
 FFT_CPLX_N, FFT_CPLX_B = 4096, 4096
 ORACLE_ROWS = 64     # rows of the direct-sum and matrix oracles
+# the capture phase: BASELINE.json's channelizer stream (config #5) and
+# streamed real blocks through pffastconv (config #3) fed from a radio, at
+# CHAN_CONFIGS' full sizes: cs16 at 4 channels x 2^23 complex samples into
+# Channelizer(4096, 8) in two chunks of 2^22; cu8 at [16, 2^20] into
+# OversampledChannelizer(1024, 2, 8); one float64 step of each at [4,
+# 2^22] and [16, 2^20]; StreamingConv at 1024 taps over 2^22 samples pushed
+# in seeded chunks of 1 .. 2^17 samples
+CAP_CS16_SHAPE, CAP_CU8_SHAPE, CAP_F64_SHAPE = (4, 1 << 23), (16, 1 << 20), (4, 1 << 22)
+CAP_CHANNELIZERS = ((CAP_CS16_SHAPE, 4096, 1), (CAP_CU8_SHAPE, 1024, 2))  # (shape, M, V)
+CAP_TAPS_PER_PHASE = 8
+CAP_TONES = {4096: ((1000, 0.25), (3000, 0.2)), 1024: ((100, 0.25), (700, 0.2))}
+CAP_NOISE = 0.05     # noise rms per plane, of full scale
+CAP_TONE_TOL = 0.02  # a tone's mean channel magnitude within 2% of its amplitude
+CAP_STREAM_N, CAP_STREAM_TAPS, CAP_CHUNK_MAX = 1 << 22, 1024, 1 << 17
+CAP_FRAMER_N, CAP_FRAMER_REPS = 1 << 16, 64
 DEV = "cuda"
 
 
@@ -391,16 +423,20 @@ def phase_kernels(gen):
              lambda bwd: pk.combine_tmajor_plain(last, re, im, backward=bwd),
              {"m": last.l, "r": last.r, "b": b})
 
-    # the main path's kernel calls, shape for shape
-    for n, b in BAND:
-        engine = D.select_engine(pt.new_setup(n), b, True, dev)
-        if engine == "chain":
+    def transform_case(n, b):
+        # the time-major transform's kernel calls at [N, B]: the chain, or
+        # kern2's pass A and combine
+        if D.select_engine(pt.new_setup(n), b, True, dev) == "chain":
             chain_case(D._chain_plan(pt.new_setup(n), dev), n, b)
         else:
             m, r = D._kern2_conf(n, dev)
             mplan, last = D._build_ksplit(n, m, r)
             chain_case(mplan, m, r * b)
             combine_case(last, b)
+
+    # the main path's kernel calls, shape for shape
+    for n, b in BAND:
+        transform_case(n, b)
     # small, non-power-of-two, ragged and odd batches; N=2400 is routed to
     # kern2 (the chain does not cover it), and the kernel still runs it at 4
     # columns; every launch shape of B1's sweep at N = 1024 and 2048
@@ -514,7 +550,7 @@ def phase_kernels(gen):
              {"map": "stream", "n": n, "u": u, "shape": list(x.shape), "total": total,
               "complex": x.is_complex(), "complex_filter": cplx_filter}, dirs=(False,))
 
-    def pfb_case(m, p, r, k, maps=("rows", "stream"), offsets=(0,), sliced=False):
+    def pfb_case(m, p, r, k, maps=("rows", "stream"), offsets=(0,), lead=0, width=None):
         w = torch.randn((p, m), generator=gen, device="cuda")
         if "rows" in maps:
             rows = torch.randn((r, k + p - 1, m), generator=gen, device="cuda")
@@ -523,15 +559,16 @@ def phase_kernels(gen):
                  {"map": "rows", "m": m, "p": p, "r": r, "k": k}, dirs=(False,))
         if "stream" in maps:
             hist = planes(r, p * m, gen)
-            # sliced: chunk rows that are slices of wider rows, as a caller's
-            # chunk of a longer stream is (read in place, unaligned)
-            x = planes(r, k * m + 3 * sliced, gen)
-            x = tuple(t[:, 3 * sliced:] for t in x)
+            # chunk rows that are slices of wider rows (``width`` samples,
+            # the chunk from ``lead``), as a caller's chunk of a longer
+            # stream is: read in place
+            width = width or k * m + lead
+            x = tuple(t[:, lead:lead + k * m] for t in planes(r, width, gen))
             for off in offsets:
                 hold("pfb_fir", lambda bwd: pfb.pfb_fir_stream_tmajor(hist, x, w, k, off),
                      lambda bwd: pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k, off),
                      {"map": "stream", "m": m, "p": p, "r": r, "k": k, "offset": off,
-                      "sliced": sliced}, dirs=(False,))
+                      "lead": lead, "width": width}, dirs=(False,))
 
     # the FIR paths' kernel calls, shape for shape: the fused conv kernel's
     # stream map on FastConv's streams (its column map on StreamingConv's
@@ -559,6 +596,19 @@ def phase_kernels(gen):
     for (m, p, batch, frames), offs in zip(CHAN_CONFIGS, ((0,), (0, CHAN_CONFIGS[1][0] // 2))):
         pfb_case(m, p, batch, frames, ("stream",), offs)
     pfb_case(4096, 8, 4, 1024, ("rows",))
+    # the capture path's channelizer steps, shape for shape: B8 on the
+    # chunks read in place from the stream's rows, at every residue's offset,
+    # then the transform over the phases on batch x frames columns
+    for m, v, b, k, lead, width in capture_channelizer_steps():
+        pfb_case(m, CAP_TAPS_PER_PHASE, b, k, ("stream",), tuple(r * m // v for r in range(v)),
+                 lead, width)
+    for m, b in sorted({(m, b * k) for m, _, b, k, _, _ in capture_channelizer_steps()}):
+        transform_case(m, b)
+    # and its StreamingConv: the column map at every column count its
+    # seeded pushes give
+    fc = C.FastConv(pt.design_lowpass(CAP_STREAM_TAPS, 0.1))
+    for cols in sorted(set(capture_launch_columns(fc.nfft, fc.num_out_per_block))):
+        conv_case(fc.nfft, cols, False)
     # small, non-power-of-two nfft; ragged and odd column counts (scalar
     # loads); real and complex filters
     for n in (64, 128, 480, 2048):
@@ -571,7 +621,7 @@ def phase_kernels(gen):
         for p in (1, 4, 8, 33):
             pfb_case(m, p, 3, 70, offsets=(0, m // 2))
     pfb_case(1000, 8, 3, 3, ("stream",), (0, 500))
-    pfb_case(4096, 8, 4, 100, ("stream",), (0, 2048), sliced=True)
+    pfb_case(4096, 8, 4, 100, ("stream",), (0, 2048), lead=3)
 
     def fused2_case(plan, n, b, orders=(True, False)):
         re, im = planes(b, n, gen)  # batch-major rows [B, N]
@@ -1692,7 +1742,7 @@ def phase_fir_timing(gen, conv_runs, chan_runs):
         bnd = bound(16.0 * samples, 2 * (2.0 * p * samples) + fft_flops(m, batch * frames))
         # where a step's time goes: the new state (a copy of the chunk's
         # tail), the polyphase launch (both planes), the FFT over the phases
-        x, _, _ = ch._advance(st, xr, xi)
+        _, x, _, _ = ch._advance(st, xr, xi)
         w = ch._weights(dev)
         v = pfb.pfb_fir_stream_tmajor(st, x, w, frames)
         k_ms = time_ms(lambda: pfb.pfb_fir_stream_tmajor(st, x, w, frames))
@@ -2748,6 +2798,358 @@ def phase_anylen_timing(gen):
     torch.cuda.empty_cache()
 
 
+def capture_chunks() -> list:
+    """The seeded push sizes of the capture phase's StreamingConv run."""
+
+    rng = np.random.default_rng(SEED)
+    sizes, total = [], 0
+    while total < CAP_STREAM_N:
+        sizes.append(min(int(rng.integers(1, CAP_CHUNK_MAX + 1)), CAP_STREAM_N - total))
+        total += sizes[-1]
+    return sizes
+
+
+def capture_channelizer_steps() -> list:
+    """The capture phase's float32 channelizer steps in the order it runs
+    them, (M, V, batch, frames, lead, width): for each stream two chunks of
+    half its length, read in place from its rows of ``width`` samples at
+    ``lead``, then the whole stream in one step."""
+
+    steps = []
+    for (b, n), m, v in CAP_CHANNELIZERS:
+        half = n // 2
+        steps += [(m, v, b, half // m, j * half, n) for j in range(2)]
+        steps.append((m, v, b, n // m, 0, n))
+    return steps
+
+
+def capture_launch_columns(nfft: int, hop: int) -> list:
+    """B7's column count at each launch of that run: the frames the framer
+    emits after each push (and the flush's one), two frames a column,
+    padded to a multiple of 4."""
+
+    frames, pending = [], 0
+    for n in capture_chunks():
+        pending += n
+        k = 0 if pending < nfft else (pending - nfft) // hop + 1
+        pending -= k * hop
+        frames += [k] if k else []
+    frames += [1] if pending else []
+    return [-(-((k + (k & 1)) // 2) // 4) * 4 for k in frames]
+
+
+@contextlib.contextmanager
+def numpy_arm():
+    """The host runtime's numpy arm (``load`` finds no library), to time
+    the native arm against."""
+
+    load = RT.load
+    RT.load = lambda: None
+    try:
+        yield
+    finally:
+        RT.load = load
+
+
+def capture_signal(shape, m: int, gen, dtype=torch.float32):
+    """Seeded complex noise (CAP_NOISE rms a plane) plus the tones
+    CAP_TONES[m] at their channels' centre frequencies c/M, each row at a
+    seeded phase: planes on the card."""
+
+    f64 = {"generator": gen, "device": "cuda", "dtype": torch.float64}
+    xr, xi = torch.randn(shape, **f64) * CAP_NOISE, torch.randn(shape, **f64) * CAP_NOISE
+    t = torch.arange(shape[-1], device="cuda", dtype=torch.int64)
+    for c, a in CAP_TONES[m]:
+        ang = 2 * math.pi * ((c * t) % m).to(torch.float64) / m
+        ang = ang + torch.rand((shape[0], 1), **f64) * (2 * math.pi)
+        xr += a * torch.cos(ang)
+        xi += a * torch.sin(ang)
+    return xr.to(dtype), xi.to(dtype)
+
+
+def tone_levels(yr, yi, m: int, skip: int):
+    """(ok, record): the mean |Y| of each channel over rows and the frames
+    past the first ``skip`` (those read the zero history); the two strongest
+    channels must be the tones', each within CAP_TONE_TOL of its amplitude
+    (the prototype's DC gain is 1)."""
+
+    y = torch.complex(yr[..., skip:, :], yi[..., skip:, :])
+    mag = y.abs().double().mean(dim=tuple(range(y.ndim - 1)))
+    top = sorted(torch.topk(mag, 2).indices.tolist())
+    levels = {c: float(mag[c]) for c, _ in CAP_TONES[m]}
+    ok = (top == sorted(levels)
+          and all(abs(levels[c] - a) <= CAP_TONE_TOL * a for c, a in CAP_TONES[m]))
+    return ok, {"strongest": top, "levels": levels,
+                "amplitudes": {c: a for c, a in CAP_TONES[m]}}
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``fn`` over ``reps`` calls (``fn`` ends in a
+    synchronize where it launches work on the card)."""
+
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def phase_capture(gen, smi: str):
+    """The SDR capture path on the native host runtime: sample bytes, the
+    native converters, planar float32 on the card, the channelizers (and
+    StreamingConv on the native ring buffer), driven with the counts at 0
+    and held to float64 oracles; then float64 steps and the timings.
+    Returns the launch counts of the float32 runs."""
+
+    check(RT.HAVE_NATIVE, "the native host runtime did not load")
+    dev = torch.device("cuda")
+    ((rows, n), m, _), ((urows, un), om, ov) = CAP_CHANNELIZERS
+    p = CAP_TAPS_PER_PHASE
+    # the sample bytes: cs16 quantized by the port's converter, cu8 offset
+    # binary (round(128 x + 127.4)); made before the counted run
+    xr, xi = capture_signal(CAP_CS16_SHAPE, m, gen)
+    cs16 = RT.convert_planar_f32_cs16(xr.cpu().numpy(), xi.cpu().numpy()).reshape(rows, 2 * n)
+    ur, ui = capture_signal(CAP_CU8_SHAPE, om, gen)
+    cu8 = torch.stack([(u * 128 + 127.4).round().clamp(0, 255) for u in (ur, ui)], dim=-1)
+    cu8 = cu8.to(torch.uint8).reshape(urows, 2 * un).cpu().numpy()
+    xs = torch.randn(CAP_STREAM_N, generator=gen, device="cuda")
+    xs_host = xs.cpu().numpy()
+    del xr, xi, ur, ui
+    h = pt.design_lowpass(CAP_STREAM_TAPS, 0.1)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    # cs16 -> the critically sampled channelizer, two chunks, then one
+    re, im = RT.convert_cs16_planar_f32(cs16)
+    xr = torch.from_numpy(re.reshape(rows, n)).to(dev)
+    xi = torch.from_numpy(im.reshape(rows, n)).to(dev)
+    ch = CH.Channelizer(m, p)
+    st, outs, half = ch.init_state((rows,)), [], n // 2
+    for j in range(2):
+        y, st = ch.process_split(st, xr[:, j * half:(j + 1) * half], xi[:, j * half:(j + 1) * half])
+        outs.append(y)
+    (ar, ai), _ = ch.process_split(ch.init_state((rows,)), xr, xi)
+    # cu8 -> the oversampled channelizer, two chunks, then one
+    ure, uim = RT.convert_cu8_planar_f32(cu8)
+    ur = torch.from_numpy(ure.reshape(urows, un)).to(dev)
+    ui = torch.from_numpy(uim.reshape(urows, un)).to(dev)
+    och = CH.OversampledChannelizer(om, ov, p)
+    ost, oouts, uhalf = och.init_state((urows,)), [], un // 2
+    for j in range(2):
+        y, ost = och.process_split(ost, ur[:, j * uhalf:(j + 1) * uhalf],
+                                   ui[:, j * uhalf:(j + 1) * uhalf])
+        oouts.append(y)
+    (oar, oai), _ = och.process_split(och.init_state((urows,)), ur, ui)
+    # a real stream on the native ring buffer through StreamingConv
+    sc = C.StreamingConv(h)
+    parts, pos = [], 0
+    for size in capture_chunks():
+        parts.append(sc.push(xs_host[pos:pos + size]))
+        pos += size
+    parts.append(sc.flush())
+    torch.cuda.synchronize()
+    launches = counts()
+
+    # each channelizer step: one B8 launch and one transform per residue
+    # (B1, and B2 where kern2 serves it), on the chunk's and the whole
+    # stream's columns; each StreamingConv run one column-map launch
+    want = {"pfb_fir_stream_tmajor": 0, "cfft_chain_tmajor": 0, "cfft_combine_tmajor": 0}
+    for sm, residues, b, k, _, _ in capture_channelizer_steps():
+        want["pfb_fir_stream_tmajor"] += residues
+        want["cfft_chain_tmajor"] += residues
+        if D.select_engine({m: ch.plan, om: och.base.plan}[sm], b * k, True, dev) == "kern2":
+            want["cfft_combine_tmajor"] += residues
+    want = {k: v for k, v in want.items() if v}
+    want["zconv_tmajor"] = len(capture_launch_columns(sc.setup.nfft, sc.setup.num_out_per_block))
+    emit({"phase": "capture", "launches": launches, "expected": want,
+          "native": RT.HAVE_NATIVE, "streaming_native": sc.native})
+    check(launched(launches, {k: 0 for k in launches}) == want,
+          f"capture path: launches {launches}, expected {want}")
+    check(sc.native, "StreamingConv did not take the native ring buffer")
+
+    # the converters' native arm against the numpy arm, bit for bit, on a slice
+    with numpy_arm():
+        nre, nim = RT.convert_cs16_planar_f32(cs16[:, :1 << 17])
+        nure, nuim = RT.convert_cu8_planar_f32(cu8[:, :1 << 17])
+    same = (np.array_equal(nre, re.reshape(rows, n)[:, :1 << 16].ravel())
+            and np.array_equal(nim, im.reshape(rows, n)[:, :1 << 16].ravel())
+            and np.array_equal(nure, ure.reshape(urows, un)[:, :1 << 16].ravel())
+            and np.array_equal(nuim, uim.reshape(urows, un)[:, :1 << 16].ravel()))
+    check(same, "native converters differ from the numpy arm")
+    # the critically sampled run against the oracle, two chunks against one,
+    # the tones in their channels
+    yr = torch.cat([o[0] for o in outs], dim=-2)
+    yi = torch.cat([o[1] for o in outs], dim=-2)
+    e_chunks = max(rel_err(ar, yr), rel_err(ai, yi))
+    err = max(rel_err(torch.complex(yr[r], yi[r]), pfb_oracle(torch.complex(xr[r], xi[r]),
+                                                              ch.weights))
+              for r in (0, rows - 1))
+    tones_ok, tone_rec = tone_levels(yr, yi, m, p)
+    emit({"phase": "capture", "run": "cs16_channelizer", "shape": [rows, n], "m": m, "p": p,
+          "out_shape": list(yr.shape), "oracle_rel_err": err,
+          "two_chunks_vs_one_rel_err": e_chunks, "tones": tone_rec, "converters_bit_exact": same})
+    check(yr.shape == (rows, n // m, m) and bool(torch.isfinite(yr).all()),
+          "capture cs16: output not finite/shaped")
+    check(err <= ORACLE_TOL and e_chunks <= KERNEL_TOL,
+          f"capture cs16: oracle {err}, chunks {e_chunks}")
+    check(tones_ok, f"capture cs16: tones {tone_rec}")
+    # the oversampled run, the same checks (the oracle per residue, times
+    # the residue's phase table)
+    oyr = torch.cat([o[0] for o in oouts], dim=-2)
+    oyi = torch.cat([o[1] for o in oouts], dim=-2)
+    oe_chunks = max(rel_err(oar, oyr), rel_err(oai, oyi))
+    oerr = 0.0
+    for r in (0, urows - 1):
+        x0 = torch.complex(ur[r], ui[r])
+        ref = torch.empty((un // om, ov, om), dtype=torch.complex128, device="cuda")
+        for res in range(ov):
+            ph = torch.from_numpy(och.ph_re[res] + 1j * och.ph_im[res].astype(np.float64))
+            ref[:, res] = pfb_oracle(x0, och.base.weights, res * och.hop) * ph.to("cuda")
+        oerr = max(oerr, rel_err(torch.complex(oyr[r], oyi[r]), ref.reshape(-1, om)))
+    otones_ok, otone_rec = tone_levels(oyr, oyi, om, ov * p)
+    emit({"phase": "capture", "run": "cu8_oversampled", "shape": [urows, un], "m": om, "v": ov,
+          "p": p, "out_shape": list(oyr.shape), "oracle_rel_err": oerr,
+          "two_chunks_vs_one_rel_err": oe_chunks, "tones": otone_rec})
+    check(oyr.shape == (urows, ov * un // om, om) and bool(torch.isfinite(oyr).all()),
+          "capture cu8: output not finite/shaped")
+    check(oerr <= ORACLE_TOL and oe_chunks <= KERNEL_TOL,
+          f"capture cu8: oracle {oerr}, chunks {oe_chunks}")
+    check(otones_ok, f"capture cu8: tones {otone_rec}")
+    # StreamingConv on the native ring against a float64 convolution
+    got = np.concatenate(parts)
+    serr = (rel_err(torch.from_numpy(got).to(dev).double(), conv_oracle(xs, h))
+            if got.shape == (CAP_STREAM_N - CAP_STREAM_TAPS + 1,) else 1.0)
+    emit({"phase": "capture", "run": "streaming_conv", "taps": CAP_STREAM_TAPS,
+          "samples": CAP_STREAM_N, "pushes": len(parts) - 1, "out": int(got.size),
+          "native": sc.native, "oracle_rel_err": serr})
+    check(serr <= ORACLE_TOL, f"capture StreamingConv: {got.shape}, oracle error {serr}")
+    del yr, yi, ar, ai, outs, oyr, oyi, oar, oai, oouts
+
+    # one float64 step of each channelizer: no f32 kernel, 1e-12 of the oracle
+    c0 = counts()
+    f64 = {"generator": gen, "device": "cuda", "dtype": torch.float64}
+    dr, di = torch.randn(CAP_F64_SHAPE, **f64), torch.randn(CAP_F64_SHAPE, **f64)
+    ch64 = CH.Channelizer(m, p, dtype="float64")
+    (dyr, dyi), _ = ch64.process_split(ch64.init_state((CAP_F64_SHAPE[0],)), dr, di)
+    our, oui = torch.randn(CAP_CU8_SHAPE, **f64), torch.randn(CAP_CU8_SHAPE, **f64)
+    och64 = CH.OversampledChannelizer(om, ov, p, dtype="float64")
+    (doyr, doyi), _ = och64.process_split(och64.init_state((urows,)), our, oui)
+    torch.cuda.synchronize()
+    f32_launches = launched(counts(), c0)
+    e64 = max(rel_err(torch.complex(dyr[r], dyi[r]),
+                      pfb_oracle(torch.complex(dr[r], di[r]), ch64.weights))
+              for r in (0, CAP_F64_SHAPE[0] - 1))
+    oe64 = 0.0
+    for r in (0, urows - 1):
+        ref = torch.empty((un // om, ov, om), dtype=torch.complex128, device="cuda")
+        for res in range(ov):
+            ph = torch.from_numpy(och64.ph_re[res] + 1j * och64.ph_im[res]).to("cuda")
+            ref[:, res] = pfb_oracle(torch.complex(our[r], oui[r]), och64.base.weights,
+                                     res * och64.hop) * ph
+        oe64 = max(oe64, rel_err(torch.complex(doyr[r], doyi[r]), ref.reshape(-1, om)))
+    typed = dyr.dtype == doyr.dtype == torch.float64
+    emit({"phase": "capture", "run": "float64", "channelizer": list(CAP_F64_SHAPE),
+          "oversampled": [urows, un], "typed": typed, "oracle_rel_err": e64,
+          "oversampled_oracle_rel_err": oe64, "f32_kernel_launches": f32_launches})
+    check(typed and e64 <= F64_TOL and oe64 <= F64_TOL,
+          f"capture float64: {dyr.dtype}, oracle {e64}, oversampled {oe64}")
+    check(f32_launches == {}, f"float64 channelizers launched f32 kernels: {f32_launches}")
+    del dyr, dyi, doyr, doyi
+
+    # timings: the converters on the host, native against the numpy arm
+    conv_cases = (
+        ("s16_f32", lambda: RT.convert_s16_f32(cs16), 3 * cs16.nbytes),
+        ("cs16_planar_f32", lambda: RT.convert_cs16_planar_f32(cs16), 3 * cs16.nbytes),
+        ("cu8_planar_f32", lambda: RT.convert_cu8_planar_f32(cu8), 5 * cu8.nbytes),
+        ("planar_f32_cs16", lambda: RT.convert_planar_f32_cs16(re, im), 3 * re.nbytes))
+    for name, fn, nbytes in conv_cases:
+        fn()
+        nat = host_ms(fn)
+        with numpy_arm():
+            nump = host_ms(fn, 3)
+        emit({"phase": "capture_time", "converter": name, "bytes": nbytes, "native_ms": nat,
+              "native_gbps": nbytes / nat / 1e6, "numpy_ms": nump,
+              "numpy_gbps": nbytes / nump / 1e6, "card": smi})
+    # where a converter's time goes: the same native loop into planes whose
+    # pages are touched already, against the first and the second touch of
+    # a buffer the planes' size (each call of the public converter writes
+    # fresh pages)
+    lib = RT.load()
+    pre_re, pre_im = np.zeros_like(re), np.zeros_like(im)
+    pre_re.fill(1.0)
+    pre_im.fill(1.0)
+    args = (RT._ptr(cs16, ctypes.c_int16), RT._ptr(pre_re, ctypes.c_float),
+            RT._ptr(pre_im, ctypes.c_float), re.size)
+    warm_buf = np.zeros(2 * re.size, np.float32)
+    warm_buf.fill(1.0)
+    emit({"phase": "capture_time", "converter": "cs16_planar_f32", "bytes": 3 * cs16.nbytes,
+          "native_touched_out_ms": host_ms(lambda: lib.pftt_convert_cs16_planar_f32(*args)),
+          "first_touch_fill_ms": host_ms(
+              lambda: np.empty(2 * re.size, np.float32).fill(0.0)),
+          "second_touch_fill_ms": host_ms(lambda: warm_buf.fill(0.0)),
+          "out_bytes": 2 * re.nbytes, "card": smi})
+    del pre_re, pre_im, warm_buf
+    # the framer: push + frames() per CAP_FRAMER_N samples at StreamingConv's
+    # frame and hop, native against the numpy arm
+    blk = np.random.default_rng(SEED).standard_normal(CAP_FRAMER_N).astype(np.float32)
+
+    def framer_ms():
+        fr = RT.StreamFramer(sc.setup.nfft, sc.setup.num_out_per_block)
+
+        def run():
+            for _ in range(CAP_FRAMER_REPS):
+                fr.push(blk)
+                fr.frames()
+
+        run()
+        return host_ms(run, 3) / CAP_FRAMER_REPS, fr.native
+
+    nat_ms, nat_native = framer_ms()
+    with numpy_arm():
+        np_ms, np_native = framer_ms()
+    check(nat_native and not np_native, "framer arms")
+    emit({"phase": "capture_time", "framer": [sc.setup.nfft, sc.setup.num_out_per_block],
+          "samples_per_push": CAP_FRAMER_N, "native_ms": nat_ms, "numpy_ms": np_ms,
+          "card": smi})
+    # the whole capture step (convert, copy to the card, channelize) against
+    # the channelizer step alone, on one chunk of the cs16 stream
+    chunk = np.ascontiguousarray(cs16[:, :n])  # 2^22 complex samples a channel
+    st0 = ch.init_state((rows,))
+    cre, cim = RT.convert_cs16_planar_f32(chunk)
+
+    def h2d():
+        torch.from_numpy(cre).to(dev), torch.from_numpy(cim).to(dev)
+        torch.cuda.synchronize()
+
+    def capture_step():
+        a, b = RT.convert_cs16_planar_f32(chunk)
+        ch.process_split(st0, torch.from_numpy(a.reshape(rows, -1)).to(dev),
+                         torch.from_numpy(b.reshape(rows, -1)).to(dev))
+        torch.cuda.synchronize()
+
+    capture_step()
+    xr_c, xi_c = xr[:, :half], xi[:, :half]
+    rec = {"phase": "capture_time", "step": [rows, half], "m": m, "p": p,
+           "capture_step_ms": host_ms(capture_step),
+           "convert_ms": host_ms(lambda: RT.convert_cs16_planar_f32(chunk)),
+           "h2d_ms": host_ms(h2d),
+           "channelizer_step_ms": time_ms(lambda: ch.process_split(st0, xr_c, xi_c), inner=2),
+           "channelizer_tmajor_step_ms": time_ms(
+               lambda: ch.process_split_tmajor(st0, xr_c, xi_c), inner=2),
+           "f64_step_ms": time_ms(lambda: ch64.process_split(
+               ch64.init_state((rows,)), dr, di), inner=1),
+           "oversampled_step_ms": time_ms(lambda: och.process_split(
+               och.init_state((urows,)), ur, ui), inner=2),
+           "oversampled_f64_step_ms": time_ms(lambda: och64.process_split(
+               och64.init_state((urows,)), our, oui), inner=1),
+           "card": smi}
+    emit(rec)
+    del xr, xi, ur, ui, dr, di, our, oui, xs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2770,6 +3172,7 @@ def main() -> int:
     dsp_launches = phase_dsp(gen)
     spectral_launches = phase_spectral(gen)
     anylen_launches = phase_anylen(gen)
+    cap_launches = phase_capture(gen, smi)
     rows = phase_timing(gen, per_shape)
     rows.update(phase_real_timing(gen, real_shapes))
     phase_real_fused_sweep(gen)
@@ -2799,16 +3202,21 @@ def main() -> int:
         check(bmr_launches[name] > 0,
               f"batch-major real path did not launch every path kernel: {bmr_launches}")
     check(ks2_launches["cfft_ksplit2_tmajor"] > 0, f"B10's path did not launch it: {ks2_launches}")
+    for name in ("pfb_fir_stream_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor",
+                 "zconv_tmajor"):
+        check(cap_launches[name] > 0,
+              f"capture path did not launch every path kernel: {cap_launches}")
     for name in ("cfft_chain_tmajor", "real_split_tmajor"):
         check(ksplit_launches[name] > 0,
               f"ksplit path did not launch every path kernel: {ksplit_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     # launches: the count over the main-path runs, each from zero (the ten
-    # paths, then the anylen paths); the float64 phases launch none
+    # paths, then the anylen paths and the capture path); the float64 phases
+    # launch none
     paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
              bmr_launches, ks2_launches, ksplit_launches, dsp_launches, spectral_launches,
-             *anylen_launches)
+             *anylen_launches, cap_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),

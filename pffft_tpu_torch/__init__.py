@@ -13,8 +13,10 @@ real, on batch-major arrays [..., N] (the pffft.h parity API:
 ``rfft_packed`` and the spectrum and frequency helpers) and on time-major
 planes, :func:`transform_ordered_split_tmajor`; FIR filtering by
 overlap-save, :mod:`conv` (``FastConv``, ``StreamingConv``, float32 and
-float64); the polyphase channelizers and the ``DDCChain`` downconverter,
-:mod:`channelizer`; the PFDSP mixers, carriers and CIC, :mod:`dsp`; the
+float64); the host runtime, :mod:`runtime` (the native planner, the
+stream ring buffer and the SDR sample converters, C++ built by g++ on
+first use); the polyphase channelizers, float32 and float64, and the
+``DDCChain`` downconverter, :mod:`channelizer`; the PFDSP mixers, carriers and CIC, :mod:`dsp`; the
 STFT front end, :mod:`spectral`; the rational resampler, :mod:`resample`;
 transforms of any length (Bluestein, the CZT and the spectral zoom),
 :mod:`bluestein`; N-D transforms, :mod:`nd`; DCT/DST, :mod:`dct`; the

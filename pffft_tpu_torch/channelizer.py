@@ -29,9 +29,12 @@ in memory of its own, so a caller may refill a chunk's buffer after the
 step (the kernel reads the history in place; only the new state is copied,
 P*M samples a row).
 numpy input goes to the channelizer's ``device`` (default "cuda"); tensors
-stay where they are.  Float64 channelizers are not ported (ROADMAP.md A5):
-the reference's float64 FIR is its XLA multiply-accumulate path, which
-needs a torch counterpart of its own.
+stay where they are.  A float64 channelizer computes in float64 and
+complex128 with no kernel, as the reference's float64 path does: the
+polyphase step is the reference's time-major multiply-accumulate of P
+shifted slices of the history-prefixed stream (``_mac_tmajor``), read from
+each residue's offset, and the DFT over the phases runs on the float64
+stage engine; ``process_split`` moves the channel axis back as in float32.
 
 :class:`DDCChain` is the explicit-stage downconverter of BASELINE.json
 config #4: the NCO mixer, an overlap-save lowpass (``conv.FastConv``) and
@@ -73,29 +76,30 @@ def design_lowpass(num_taps: int, cutoff: float, window: str = "hamming") -> np.
     return (h / h.sum()).astype(np.float64)
 
 
-def _planes(x, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A complex stream (numpy or tensor) as f32 planes."""
+def _planes(x, device, plan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A complex stream (numpy or tensor) as planes of the plan's dtype."""
 
     if isinstance(x, torch.Tensor):
-        x = x.to(torch.complex64)
+        x = x.to(_fft._complex_dtype(plan))
         return x.real, x.imag
     x = np.asarray(x)
-    return _fft._as_plane(np.real(x), device), _fft._as_plane(np.imag(x), device)
+    return _fft._as_plane(np.real(x), device, plan), _fft._as_plane(np.imag(x), device, plan)
 
 
-def _chunk_plane(x, device) -> torch.Tensor:
-    """A chunk plane as float32 with unit inner stride: a tensor that is a
-    slice of wider rows stays a view (the kernel reads it in place); numpy
-    arrays go to ``device``."""
+def _chunk_plane(x, device, plan) -> torch.Tensor:
+    """A chunk plane in the plan's dtype with unit inner stride: a tensor
+    that is a slice of wider rows stays a view (the kernel reads it in
+    place); numpy arrays go to ``device``."""
 
     if not isinstance(x, torch.Tensor):
-        return _fft._as_plane(x, device)
-    x = x.to(torch.float32)
+        return _fft._as_plane(x, device, plan)
+    x = x.to(_fft._real_dtype(plan))
     return x if x.ndim and x.stride(-1) == 1 else x.contiguous()
 
 
 class ChannelizerState(NamedTuple):
-    """Streaming history: the last P*M input samples, planar f32."""
+    """Streaming history: the last P*M input samples, planar, in the
+    channelizer's dtype."""
 
     hist_re: torch.Tensor  # [..., P*M]
     hist_im: torch.Tensor
@@ -103,9 +107,16 @@ class ChannelizerState(NamedTuple):
 
 def state_from_arrays(hist_re, hist_im, device="cuda") -> ChannelizerState:
     """The port's state from arrays, e.g. a reference ``ChannelizerState``
-    as numpy: the stream carries on from there."""
+    as numpy: the stream carries on from there.  float64 arrays stay
+    float64, others become float32; a channelizer casts the state to its
+    own dtype."""
 
-    return ChannelizerState(_fft._as_plane(hist_re, device), _fft._as_plane(hist_im, device))
+    def plane(h):
+        dt = h.dtype if isinstance(h, torch.Tensor) else np.asarray(h).dtype
+        return _fft._to_device(h, device, torch.float64 if dt in (np.float64, torch.float64)
+                               else torch.float32)
+
+    return ChannelizerState(plane(hist_re), plane(hist_im))
 
 
 class Channelizer:
@@ -125,8 +136,6 @@ class Channelizer:
     ):
         m, p = int(num_channels), int(taps_per_channel)
         self.dtype = np.dtype(dtype)
-        if self.dtype == np.float64:
-            raise NotImplementedError("float64 channelizers are not ported yet (ROADMAP.md A5)")
         if prototype is None:
             prototype = design_lowpass(p * m, 0.5 / m)
         prototype = np.asarray(prototype, dtype=np.float64)
@@ -158,35 +167,65 @@ class Channelizer:
         return w
 
     def init_state(self, channels_shape: Tuple[int, ...] = (), device=None) -> ChannelizerState:
-        z = torch.zeros((*channels_shape, self.p * self.m), dtype=torch.float32,
+        z = torch.zeros((*channels_shape, self.p * self.m), dtype=_fft._real_dtype(self.plan),
                         device=self.device if device is None else device)
         return ChannelizerState(hist_re=z, hist_im=z)
 
     # ------------------------------------------------------------------
-    def _pfb_split_tmajor(self, state: ChannelizerState, x, k: int, offset: int = 0):
+    def _mac_tmajor(self, ext: torch.Tensor, k: int, offset: int = 0) -> torch.Tensor:
+        """The float64 polyphase step, the reference's ``_polyphase_tmajor``:
+        ext [..., P*M + L] (history-prefixed) read from ``offset`` < M -> v
+        [M, R*K] with columns frame-fastest, v[phi, (r, k)] = sum_s hb[s,
+        phi] ext[r, (P + k - s)*M - phi + offset].
+
+        With e = ext[offset:], the phase rows tf[phi, r, q] = e[r, (q+1)*M -
+        phi] are frame q+1's first sample for phi = 0 and frame q's sample
+        M - phi above; v is sum_s hb[s] * tf[..., P-1-s : P-1-s+K].  Nothing
+        past e[:, (P+K-1)*M] is read, so the residues need no zero padding."""
+
+        m, p = self.m, self.p
+        w = self._weights(ext.device)
+        e = ext.reshape(-1, ext.shape[-1])[:, offset:]
+        q = p + k - 1
+        body = e[:, :q * m].reshape(-1, q, m).permute(2, 0, 1)  # body[j, r, q] = e[r, q*M + j]
+        row0 = e[:, m:q * m + 1:m]  # e[r, (q+1)*M]
+        tf = torch.cat([row0[None], body[1:].flip(0)], dim=0)
+        acc = tf[..., p - 1:p - 1 + k] * w[0][:, None, None]
+        for s in range(1, p):
+            acc = acc + tf[..., p - 1 - s:p - 1 - s + k] * w[s][:, None, None]
+        return acc.reshape(m, -1)
+
+    def _pfb_split_tmajor(self, state: ChannelizerState, x, k: int, offsets=(0,)) -> list:
         """The history and the chunk planes x = (x_re, x_im) [..., K*M],
-        read from ``offset`` -> the channels ([M, B*K]) x2, channel-major,
-        columns frame-fastest."""
+        read from each of ``offsets`` -> for each, the channels ([M, B*K])
+        x2, channel-major, columns frame-fastest.  Float64 joins history and
+        chunk once for all offsets; float32 reads both in place."""
 
-        w = self._weights(x[0].device)
-        v = _pfb.pfb_fir_stream_tmajor(state, x, w, k, offset)
-        return _fft.transform_ordered_split_tmajor(self.plan, v, _plan.BACKWARD)
+        if self.dtype == np.float64:
+            ext = [torch.cat([h, c], dim=-1) for h, c in zip(state, x)]
+            vs = [tuple(self._mac_tmajor(e, k, off) for e in ext) for off in offsets]
+        else:
+            w = self._weights(x[0].device)
+            vs = [_pfb.pfb_fir_stream_tmajor(state, x, w, k, off) for off in offsets]
+        return [_fft.transform_ordered_split_tmajor(self.plan, v, _plan.BACKWARD) for v in vs]
 
-    def _pfb_split(self, state: ChannelizerState, x, k: int, offset: int = 0):
-        """As :meth:`_pfb_split_tmajor` -> ([..., K, M]) x2."""
+    def _pfb_split(self, state: ChannelizerState, x, k: int, offsets=(0,)) -> list:
+        """As :meth:`_pfb_split_tmajor` -> for each offset ([..., K, M]) x2."""
 
         lead = x[0].shape[:-1]
-        return tuple(y.reshape(self.m, *lead, k).movedim(0, -1).contiguous()
-                     for y in self._pfb_split_tmajor(state, x, k, offset))
+        return [tuple(y.reshape(self.m, *lead, k).movedim(0, -1).contiguous() for y in ys)
+                for ys in self._pfb_split_tmajor(state, x, k, offsets)]
 
     def _advance(self, state: ChannelizerState, x_re, x_im):
-        """((x_re, x_im), K, state'): the chunk as planes on the device and
-        the new state, the last P*M samples of [history, chunk], copied out
-        of the chunk (one copy for both planes when it holds K >= P frames,
-        else a concatenation of at most P*M samples), so the caller may
-        reuse the chunk's buffer."""
+        """(state, (x_re, x_im), K, state'): the state in the channelizer's
+        dtype, the chunk as planes on the device and the new state, the last
+        P*M samples of [history, chunk], copied out of the chunk (one copy
+        for both planes when it holds K >= P frames, else a concatenation of
+        at most P*M samples), so the caller may reuse the chunk's buffer."""
 
-        x_re, x_im = _chunk_plane(x_re, self.device), _chunk_plane(x_im, self.device)
+        state = ChannelizerState(*(h.to(_fft._real_dtype(self.plan)) for h in state))
+        x_re = _chunk_plane(x_re, self.device, self.plan)
+        x_im = _chunk_plane(x_im, self.device, self.plan)
         if x_re.shape[-1] % self.m:
             raise ValueError(
                 f"stream chunk length {x_re.shape[-1]} must be a multiple of M={self.m}")
@@ -198,7 +237,7 @@ class Channelizer:
             st = ChannelizerState(
                 hist_re=torch.cat([state.hist_re[..., length:], x_re], dim=-1),
                 hist_im=torch.cat([state.hist_im[..., length:], x_im], dim=-1))
-        return (x_re, x_im), length // self.m, st
+        return state, (x_re, x_im), length // self.m, st
 
     def process_split_tmajor(
         self, state: ChannelizerState, x_re, x_im
@@ -207,8 +246,8 @@ class Channelizer:
         [..., L] x2 -> (([M, B*K]) x2, state'), with no transpose back
         (columns run frame-fastest, batch-major over any leading dims)."""
 
-        x, k, st = self._advance(state, x_re, x_im)
-        return self._pfb_split_tmajor(state, x, k), st
+        state, x, k, st = self._advance(state, x_re, x_im)
+        return self._pfb_split_tmajor(state, x, k)[0], st
 
     def process_split(
         self, state: ChannelizerState, x_re, x_im
@@ -216,15 +255,15 @@ class Channelizer:
         """Split-format stream step: planes [..., L] x2 ->
         (([..., L//M, M]) x2, state')."""
 
-        x, k, st = self._advance(state, x_re, x_im)
-        return self._pfb_split(state, x, k), st
+        state, x, k, st = self._advance(state, x_re, x_im)
+        return self._pfb_split(state, x, k)[0], st
 
     def process(self, state: ChannelizerState, x) -> Tuple[torch.Tensor, ChannelizerState]:
         """Stream step: x [..., L] complex (L % M == 0) ->
-        (Y [..., L//M, M] complex64, state').  Y[..., k, c] is channel c of
-        output frame k at rate fs/M."""
+        (Y [..., L//M, M] complex64, or complex128 in float64, state').
+        Y[..., k, c] is channel c of output frame k at rate fs/M."""
 
-        (yr, yi), st = self.process_split(state, *_planes(x, self.device))
+        (yr, yi), st = self.process_split(state, *_planes(x, self.device, self.plan))
         return torch.complex(yr, yi), st
 
     @property
@@ -271,8 +310,8 @@ class OversampledChannelizer:
         r = np.arange(self.v)[:, None]
         c = np.arange(m)[None, :]
         ang = -2.0 * np.pi * (r * self.hop % m) * c / m
-        self.ph_re = np.cos(ang).astype(np.float32)
-        self.ph_im = np.sin(ang).astype(np.float32)
+        self.ph_re = np.cos(ang).astype(self.base.dtype)
+        self.ph_im = np.sin(ang).astype(self.base.dtype)
 
     @property
     def m(self) -> int:
@@ -286,17 +325,16 @@ class OversampledChannelizer:
         Output frame k is stream time k*H (H = M/V)."""
 
         b = self.base
-        x, k, st = b._advance(state, x_re, x_im)
+        state, x, k, st = b._advance(state, x_re, x_im)
         lead = x[0].shape[:-1]
         dev = x[0].device
         ph_re = torch.from_numpy(self.ph_re).to(dev)
         ph_im = torch.from_numpy(self.ph_im).to(dev)
-        yr = torch.empty((*lead, k, self.v, b.m), dtype=torch.float32, device=dev)
+        yr = torch.empty((*lead, k, self.v, b.m), dtype=_fft._real_dtype(b.plan), device=dev)
         yi = torch.empty_like(yr)
-        for r in range(self.v):
-            # residue r samples times k*M + r*H: the stream read from offset
-            # r*H (zeros past its end are never read)
-            vr, vi = b._pfb_split(state, x, k, r * self.hop)
+        # residue r samples times k*M + r*H: the stream read from offset r*H
+        offsets = [r * self.hop for r in range(self.v)]
+        for r, (vr, vi) in enumerate(b._pfb_split(state, x, k, offsets)):
             pr, pi = ph_re[r], ph_im[r]
             yr[..., r, :] = vr * pr - vi * pi
             yi[..., r, :] = vr * pi + vi * pr
@@ -304,7 +342,7 @@ class OversampledChannelizer:
         return (yr.reshape(*lead, k * self.v, b.m), yi.reshape(*lead, k * self.v, b.m)), st
 
     def process(self, state: ChannelizerState, x):
-        (yr, yi), st = self.process_split(state, *_planes(x, self.base.device))
+        (yr, yi), st = self.process_split(state, *_planes(x, self.base.device, self.base.plan))
         return torch.complex(yr, yi), st
 
 

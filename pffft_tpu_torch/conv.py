@@ -362,8 +362,9 @@ class StreamingConv:
     """Streaming FIR: the host framer + the device block pipeline.
 
     Push chunks of any size, get back whatever filtered output became
-    ready (numpy, as the reference's); the framer carries the overlap-save
-    tail.  Real streams only.
+    ready (numpy, as the reference's); the framer (``runtime.StreamFramer``,
+    the native ring buffer) carries the overlap-save tail.  Real streams
+    only.
 
     >>> sc = StreamingConv(h, device="cpu")
     >>> for chunk in chunks: out.append(sc.push(chunk))
@@ -381,7 +382,8 @@ class StreamingConv:
 
     @property
     def native(self) -> bool:
-        """Whether a native ring buffer frames the stream (never, yet)."""
+        """Whether the native ring buffer frames the stream (False only
+        where no C++ compiler was found: then the numpy arm does)."""
 
         return self._framer.native
 

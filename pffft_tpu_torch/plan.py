@@ -9,7 +9,8 @@ Twiddles follow the reference's native planner
 (``pffft_tpu/runtime/native/planner.cc``): the exponent is reduced exactly
 in integers, cos/sin are taken in long double, and the result is rounded
 through float64 to the plan dtype.  The f32 tables therefore equal the
-reference's native-planner tables bit for bit.
+reference's native-planner tables bit for bit, and the port's own native
+planner (``runtime/native/planner.cc``) gives the same tables.
 
 All tables are stored with the FORWARD sign; backward transforms conjugate
 them where they are used.

@@ -21,7 +21,13 @@ GROUPS (comma-separated; all by default):
     2048), the public real time-major forward and backward at N = 2048 and
     4096 (B3's route) and the forward at N = 8192 .. 131072 (N*B = 2^24);
   * ``chan``: a channelizer step (``process_split_tmajor``) at (M, P,
-    batch, frames) = (4096, 8, 4, 1024) and (1024, 8, 16, 1024).
+    batch, frames) = (4096, 8, 4, 1024) and (1024, 8, 16, 1024);
+  * ``chan64``: float64 steps, ``Channelizer(4096, 8)`` on [4, 2^22]
+    (``process_split`` and ``process_split_tmajor``) and
+    ``OversampledChannelizer(1024, 2, 8).process_split`` on [16, 2^20],
+    and the oversampled step's parts: the history-chunk concatenation of
+    both planes, the time-major MAC of both planes at one residue, the
+    transform over the phases, the move of the channel axis back.
 
 Run it for both checkouts in turns (A, B, B, A) within one call.  Needs a
 CUDA card and nvcc; imports neither jax nor pffft_tpu.
@@ -57,7 +63,7 @@ def time_ms(fn, inner: int = 5, reps: int = 10, warm: int = 3) -> float:
 def main() -> int:
     root, label = sys.argv[1], sys.argv[2]
     groups = set(sys.argv[3].split(",")) if len(sys.argv) > 3 else {"chain", "conv", "real",
-                                                                      "chan"}
+                                                                      "chan", "chan64"}
     if not torch.cuda.is_available():
         print("port_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -138,6 +144,31 @@ def main() -> int:
             out[f"chan_step_{m}_ms"] = time_ms(
                 lambda: ch.process_split_tmajor(st, xr, xi), inner=2)
             del xr, xi
+    if "chan64" in groups:
+        f64 = {"generator": gen, "device": "cuda", "dtype": torch.float64}
+        ch = CH.Channelizer(4096, 8, dtype="float64")
+        xr, xi = torch.randn((4, 1 << 22), **f64), torch.randn((4, 1 << 22), **f64)
+        st = ch.init_state((4,))
+        out["chan64_step_4096_ms"] = time_ms(lambda: ch.process_split(st, xr, xi), 1, 5, 1)
+        out["chan64_tmajor_step_4096_ms"] = time_ms(
+            lambda: ch.process_split_tmajor(st, xr, xi), 1, 5, 1)
+        och = CH.OversampledChannelizer(1024, 2, 8, dtype="float64")
+        xr, xi = torch.randn((16, 1 << 20), **f64), torch.randn((16, 1 << 20), **f64)
+        st = och.init_state((16,))
+        out["chan64_over_1024_ms"] = time_ms(lambda: och.process_split(st, xr, xi), 1, 5, 1)
+        b, k = och.base, (1 << 20) // 1024
+        ext = [torch.cat([h, c], dim=-1) for h, c in zip(st, (xr, xi))]
+        v = tuple(b._mac_tmajor(e, k, 0) for e in ext)
+        y = pt.transform_ordered_split_tmajor(b.plan, v, pt.BACKWARD)
+        out["chan64_over_parts_ms"] = {
+            "concat": time_ms(lambda: [torch.cat([h, c], dim=-1) for h, c in zip(st, (xr, xi))],
+                              1, 5, 1),
+            "mac_one_residue": time_ms(lambda: [b._mac_tmajor(e, k, 512) for e in ext], 1, 5, 1),
+            "transform": time_ms(
+                lambda: pt.transform_ordered_split_tmajor(b.plan, v, pt.BACKWARD), 1, 5, 1),
+            "channels_back": time_ms(
+                lambda: [t.reshape(1024, 16, k).movedim(0, -1).contiguous() for t in y], 1, 5, 1)}
+        del xr, xi, ext, v, y
     print(json.dumps(out), flush=True)
     return 0
 

@@ -331,8 +331,12 @@ def test_channelizer_errors():
         tch.Channelizer.from_weights(np.ones(16), device=CPU)
     with pytest.raises(ValueError, match="divide"):
         tch.OversampledChannelizer(16, 3, device=CPU)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tch.Channelizer(16, 4, dtype="float64", device=CPU)
+    # float64 channelizers construct and run (tests/test_torch_channelizer64.py
+    # holds them to the reference)
+    c64 = tch.Channelizer(16, 4, dtype="float64", device=CPU)
+    y64, st64 = c64.process(c64.init_state(), np.zeros(32, np.complex128))
+    assert y64.dtype == torch.complex128 and y64.shape == (2, 16)
+    assert st64.hist_re.dtype == torch.float64
     assert pt.Channelizer is tch.Channelizer and pt.FastConv is pt.conv.FastConv
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1034,3 +1034,66 @@ def test_fft_object_on_the_card_matches_transform(cuda_device, dtype, n):
     assert torch.equal(spec, pt.transform_ordered(f.plan, x))
     assert _rel(f.inverse(spec).cpu() / n, torch.from_numpy(x)) <= ORACLE_TOL
     assert f.value_vector(2).device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The SDR capture path: the float64 channelizers (no kernel) and
+# StreamingConv on the native ring buffer, on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,v", [(64, 1), (4096, 1), (1024, 2), (48, 4)])
+def test_float64_channelizer_on_the_card_matches_cpu(cuda_device, m, v):
+    from pffft_tpu_torch import channelizer as CH
+    from pffft_tpu_torch.ops import pfb_kernel as pfb
+
+    def make(dev):
+        if v == 1:
+            return CH.Channelizer(m, 8, dtype="float64", device=dev)
+        return CH.OversampledChannelizer(m, v, 8, dtype="float64", device=dev)
+
+    gpu, cpu = make("cuda"), make("cpu")
+    x = np.random.default_rng(m + v).standard_normal((2, 2, 6 * m))
+    sg, sc = gpu.init_state((2,)), cpu.init_state((2,))
+    for j in range(2):
+        c0 = (*_f64_counts(), pfb.pfb_fir_stream_tmajor.launches)
+        (gr, gi), sg = gpu.process_split(sg, x[0, :, 3 * j * m:3 * (j + 1) * m],
+                                         x[1, :, 3 * j * m:3 * (j + 1) * m])
+        torch.cuda.synchronize()
+        assert (*_f64_counts(), pfb.pfb_fir_stream_tmajor.launches) == c0
+        (cr, ci), sc = cpu.process_split(sc, x[0, :, 3 * j * m:3 * (j + 1) * m],
+                                         x[1, :, 3 * j * m:3 * (j + 1) * m])
+        assert gr.dtype == torch.float64 and gr.device.type == "cuda"
+        assert _rel(torch.complex(gr, gi).cpu(), torch.complex(cr, ci)) <= 1e-12
+        assert torch.equal(sg.hist_re.cpu(), sc.hist_re)
+    if v == 1:
+        (tr, _), _ = gpu.process_split_tmajor(gpu.init_state((2,)), x[0], x[1])
+        (br, _), _ = gpu.process_split(gpu.init_state((2,)), x[0], x[1])
+        assert _rel(tr.reshape(m, 2, 6).permute(1, 2, 0), br) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [64, 1024])
+def test_native_streaming_conv_on_the_card_matches_cpu(cuda_device, taps):
+    from pffft_tpu_torch import conv as C
+    from pffft_tpu_torch.ops import conv_kernel as ck
+
+    h = pt.design_lowpass(taps, 0.1)
+    gpu, cpu = C.StreamingConv(h), C.StreamingConv(h, device="cpu")
+    assert gpu.native and cpu.native
+    rng = np.random.default_rng(taps)
+    x = rng.standard_normal(1 << 18).astype(np.float32)
+    before = ck.zconv_tmajor.launches
+    outs_g, outs_c, pos = [], [], 0
+    while pos < x.size:
+        step = int(rng.integers(1, 1 << 15))
+        outs_g.append(gpu.push(x[pos:pos + step]))
+        outs_c.append(cpu.push(x[pos:pos + step]))
+        pos += step
+    outs_g.append(gpu.flush())
+    outs_c.append(cpu.flush())
+    g, c = np.concatenate(outs_g), np.concatenate(outs_c)
+    assert ck.zconv_tmajor.launches > before
+    assert g.shape == c.shape == (x.size - taps + 1,)
+    assert np.abs(g - c).max() <= ORACLE_TOL * np.abs(c).max()
