@@ -118,7 +118,30 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      framer's push + frames() native against its numpy arm, the whole
      capture step against the channelizer step alone, and float64 steps
      against float32 ones;
- 18. the ``kernels`` line, the card line, and the final ``ok`` line.
+ 18. the oracle phase (run after phase 3): the public transforms at small
+     shapes (complex time-major at N = 1024 and 4096 on 16 columns, both
+     directions, real at N = 2048, batch-major rows at N = 4096) against the
+     port's numpy FFTPACK oracle (``pffft_tpu_torch.oracle``, the reference
+     bench's --validate);
+ 19. the distribution layer (``parallel``, after phase 17) on a world of one
+     NCCL rank built here: ``FourStepPlan`` complex at N = 2^24 (4096 x
+     4096) on a batch of 2, ordered and internal with ``reorder``, the real
+     four-step at 2^25, ``Pencil2D((4096, 4096))`` on [4, 4096, 4096] in both
+     layouts, ``sharded_fastconv_valid`` at 1024 taps on [16, 2^22] against
+     the local FastConv; each path from zero counts (kern2, B9, B7's stream
+     map), held to complex128 ``torch.fft``, timed beside its bound and
+     ``torch.fft``; phase 3 holds each kernel shape these paths give;
+ 20. measure mode (``tune``, after every timed phase; it empties the tables
+     it fills): ``tune_engine`` at the band shapes time-major and at three
+     batch-major shapes (each engine's median, the winner, the default
+     route, and one public call after recording that must launch the
+     winner's kernels; phase 3 holds every engine's kernel shapes at each
+     of these shapes, whichever wins), ``tuned_setup`` at complex N = 1024,
+     4096, 65536, real N = 8192 (one kernel route for every candidate:
+     nothing timed) and complex float64 N = 4096 (the stage engine: the
+     candidates race), each candidate's factors, route and time;
+ 21. the ``kernels`` line, the card line, and the final ``ok`` line (the done
+     line before them gives each phase's seconds).
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda), g++ (the
 host runtime) and the repository checkout.  It imports neither jax nor pffft_tpu.
@@ -128,10 +151,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import datetime
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -140,7 +166,10 @@ import torch
 import pffft_tpu_torch as pt
 from pffft_tpu_torch import channelizer as CH
 from pffft_tpu_torch import conv as C
+from pffft_tpu_torch import oracle as OR
+from pffft_tpu_torch import parallel as PP
 from pffft_tpu_torch import runtime as RT
+from pffft_tpu_torch import tune as TU
 from pffft_tpu_torch.ops import _build
 from pffft_tpu_torch.ops import conv_kernel as ck
 from pffft_tpu_torch.ops import dispatch as D
@@ -252,6 +281,24 @@ CAP_NOISE = 0.05     # noise rms per plane, of full scale
 CAP_TONE_TOL = 0.02  # a tone's mean channel magnitude within 2% of its amplitude
 CAP_STREAM_N, CAP_STREAM_TAPS, CAP_CHUNK_MAX = 1 << 22, 1024, 1 << 17
 CAP_FRAMER_N, CAP_FRAMER_REPS = 1 << 16, 64
+# the oracle phase: the card's outputs at small shapes against the port's
+# numpy FFTPACK oracle (the reference bench's --validate): complex
+# time-major N on ORACLE_B columns, real time-major, batch-major rows
+ORACLE_CPLX_NS, ORACLE_REAL_N, ORACLE_BMAJOR_N, ORACLE_B = (1024, 4096), 2048, 4096, 16
+# the distribution layer on a world of one NCCL rank (BASELINE.json config
+# #5's axis): the four-step at N = 2^24 (4096 x 4096) on a batch of 2, the
+# real four-step at 2^25, Pencil2D on [4, 4096, 4096], the sharded FastConv
+# at 1024 taps on CONV_ROWS x CONV_LEN
+FOURSTEP_N, FOURSTEP_REAL_N, FOURSTEP_B = 1 << 24, 1 << 25, 2
+PENCIL_SHAPE, PENCIL_B = (4096, 4096), 4
+SHARDED_CONV_TAPS = 1024
+# measure mode: tune_engine at the time-major BAND shapes and at these
+# batch-major (N, B); tuned_setup at these (N, kind, dtype)
+TUNE_BMAJOR = ((4096, 4096), (16384, 256), (65536, 64))
+TUNE_SETUPS = ((1024, "complex", "float32"), (4096, "complex", "float32"),
+               (65536, "complex", "float32"), (8192, "real", "float32"),
+               (4096, "complex", "float64"))
+TUNE_ITERS, TUNE_ROUNDS = 2, 3
 DEV = "cuda"
 
 
@@ -718,6 +765,45 @@ def phase_kernels(gen):
     mplan, last = D._build_ksplit(m, km, kr)
     chain_case(mplan, km, kr * BS_TMAJOR_B)
     combine_case(last, BS_TMAJOR_B)
+    # the distribution layer's kernel calls, shape for shape: the columns
+    # (time-major, kern2 at 4096) and rows (batch-major, B9) of the four-step
+    # (the real four-step's engine is the complex one's) and of the pencil,
+    # and B7's stream map on the sharded FastConv's rows and halo
+    for col_n, col_b, row_n, row_b in parallel_shapes():
+        transform_case(col_n, col_b)
+        plan = pt.new_setup(row_n, strict=False)
+        if D.select_engine(plan, row_b, False, dev) == "fused2":
+            fused2_case(plan, row_n, row_b, (True,))
+    fc = C.FastConv(pt.design_lowpass(SHARDED_CONV_TAPS, 0.1))
+    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+        xs = torch.randn((CONV_ROWS, CONV_LEN + fc.filter_len - 1), generator=gen,
+                         device="cuda")
+        stream_case(fc.nfft, fc.num_out_per_block, xs, CONV_LEN, False)
+        del xs
+
+    def tmajor_engine_case(plan, n, b, engine):
+        # one time-major engine's kernel calls at [N, B]
+        if engine == "chain":
+            chain_case(D._chain_plan(plan, dev), n, b)
+        elif engine in ("kern2", "ksplit"):
+            mplan, last = (D._kern2_build(n, dev, None) if engine == "kern2"
+                           else D._ksplit_plans(n, dev))
+            chain_case(mplan, mplan.engine_n, last.r * b)
+            if engine == "kern2":
+                combine_case(last, b)
+
+    # measure mode's public calls, shape for shape: after a race the call
+    # runs whichever engine won, so every engine that can run each of
+    # phase_tune's shapes is held (batch-major "tmajor" runs a time-major
+    # engine, the measured one, on the transposed [N, B] planes)
+    for n, b, tm in tune_shapes():
+        plan = pt.new_setup(n)
+        avail = D.available_engines(plan, b, tm, dev)
+        if "fused2" in avail:
+            fused2_case(plan, n, b, (True,))
+        if tm or "tmajor" in avail:
+            for engine in D._tmajor_engines(plan, b, dev):
+                tmajor_engine_case(plan, n, b, engine)
     re, im = planes(1024, 16384, gen)
     cr, ci = pk.stream_copy(re, im)
     torch.cuda.synchronize()
@@ -2433,7 +2519,7 @@ def any_rows(b: int) -> torch.Tensor:
     return torch.arange(0, b, max(1, b // ORACLE_ROWS), device=DEV)[:ORACLE_ROWS]
 
 
-def drive(name: str, fn, want):
+def drive(name: str, fn, want, phase: str = "anylen"):
     """Run ``fn`` with every count at 0 and read the counts just after;
     fails unless each wrapper named in ``want`` launched.  Returns (fn's
     result, the counts)."""
@@ -2442,7 +2528,7 @@ def drive(name: str, fn, want):
     out = fn()
     torch.cuda.synchronize()
     got = counts()
-    emit({"phase": "anylen", "path": name, "launches": launched(got, {k: 0 for k in got})})
+    emit({"phase": phase, "path": name, "launches": launched(got, {k: 0 for k in got})})
     check(all(got[w] > 0 for w in want), f"{name}: launches {got}, expected {want}")
     return out, got
 
@@ -3150,6 +3236,316 @@ def phase_capture(gen, smi: str):
     return launches
 
 
+def tune_shapes():
+    """(N, B, time_major) of measure mode's races and of the public call
+    made after each."""
+
+    return tuple((n, b, True) for n, b in BAND) + tuple((n, b, False) for n, b in TUNE_BMAJOR)
+
+
+def parallel_shapes():
+    """(column length, columns, row length, rows) of the distribution
+    layer's local transforms on one rank: the four-step's [N1, B*N2] and
+    [B*N1, N2] (the real four-step runs the complex one at N/2), the
+    pencil's [n0, B*n1] and [B*n0, n1]."""
+
+    out = []
+    for n in (FOURSTEP_N, FOURSTEP_REAL_N // 2):
+        n1, n2 = PP.fourstep._split_n(n, None, 1)
+        out.append((n1, FOURSTEP_B * n2, n2, FOURSTEP_B * n1))
+    n0, n1 = PENCIL_SHAPE
+    out.append((n0, PENCIL_B * n1, n1, PENCIL_B * n0))
+    return sorted(set(out))
+
+
+def phase_oracle(gen):
+    """The card's public outputs at small shapes against the port's numpy
+    FFTPACK oracle (``pffft_tpu_torch.oracle``, float64, no np.fft): the
+    complex time-major transform both ways at N = 1024 and 4096 on 16
+    columns, the real one at N = 2048, batch-major rows at N = 4096; each
+    within ORACLE_TOL of max|oracle|."""
+
+    def host(re, im):
+        return re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
+
+    def hold(name, got, want):
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        emit({"phase": "oracle", "call": name, "rel_err": err})
+        check(math.isfinite(err) and err <= ORACLE_TOL, f"oracle {name}: {err}")
+
+    for n in ORACLE_CPLX_NS:
+        plan = pt.new_setup(n)
+        re, im = planes(n, ORACLE_B, gen)
+        z = host(re, im).T  # the oracle transforms rows
+        hold(f"tmajor complex forward {n}",
+             host(*pt.transform_ordered_split_tmajor(plan, (re, im), pt.FORWARD)).T,
+             OR.cfftf(z))
+        hold(f"tmajor complex backward {n}",
+             host(*pt.transform_ordered_split_tmajor(plan, (re, im), pt.BACKWARD)).T,
+             OR.cfftb(z))
+    x = torch.randn((ORACLE_REAL_N, ORACLE_B), generator=gen, device="cuda")
+    spec = pt.transform_ordered_split_tmajor(pt.new_setup(ORACLE_REAL_N, pt.REAL), x, pt.FORWARD)
+    hold(f"tmajor real forward {ORACLE_REAL_N}", host(*spec).T,
+         OR.packed_spectrum(x.double().cpu().numpy().T))
+    re, im = planes(ORACLE_B, ORACLE_BMAJOR_N, gen)
+    hold(f"bmajor complex forward {ORACLE_BMAJOR_N}",
+         host(*pt.transform_ordered_split(pt.new_setup(ORACLE_BMAJOR_N), (re, im), pt.FORWARD)),
+         OR.cfftf(host(re, im)))
+
+
+def phase_parallel(gen):
+    """The distribution layer on a world of one NCCL rank, started here
+    (``init_process_group`` with a ``file://`` rendezvous in a temporary
+    directory, ``device_id`` cuda:0) and destroyed at the end; one rank
+    sends nothing, so the local phases run as on a shard of a larger world:
+    the four-step's columns on kern2 and rows on B9, the pencil's the same,
+    the sharded FastConv on B7's stream map.  Each path from zero counts,
+    held to a complex128 ``torch.fft`` oracle (the four-step, ordered and
+    internal with ``reorder``, and the pencil in both layouts), the unscaled
+    round trips, and the sharded FastConv to the local one (KERNEL_TOL);
+    then each call timed beside its bytes bound and ``torch.fft``.  Returns
+    the launch counts of the four paths."""
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120),
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = PP.make_mesh(device_type="cuda")
+            emit({"phase": "parallel", "backend": str(dist.get_backend()),
+                  "world": dist.get_world_size(), "mesh": list(mesh.shape),
+                  "axes": list(mesh.mesh_dim_names)})
+            return parallel_paths(gen, mesh)
+        finally:
+            dist.destroy_process_group()
+
+
+def parallel_paths(gen, mesh):
+    path_kernels = ("cfft_chain_tmajor", "cfft_combine_tmajor", "cfft_fused2")
+    paths = []
+
+    def hold(name, case, **errs):
+        emit({"phase": "parallel", "path": name, **case, **errs})
+        for k, e in errs.items():
+            check(math.isfinite(e) and e <= ORACLE_TOL, f"{name} {k}: {e}")
+
+    def timed(name, shape, ms, nbytes, flops, library_ms, library, **parts):
+        bnd = bound(nbytes, flops)
+        emit({"phase": "parallel_time", "call": name, "shape": list(shape), "ms": ms,
+              "bound_ms": bnd[0], "bound_by": bnd[1], "frac_bound": bnd[0] / ms,
+              "library_ms": library_ms, "library": library, **parts})
+
+    # the four-step, complex: forward ordered and internal, reorder, backward
+    n, b = FOURSTEP_N, FOURSTEP_B
+    fp = PP.FourStepPlan(n, mesh)
+    x = torch.complex(*planes(b, n, gen))
+    xd = PP.shard_batch(x, mesh, axis=1)
+
+    def fourstep():
+        y = fp.forward(xd)
+        yi = fp.forward(xd, ordered=False)
+        return y, yi, fp.reorder(yi), fp.backward(y), fp.backward(yi, ordered=False)
+
+    (y, yi, yre, back, backi), got = drive("fourstep", fourstep, path_kernels, "parallel")
+    paths.append(got)
+    ref = torch.fft.fft(x.to(torch.complex128), dim=-1)
+    hold("fourstep", {"n": n, "b": b, "n1": fp.n1, "n2": fp.n2},
+         fwd_rel_err=rel_err(y.to_local().to(torch.complex128), ref),
+         reorder_rel_err=rel_err(yre.to_local().to(torch.complex128), ref),
+         roundtrip_rel_err=rel_err(back.to_local() / n, x),
+         internal_roundtrip_rel_err=rel_err(backi.to_local() / n, x))
+    check(tuple(y.shape) == (b, n) and bool(torch.isfinite(torch.view_as_real(y.to_local())).all()),
+          "four-step: output not finite/shaped")
+    del y, yi, yre, back, backi, ref
+    cols = planes(fp.n1, b * fp.n2, gen)
+    rows = planes(b * fp.n1, fp.n2, gen)
+    ax = fp._ax
+    xl = xd.to_local()
+    # the forward's parts outside the kernels: the split into planes and the
+    # join, the twiddle multiply, the three layout passes around the
+    # exchanges (rows to columns, columns to rows, the ordered transpose)
+    parts = {
+        "split_join_ms": time_ms(lambda: torch.complex(*PP.fourstep.to_planes(
+            xl, torch.float32)), inner=2),
+        "twiddle_ms": time_ms(lambda: PP.fourstep.cmul(
+            *(t.view(fp.n1, b, -1) for t in cols), *fp._tw), inner=2),
+        "layout_ms": time_ms(lambda: (
+            ax.rows_to_cols([t.view(b, fp.n1, fp.n2) for t in rows], fp.n1, fp.n2),
+            ax.cols_to_rows([t.view(fp.n1, b, fp.n2) for t in cols], fp.n1, fp.n2),
+            ax.transpose_rows([t.view(b, fp.n1, fp.n2) for t in rows], fp.n1, fp.n2)),
+            inner=2)}
+    timed("fourstep forward", (b, n), time_ms(lambda: fp.forward(xd), inner=2),
+          16.0 * n * b, fft_flops(n, b), time_ms(lambda: torch.fft.fft(x, dim=-1), inner=2),
+          "torch.fft.fft(dim=-1)",
+          bwd_ms=time_ms(lambda: fp.backward(xd), inner=2),
+          internal_ms=time_ms(lambda: fp.forward(xd, ordered=False), inner=2),
+          cols_ms=time_ms(lambda: D.cfft_dispatch(fp.plan1, *cols), inner=2),
+          cols_engine=D.select_engine(fp.plan1, b * fp.n2, True, torch.device("cuda")),
+          rows_ms=time_ms(lambda: D.cfft_dispatch(fp.plan2, *rows, time_major=False), inner=2),
+          rows_engine=D.select_engine(fp.plan2, b * fp.n1, False, torch.device("cuda")),
+          **parts)
+    del x, xd, xl, cols, rows, fp
+
+    # the real four-step
+    n = FOURSTEP_REAL_N
+    fr = PP.FourStepPlan(n, mesh, kind=pt.REAL)
+    x = torch.randn((b, n), generator=gen, device="cuda")
+    xd = PP.shard_batch(x, mesh, axis=1)
+    (s, back), got = drive("fourstep_real",
+                           lambda: (lambda s: (s, fr.backward(s)))(fr.forward(xd)),
+                           path_kernels, "parallel")
+    paths.append(got)
+    ref = torch.fft.rfft(x.double(), dim=-1)
+    packed = ref[:, :-1].clone()
+    packed[:, 0] = torch.complex(ref[:, 0].real, ref[:, -1].real)
+    hold("fourstep_real", {"n": n, "b": b}, fwd_rel_err=rel_err(s.to_local().to(torch.complex128), packed),
+         roundtrip_rel_err=rel_err(back.to_local() / n, x))
+    del s, back, ref, packed
+    zr, zi = planes(b, n // 2, gen)
+    timed("fourstep_real forward", (b, n), time_ms(lambda: fr.forward(xd), inner=2),
+          4.0 * n * b + 4.0 * n * b, fft_flops(n // 2, b),
+          time_ms(lambda: torch.fft.rfft(x, dim=-1), inner=2), "torch.fft.rfft(dim=-1)",
+          split_step_ms=time_ms(lambda: fr._real_post_fwd(zr, zi), inner=2),
+          split_step_bound_ms=bound(16.0 * n // 2 * b, 0)[0])
+    del zr, zi
+    del x, xd, fr
+
+    # the pencil, both layouts
+    p = PP.Pencil2D(PENCIL_SHAPE, mesh)
+    n0, n1 = PENCIL_SHAPE
+    x = torch.complex(*planes(PENCIL_B * n0, n1, gen)).view(PENCIL_B, n0, n1)
+    xd = PP.shard_batch(x, mesh, axis=1)
+
+    def pencil():
+        s, st = p.forward(xd), p.forward(xd, transposed=True)
+        return s, st, p.backward(s), p.backward(st, transposed=True)
+
+    (s, st, back, backt), got = drive("pencil", pencil, path_kernels, "parallel")
+    paths.append(got)
+    ref = torch.fft.fft2(x.to(torch.complex128))
+    hold("pencil", {"shape": [PENCIL_B, n0, n1]},
+         fwd_rel_err=rel_err(s.to_local().to(torch.complex128), ref),
+         transposed_rel_err=rel_err(st.to_local().to(torch.complex128), ref.transpose(-1, -2)),
+         roundtrip_rel_err=rel_err(back.to_local() / (n0 * n1), x),
+         transposed_roundtrip_rel_err=rel_err(backt.to_local() / (n0 * n1), x))
+    del s, st, back, backt, ref
+    timed("pencil forward", (PENCIL_B, n0, n1), time_ms(lambda: p.forward(xd), inner=2),
+          16.0 * PENCIL_B * n0 * n1, fft_flops(n0 * n1, PENCIL_B),
+          time_ms(lambda: torch.fft.fft2(x), inner=2), "torch.fft.fft2",
+          transposed_ms=time_ms(lambda: p.forward(xd, transposed=True), inner=2))
+    del x, xd, p
+
+    # the sharded FastConv against the local one
+    fc = C.FastConv(pt.design_lowpass(SHARDED_CONV_TAPS, 0.1))
+    x = torch.randn((CONV_ROWS, CONV_LEN), generator=gen, device="cuda")
+    xd = PP.shard_batch(x, mesh, axis=1)
+    y, got = drive("sharded_fastconv", lambda: PP.sharded_fastconv_valid(fc, xd, mesh),
+                   ("zconv_stream",), "parallel")
+    paths.append(got)
+    local = fc.apply_batched(x)
+    y = y.to_local()
+    err = rel_err(y, local) if y.shape == local.shape else float("inf")
+    emit({"phase": "parallel", "path": "sharded_fastconv", "taps": SHARDED_CONV_TAPS,
+          "shape": list(x.shape), "out_shape": list(y.shape), "rel_err_vs_local": err})
+    check(err <= KERNEL_TOL, f"sharded FastConv: {tuple(y.shape)}, rel err {err} vs local")
+    del y, local
+    out_len = CONV_LEN - SHARDED_CONV_TAPS + 1
+    timed("sharded_fastconv_valid", (CONV_ROWS, CONV_LEN),
+          time_ms(lambda: PP.sharded_fastconv_valid(fc, xd, mesh), inner=2),
+          4.0 * CONV_ROWS * (CONV_LEN + out_len), 0.0, None, None,
+          local_ms=time_ms(lambda: fc.apply_batched(x), inner=2))
+    return paths
+
+
+# the wrappers one public call launches on each engine (time-major
+# "tmajor" runs the time-major route the dispatcher picks)
+ENGINE_LAUNCHES = {"chain": {"cfft_chain_tmajor": 1},
+                   "kern2": {"cfft_chain_tmajor": 1, "cfft_combine_tmajor": 1},
+                   "ksplit": {"cfft_chain_tmajor": 1}, "stages": {},
+                   "fused2": {"cfft_fused2": 1}}
+
+
+def phase_tune(gen):
+    """Measure mode on the card, after every other timed phase: the tables
+    it fills are process-wide, and are emptied again at the end.
+    ``tune_engine`` at the time-major band shapes and at TUNE_BMAJOR: each
+    engine's median, the winner, the route the dispatcher took before, and
+    the launches of one public call made after recording (from zero counts),
+    which must be the winner's kernels (``phase_kernels`` holds every
+    engine's shapes at ``tune_shapes``); ``tuned_setup`` at TUNE_SETUPS: each
+    candidate's factors, local split, kernel route and time.  The kernels
+    run their own thin chains whatever the plan's factors, so where every
+    candidate takes one kernel route nothing may be timed or cached.
+    Returns the launch counts of the public calls."""
+
+    dev = torch.device("cuda")
+    check(not os.environ.get("PFFFT_TPU_TUNE_CACHE"),
+          "PFFFT_TPU_TUNE_CACHE is set: the tune phase writes no disk cache")
+    saved = dict(D._MEASURED_TABLE)
+    time_engine, time_plan = TU._time_engine, TU._time_plan
+    race, tried = [], []
+    TU._time_engine = lambda e, *a: (lambda t: (race.append((e, t)), t)[1])(time_engine(e, *a))
+    TU._time_plan = lambda n, k, dt, pol, *a: (
+        lambda t: (tried.append((pol, t)), t)[1])(time_plan(n, k, dt, pol, *a))
+    total = {k: 0 for k in counts()}
+    try:
+        for n, b, tm in tune_shapes():
+            plan = pt.new_setup(n)
+            before = D.select_engine(plan, b, tm, dev)
+            race.clear()
+            winner = TU.tune_engine(n, b, time_major=tm, iters=TUNE_ITERS, rounds=TUNE_ROUNDS)
+            med = {e: float(np.median([t for en, t in race if en == e])) * 1e3
+                   for e, _ in race}
+            check(D._MEASURED_TABLE.get((D.capability(dev), n, tm)) == winner,
+                  f"tune_engine({n}, {b}): {winner} not recorded")
+            x = planes(n, b, gen) if tm else planes(b, n, gen)
+            call = pt.transform_ordered_split_tmajor if tm else pt.transform_ordered_split
+            _, got = drive(f"{'tmajor' if tm else 'bmajor'} {n} x {b}",
+                           lambda: call(plan, x, pt.FORWARD), (), "tune")
+            ran = launched(got, {k: 0 for k in got})
+            want = ENGINE_LAUNCHES[D.select_engine(plan, b, True, dev)
+                                   if winner == "tmajor" else winner]
+            emit({"phase": "tune", "n": n, "b": b, "time_major": tm, "median_ms": med,
+                  "winner": winner, "default_route": before, "launches_after": ran})
+            check(ran == want, f"tune {n} x {b}: winner {winner} but the call ran {ran}")
+            total = {k: v + got[k] for k, v in total.items()}
+            del x
+        for n, kind, dtype in TUNE_SETUPS:
+            TU.clear_tune_cache()
+            tried.clear()
+            plan = TU.tuned_setup(n, kind, dtype, iters=TUNE_ITERS)
+            engine_n = n // 2 if kind == "real" else n
+            cands = TU.candidate_policies(n, kind)
+            times = dict(tried)
+            routes = set()
+            for pol in cands:
+                eng = TU._policy_plan(engine_n, pt.COMPLEX, dtype, pol)
+                route = TU._kernel_route(eng, 64, dev)
+                routes.add(route)
+                emit({"phase": "tune", "tuned_setup": n, "kind": kind, "dtype": dtype,
+                      "policy": list(pol), "factors": list(eng.factors),
+                      "local_split": eng.local_split is not None, "route": route or "stages",
+                      "ms": times[pol] * 1e3 if pol in times else None})
+            if len(routes) == 1 and None not in routes:
+                check(not tried and not TU._MEM_CACHE,
+                      f"tuned_setup({n}, {kind}, {dtype}) timed candidates of one kernel route")
+                best = cands[0]
+            else:
+                check(sorted(times) == sorted(cands),
+                      f"tuned_setup({n}, {kind}, {dtype}) timed {sorted(times)}")
+                best = min(tried, key=lambda pt_: pt_[1])[0]
+            check(plan == TU._policy_plan(n, kind, dtype, best),
+                  f"tuned_setup({n}, {kind}, {dtype}) returned another plan than {best}")
+    finally:
+        TU._time_engine, TU._time_plan = time_engine, time_plan
+        TU.clear_tune_cache()
+        D._MEASURED_TABLE.clear()
+        D._MEASURED_TABLE.update(saved)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3157,29 +3553,42 @@ def main() -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    smi = phase_env()
-    phase_build()
-    errs = phase_kernels(gen)
-    launches, per_shape = phase_main_path(gen)
-    real_launches, real_shapes = phase_real_main_path(gen)
-    conv_launches, conv_runs = phase_fastconv(gen)
-    chan_launches, chan_runs = phase_channelizer(gen)
-    bm_launches, bm_shapes = phase_bmajor_main(gen)
-    bmr_launches, bmr_shapes = phase_bmajor_real_main(gen)
-    ks2_launches = phase_ksplit2(gen)
-    ksplit_launches = phase_ksplit(gen)
-    phase_f64(gen)
-    dsp_launches = phase_dsp(gen)
-    spectral_launches = phase_spectral(gen)
-    anylen_launches = phase_anylen(gen)
-    cap_launches = phase_capture(gen, smi)
-    rows = phase_timing(gen, per_shape)
-    rows.update(phase_real_timing(gen, real_shapes))
-    phase_real_fused_sweep(gen)
-    rows.update(phase_fir_timing(gen, conv_runs, chan_runs))
-    rows.update(phase_bmajor_timing(gen, bm_shapes, bmr_shapes))
-    rows.update(phase_ksplit2_timing(gen))
-    phase_anylen_timing(gen)
+    secs = {}
+
+    def run(fn, *args):
+        """``fn(*args)``, its seconds kept under its name."""
+
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[fn.__name__] = time.perf_counter() - t
+        return out
+
+    smi = run(phase_env)
+    run(phase_build)
+    errs = run(phase_kernels, gen)
+    run(phase_oracle, gen)
+    launches, per_shape = run(phase_main_path, gen)
+    real_launches, real_shapes = run(phase_real_main_path, gen)
+    conv_launches, conv_runs = run(phase_fastconv, gen)
+    chan_launches, chan_runs = run(phase_channelizer, gen)
+    bm_launches, bm_shapes = run(phase_bmajor_main, gen)
+    bmr_launches, bmr_shapes = run(phase_bmajor_real_main, gen)
+    ks2_launches = run(phase_ksplit2, gen)
+    ksplit_launches = run(phase_ksplit, gen)
+    run(phase_f64, gen)
+    dsp_launches = run(phase_dsp, gen)
+    spectral_launches = run(phase_spectral, gen)
+    anylen_launches = run(phase_anylen, gen)
+    cap_launches = run(phase_capture, gen, smi)
+    par_launches = run(phase_parallel, gen)
+    rows = run(phase_timing, gen, per_shape)
+    rows.update(run(phase_real_timing, gen, real_shapes))
+    run(phase_real_fused_sweep, gen)
+    rows.update(run(phase_fir_timing, gen, conv_runs, chan_runs))
+    rows.update(run(phase_bmajor_timing, gen, bm_shapes, bmr_shapes))
+    rows.update(run(phase_ksplit2_timing, gen))
+    run(phase_anylen_timing, gen)
+    tune_launches = run(phase_tune, gen)
     for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split",
                  "conv_fused", "pfb_fir", "fused2", "real_split_bmajor", "ksplit2"):
         check(name in rows, f"no timing row for {name}")
@@ -3209,14 +3618,18 @@ def main() -> int:
     for name in ("cfft_chain_tmajor", "real_split_tmajor"):
         check(ksplit_launches[name] > 0,
               f"ksplit path did not launch every path kernel: {ksplit_launches}")
+    for name in ("cfft_chain_tmajor", "cfft_combine_tmajor", "cfft_fused2", "zconv_stream"):
+        check(sum(c[name] for c in par_launches) > 0,
+              f"distribution paths did not launch every path kernel: {par_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "phase_seconds": secs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     # launches: the count over the main-path runs, each from zero (the ten
-    # paths, then the anylen paths and the capture path); the float64 phases
-    # launch none
+    # paths, then the anylen paths, the capture path, the distribution
+    # layer's four paths and measure mode's public calls); the float64
+    # phases launch none
     paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
              bmr_launches, ks2_launches, ksplit_launches, dsp_launches, spectral_launches,
-             *anylen_launches, cap_launches)
+             *anylen_launches, cap_launches, *par_launches, tune_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),

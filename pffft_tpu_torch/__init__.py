@@ -21,12 +21,16 @@ STFT front end, :mod:`spectral`; the rational resampler, :mod:`resample`;
 transforms of any length (Bluestein, the CZT and the spectral zoom),
 :mod:`bluestein`; N-D transforms, :mod:`nd`; DCT/DST, :mod:`dct`; the
 partitioned convolution, :mod:`pconv`; the pffft.hpp ``Fft`` object,
-:mod:`wrapper`.  Every kernel is f32; float64 plans run the einsum stage
-engine.
+:mod:`wrapper`; measured plan and engine selection, :mod:`tune`
+(``tuned_setup``); the distribution layer on ``torch.distributed``,
+:mod:`parallel` (mesh sharding, the four-step FFT, the halo-exchange
+FastConv, the pencil 2-D FFT); profiling, :mod:`utils`; the numpy FFTPACK
+oracle, :mod:`oracle`.  Every kernel is f32; float64 plans run the einsum
+stage engine.
 """
 
-from . import (bluestein, channelizer, conv, dct, dsp, fft, nd, ops, pconv, resample,
-               runtime, spectral, wrapper)
+from . import (bluestein, channelizer, conv, dct, dsp, fft, nd, ops, oracle, parallel, pconv,
+               resample, runtime, spectral, tune, utils, wrapper)
 from .bluestein import (
     BluesteinPlan,
     CztPlan,
@@ -100,7 +104,10 @@ from .plan import (
     simd_arch,
     simd_size,
 )
+from .tune import tuned_setup
 from .wrapper import Fft
+
+__version__ = "0.3.0"
 
 __all__ = [
     "bluestein",
@@ -111,10 +118,15 @@ __all__ = [
     "fft",
     "nd",
     "ops",
+    "oracle",
+    "parallel",
     "pconv",
     "resample",
     "runtime",
     "spectral",
+    "tune",
+    "tuned_setup",
+    "utils",
     "wrapper",
     "transform",
     "transform_ordered",
@@ -204,4 +216,5 @@ __all__ = [
     "sinqf",
     "PartitionedConv",
     "Fft",
+    "__version__",
 ]

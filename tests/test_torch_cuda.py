@@ -1097,3 +1097,181 @@ def test_native_streaming_conv_on_the_card_matches_cpu(cuda_device, taps):
     assert ck.zconv_tmajor.launches > before
     assert g.shape == c.shape == (x.size - taps + 1,)
     assert np.abs(g - c).max() <= ORACLE_TOL * np.abs(c).max()
+
+
+# ---------------------------------------------------------------------------
+# The distribution layer on a world of one NCCL rank, measure mode and the
+# profiling utilities, on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world of one NCCL rank, started here and destroyed after the
+    module's card tests."""
+
+    import datetime
+
+    import torch.distributed as dist
+    from pffft_tpu_torch import parallel as pp
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernels run only on the card)")
+    init = tmp_path_factory.mktemp("pg") / "init"
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60),
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield pp.make_mesh(device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _launch_counts():
+    from pffft_tpu_torch.ops import conv_kernel as ck
+
+    return (pk.cfft_chain_tmajor.launches, pk.cfft_combine_tmajor.launches,
+            fs.cfft_fused2.launches, ck.zconv_stream.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(1 << 16, 2), (1 << 22, 1)])
+def test_fourstep_on_one_nccl_rank_matches_oracle(nccl_mesh, n, b):
+    from pffft_tpu_torch import parallel as pp
+
+    fp = pp.FourStepPlan(n, nccl_mesh)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.complex(*(torch.randn((b, n), generator=gen, device="cuda") for _ in range(2)))
+    c0 = _launch_counts()
+    y = fp.forward(pp.shard_batch(x, nccl_mesh, axis=1)).to_local()
+    c1 = _launch_counts()
+    assert c1[0] > c0[0] and c1[2] > c0[2]  # the columns on B1 (or kern2), rows on B9
+    ref = torch.fft.fft(x.to(torch.complex128), dim=-1)
+    assert _rel(y.to(torch.complex128), ref) <= ORACLE_TOL
+    back = fp.backward(fp.forward(x)).to_local() / n
+    assert _rel(back, x) <= ORACLE_TOL
+    internal = fp.forward(x, ordered=False)
+    assert _rel(fp.reorder(internal).to_local(), y) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+def test_real_fourstep_on_one_nccl_rank_matches_oracle(nccl_mesh):
+    from pffft_tpu_torch import parallel as pp
+
+    n = 1 << 17
+    fp = pp.FourStepPlan(n, nccl_mesh, kind=pt.REAL)
+    x = torch.randn((2, n), generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda")
+    s = fp.forward(x).to_local()
+    ref = torch.fft.rfft(x.double(), dim=-1)
+    packed = ref[:, :-1].clone()
+    packed[:, 0] = torch.complex(ref[:, 0].real, ref[:, -1].real)
+    assert _rel(s.to(torch.complex128), packed) <= ORACLE_TOL
+    assert _rel(fp.backward(s).to_local() / n, x) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+def test_pencil2d_on_one_nccl_rank_matches_oracle(nccl_mesh, transposed):
+    from pffft_tpu_torch import parallel as pp
+
+    p = pp.Pencil2D((512, 1024), nccl_mesh)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.complex(*(torch.randn((2, 512, 1024), generator=gen, device="cuda")
+                        for _ in range(2)))
+    s = p.forward(x, transposed=transposed).to_local()
+    ref = torch.fft.fft2(x.to(torch.complex128))
+    assert _rel(s.to(torch.complex128), ref.transpose(-1, -2) if transposed else ref) \
+        <= ORACLE_TOL
+    back = p.backward(s, transposed=transposed).to_local() / (512 * 1024)
+    assert _rel(back, x) <= ORACLE_TOL
+
+
+@pytest.mark.cuda
+def test_sharded_fastconv_on_one_nccl_rank_equals_local(nccl_mesh):
+    from pffft_tpu_torch import conv as C
+    from pffft_tpu_torch import parallel as pp
+
+    fc = C.FastConv(pt.design_lowpass(1024, 0.1))
+    x = torch.randn((4, 1 << 18), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    c0 = _launch_counts()
+    y = pp.sharded_fastconv_valid(fc, x, nccl_mesh).to_local()
+    assert _launch_counts()[3] == c0[3] + 1  # one stream-map launch
+    local = fc.apply_batched(x)
+    assert y.shape == local.shape
+    assert _rel(y, local) <= KERNEL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_on_a_cpu_mesh_raises():
+    from pffft_tpu_torch.parallel import mesh as pm
+
+    class CpuMesh:
+        device_type = "cpu"
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with pytest.raises(ValueError, match="cuda tensor given to a cpu mesh"):
+        pm.check_device(torch.zeros(4, device="cuda"), CpuMesh())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,time_major", [(1024, 4096, True), (4096, 1024, True),
+                                            (4096, 1024, False)])
+def test_tune_engine_on_the_card_records_what_the_public_call_runs(cuda_device, n, b,
+                                                                   time_major):
+    from pffft_tpu_torch import tune as T
+
+    saved = dict(D._MEASURED_TABLE)
+    try:
+        winner = T.tune_engine(n, b, time_major=time_major, iters=2, rounds=1)
+        assert D._MEASURED_TABLE[(D.capability(cuda_device), n, time_major)] == winner
+        plan = pt.new_setup(n)
+        assert D.select_engine(plan, b, time_major, cuda_device) == winner
+        re, im = _planes(n, b, 5, cuda_device)
+        if not time_major:
+            re, im = re.T.contiguous(), im.T.contiguous()
+        counts = (pk.cfft_chain_tmajor.launches, fs.cfft_fused2.launches)
+        call = pt.transform_ordered_split_tmajor if time_major else pt.transform_ordered_split
+        call(plan, (re, im), pt.FORWARD)
+        torch.cuda.synchronize()
+        ran = (pk.cfft_chain_tmajor.launches - counts[0], fs.cfft_fused2.launches - counts[1])
+        assert (ran[0] > 0) == (winner in ("chain", "kern2", "ksplit", "tmajor"))
+        assert (ran[1] > 0) == (winner == "fused2")
+    finally:
+        D._MEASURED_TABLE.clear()
+        D._MEASURED_TABLE.update(saved)
+
+
+@pytest.mark.cuda
+def test_tuned_setup_on_the_card(cuda_device, monkeypatch, tmp_path):
+    from pffft_tpu_torch import tune as T
+
+    monkeypatch.setattr(T, "_MEM_CACHE", {})
+    monkeypatch.setenv("PFFFT_TPU_TUNE_CACHE", str(tmp_path / "tune.json"))
+    # float32: one kernel runs every candidate, so nothing is timed or cached
+    assert T.tuned_setup(4096, batch=256, iters=2) == pt.Plan.create(4096, strict=False)
+    assert T._MEM_CACHE == {}
+    # float64: the stage engine reads the policy, so the candidates race
+    plan = T.tuned_setup(4096, dtype="float64", batch=256, iters=2)
+    cap = torch.cuda.get_device_capability(0)
+    key = f"cuda-{cap[0]}.{cap[1]}:4096:complex:float64"
+    assert list(T._MEM_CACHE) == [key]
+    assert plan == T._policy_plan(4096, pt.COMPLEX, "float64", T._MEM_CACHE[key])
+
+
+@pytest.mark.cuda
+def test_profiling_on_the_card(cuda_device, tmp_path):
+    from pffft_tpu_torch.utils import profiling as P
+
+    info = P.device_info()
+    assert info["platform"] == "gpu" and info["device_kind"] == torch.cuda.get_device_name(0)
+    assert info["hbm_bytes_limit"] > 0 and info["cuda_version"] == torch.version.cuda
+    re, im = _planes(1024, 4096, 9, cuda_device)
+    plan = pt.new_setup(1024)
+    with P.trace(str(tmp_path)) as prof:
+        pt.transform_ordered_split_tmajor(plan, (re, im), pt.FORWARD)
+        torch.cuda.synchronize()
+    assert list(tmp_path.glob("*.pt.trace.json"))
+    assert any("chain_kernel" in e.key for e in prof.key_averages())
