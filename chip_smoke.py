@@ -140,7 +140,23 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      4096, 65536, real N = 8192 (one kernel route for every candidate:
      nothing timed) and complex float64 N = 4096 (the stage engine: the
      candidates race), each candidate's factors, route and time;
- 21. the ``kernels`` line, the card line, and the final ``ok`` line (the done
+ 21. the gradients (``phase_grad``, before measure mode): the transforms at
+     (2048, 8192), (65536, 256) time-major and (4096, 4096) batch-major,
+     complex and real ((2048, 8192), (131072, 128), batch-major (2048,
+     4096)), both directions; FastConv on [16, 2^22] at 1024 and 4096 taps;
+     a StreamingConv push of 2^22 samples; a channelizer step at (4096, 8,
+     4, 1024) with gradients for the chunk and the history; an
+     ``OversampledChannelizer(1024, 2, 8)`` step; ``DDCChain`` on 2^24
+     samples; ``stft_split`` on [4, 2^22]: each gradient within 2e-6 of torch
+     autograd through the plain versions on the card, the dot-product test
+     within 1e-5, the transforms and the STFT within 1e-5 of complex128
+     ``torch.fft`` autograd, the backward's launches (no plain version may
+     run), forward and backward ms (CUDA events, device-busy time from the
+     profiler, host enqueue time) beside the bytes bound and
+     ``torch.fft``'s own backward; then three steps of gradient descent on
+     [4, 2^22] toward a target magnitude spectrogram, the loss falling at
+     each; phase 3 holds every kernel at the shapes the backward hands it;
+ 22. the ``kernels`` line, the card line, and the final ``ok`` line (the done
      line before them gives each phase's seconds).
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda), g++ (the
@@ -171,6 +187,7 @@ from pffft_tpu_torch import parallel as PP
 from pffft_tpu_torch import runtime as RT
 from pffft_tpu_torch import tune as TU
 from pffft_tpu_torch.ops import _build
+from pffft_tpu_torch.ops import _grad
 from pffft_tpu_torch.ops import conv_kernel as ck
 from pffft_tpu_torch.ops import dispatch as D
 from pffft_tpu_torch.ops import fused_stage as fs
@@ -339,6 +356,34 @@ def time_ms(fn, inner: int = 5, warm: int = 3) -> float:
         e.synchronize()
         ts.append(s.elapsed_time(e) / inner)
     return float(np.median(ts))
+
+
+def device_ms(fn, calls: int = 5) -> float:
+    """Device-busy ms per call of ``fn``: the CUDA kernels' and copies' own
+    time in a ``torch.profiler`` trace of ``calls`` calls after one warm-up,
+    without the host's gaps between them."""
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / calls / 1e3
+
+
+def enqueue_us(fn, calls: int = 20) -> float:
+    """Host µs per call of ``fn`` up to its last launch (no synchronize in
+    the window): where it exceeds the device's time, the card waits."""
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def bound(nbytes: float, flops: float):
@@ -579,23 +624,39 @@ def phase_kernels(gen):
                 for b, off in ((1001, 1), (7, 0)):
                     fused_case(D._thin_plan(h), h, b, tb, el, off)
 
-    def conv_case(n, b, cplx):
+    def conv_case(n, b, cplx, conj=False):
+        # conj: the conjugate spectrum, as the column map's backward runs it
         plan = D._thin_plan(n)
         re, im = planes(n, b, gen)
         hfr, hfi = filter_spectrum(n, cplx)
+        hfi = -hfi if conj else hfi
         hold("conv_fused",
              lambda bwd: ck.zconv_tmajor(plan, re, im, hfr, hfi),
              lambda bwd: ck.zconv_tmajor_plain(plan, re, im, hfr, hfi),
-             {"n": n, "b": b, "complex_filter": cplx}, dirs=(False,))
+             {"n": n, "b": b, "complex_filter": cplx, "conjugate": conj}, dirs=(False,))
 
-    def stream_case(n, u, x, total, cplx_filter):
+    def stream_case(n, u, x, total, cplx_filter, spectrum=None):
+        # spectrum: (hfr, hfi) given, e.g. the reversed taps' of a backward
         plan = D._thin_plan(n)
-        hfr, hfi = filter_spectrum(n, cplx_filter, n - u + 1)
+        hfr, hfi = spectrum or filter_spectrum(n, cplx_filter, n - u + 1)
         hold("conv_fused",
              lambda bwd: (ck.zconv_stream(plan, x, hfr, hfi, u, total),),
              lambda bwd: (ck.zconv_stream_plain(plan, x, hfr, hfi, u, total),),
              {"map": "stream", "n": n, "u": u, "shape": list(x.shape), "total": total,
-              "complex": x.is_complex(), "complex_filter": cplx_filter}, dirs=(False,))
+              "complex": x.is_complex(), "complex_filter": cplx_filter,
+              "adjoint": spectrum is not None}, dirs=(False,))
+
+    def adjoint_stream_case(fc, rows, total, cplx_stream):
+        # the stream map's backward: the reversed taps' spectrum over the
+        # gradient [rows, total] with span - 1 zeros in front, to the forward
+        # input's length total + span - 1
+        hfr, hfi, span = fc._adjoint(dev)
+        g = torch.randn((rows, total), generator=gen, device="cuda")
+        if cplx_stream:
+            g = torch.complex(g, torch.randn((rows, total), generator=gen, device="cuda"))
+        x = torch.nn.functional.pad(g, (span - 1, 0))
+        stream_case(fc.nfft, fc.num_out_per_block, x, total + span - 1, fc.cplx_filter,
+                    (hfr, hfi))
 
     def pfb_case(m, p, r, k, maps=("rows", "stream"), offsets=(0,), lead=0, width=None):
         w = torch.randn((p, m), generator=gen, device="cuda")
@@ -669,6 +730,27 @@ def phase_kernels(gen):
             pfb_case(m, p, 3, 70, offsets=(0, m // 2))
     pfb_case(1000, 8, 3, 3, ("stream",), (0, 500))
     pfb_case(4096, 8, 4, 100, ("stream",), (0, 2048), lead=3)
+    # the shapes phase_grad's backward hands the FIR kernels: B7's stream map
+    # with the reversed taps' spectrum (FastConv at F = 1024 on [16, 2^22],
+    # DDCChain's [I; Q] rows at 129 taps, a complex filter's conjugated taps
+    # on a complex stream), its column map with the conjugate spectrum at a
+    # StreamingConv push's column count, B8's identity maps on the gradient
+    # rows of both planes padded to K + 2P - 2 frames (the channelizer step
+    # and the oversampled step)
+    fc = C.FastConv(pt.design_lowpass(GRAD_CONV_TAPS[0], 0.1))
+    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+        adjoint_stream_case(fc, CONV_ROWS, CONV_LEN - fc.filter_len + 1, False)
+        frames = (GRAD_PUSH - fc.nfft) // fc.num_out_per_block + 1
+        conv_case(fc.nfft, -(-(-(-frames // 2)) // 4) * 4, False, conj=True)
+    fc = CH.DDCChain(DDC_RATE, pt.design_lowpass(DDC_TAPS[0], 0.5 / DDC_DECIM), DDC_DECIM).conv
+    adjoint_stream_case(fc, 2, DDC_N, False)
+    h = pt.design_lowpass(65, 0.1) * np.exp(2j * np.pi * 0.05 * np.arange(65))
+    adjoint_stream_case(C.FastConv(h, flags=C.ConvFlags.CPLX_INP_OUT | C.ConvFlags.CPLX_FILTER),
+                        3, 5001, True)
+    del fc
+    for m, p, batch, frames in (CHAN_CONFIGS[0], (GRAD_OVERSAMPLED[0], GRAD_OVERSAMPLED[2],
+                                                   *CHAN_CONFIGS[1][2:])):
+        pfb_case(m, p, 2 * batch, frames + p - 1, ("rows",))
 
     def fused2_case(plan, n, b, orders=(True, False)):
         re, im = planes(b, n, gen)  # batch-major rows [B, N]
@@ -1700,23 +1782,42 @@ def phase_channelizer(gen):
     return launches, runs
 
 
+# the plain version of every kernel wrapper a main path runs, by wrapper
+PLAIN = {
+    (pk, "cfft_chain_tmajor"): lambda plan, re, im, *, backward=False, tb=None, elems=None:
+        pk.chain_tmajor_plain(plan, re, im, backward=backward),
+    (pk, "cfft_combine_tmajor"): lambda last, re, im, *, backward=False:
+        pk.combine_tmajor_plain(last, re, im, backward=backward),
+    (pk, "cfft_chain_tmajor_packed"): lambda plan, y, *, slabs=1, tb=None, elems=None:
+        pk.chain_tmajor_packed_plain(plan, y, slabs=slabs),
+    (pk, "rfft_chain_tmajor_fused"): lambda plan, y, tw, *, tb=None, elems=None:
+        pk.rfft_chain_tmajor_fused_plain(plan, y, tw),
+    (pk, "rfft_bwd_chain_tmajor_fused"): lambda plan, sr, si, tw, *, tb=None, elems=None:
+        pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw),
+    (pk, "real_split_tmajor"): lambda zr, zi, tw, *, backward=False:
+        pk.real_split_tmajor_plain(zr, zi, tw, backward=backward),
+    (fs, "cfft_fused2"): lambda plan, re, im, *, backward=False, ordered=True:
+        fs.cfft_fused2_plain(plan, re, im, backward=backward, ordered=ordered),
+    (rk, "real_split"): lambda zr, zi, tw, *, backward=False:
+        rk.real_split_plain(zr, zi, tw, backward=backward),
+    (ck, "zconv_tmajor"): lambda plan, re, im, hfr, hfi, *, tb=None, elems=None:
+        ck.zconv_tmajor_plain(plan, re, im, hfr, hfi),
+    (ck, "zconv_stream"): lambda plan, x, hfr, hfi, u, total, adjoint=None:
+        ck.zconv_stream_plain(plan, x, hfr, hfi, u, total),
+    (pfb, "pfb_fir"): lambda rows, w, k: pfb.pfb_fir_plain(rows, w, k),
+    (pfb, "pfb_fir_stream_tmajor"): lambda hist, x, w, k, offset=0, warps=None:
+        pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k, offset),
+}
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """The FIR paths with every kernel wrapper swapped for its plain
-    version: the pipelines' plain-version timing."""
+    """Every kernel wrapper of :data:`PLAIN` swapped for its plain version:
+    the pipelines' plain-version timing."""
 
-    saved = [(mod, name, getattr(mod, name)) for mod, name in (
-        (pk, "cfft_chain_tmajor"), (pk, "cfft_combine_tmajor"), (ck, "zconv_tmajor"),
-        (ck, "zconv_stream"), (pfb, "pfb_fir_stream_tmajor"))]
-    pk.cfft_chain_tmajor = lambda plan, re, im, *, backward=False, tb=None, elems=None: \
-        pk.chain_tmajor_plain(plan, re, im, backward=backward)
-    pk.cfft_combine_tmajor = lambda last, re, im, *, backward=False: \
-        pk.combine_tmajor_plain(last, re, im, backward=backward)
-    ck.zconv_tmajor = lambda plan, re, im, hfr, hfi, *, tb=None, elems=None: \
-        ck.zconv_tmajor_plain(plan, re, im, hfr, hfi)
-    ck.zconv_stream = ck.zconv_stream_plain
-    pfb.pfb_fir_stream_tmajor = lambda hist, x, w, k, offset=0, warps=None: \
-        pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k, offset)
+    saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN]
+    for (mod, name), fn in PLAIN.items():
+        setattr(mod, name, fn)
     try:
         yield
     finally:
@@ -3546,6 +3647,395 @@ def phase_tune(gen):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The differentiable path (phase_grad)
+# ---------------------------------------------------------------------------
+
+# (kind, time-major, N, B): the transforms whose gradients phase_grad takes,
+# both directions each; B rows of a batch-major plan (the real (2048, 8192)
+# is (B, H) = (2048, 4096))
+GRAD_TRANSFORMS = (("complex", True, 2048, 8192), ("complex", True, 65536, 256),
+                   ("complex", False, 4096, 4096), ("real", True, 2048, 8192),
+                   ("real", True, 131072, 128), ("real", False, 8192, 2048))
+GRAD_CONV_TAPS = (1024, 4096)          # FastConv on [CONV_ROWS, CONV_LEN]
+GRAD_PUSH = 1 << 22                    # StreamingConv: one push of 2^22 samples
+GRAD_OVERSAMPLED = (1024, 2, 8)        # OversampledChannelizer(M, V, P), one step
+GRAD_DOT_TOL = 1e-5                    # |<g, Lx> - <L^T g, x>| / (|g| |Lx|)
+TRAIN_STEPS = 3
+PLAIN_FNS = ((pk, "chain_tmajor_plain"), (pk, "combine_tmajor_plain"),
+             (pk, "chain_tmajor_packed_plain"), (pk, "rfft_chain_tmajor_fused_plain"),
+             (pk, "rfft_bwd_chain_tmajor_fused_plain"), (pk, "real_split_tmajor_plain"),
+             (fs, "cfft_fused2_plain"), (rk, "real_split_plain"), (ck, "zconv_tmajor_plain"),
+             (ck, "zconv_stream_plain"), (pfb, "pfb_fir_plain"),
+             (pfb, "pfb_fir_stream_tmajor_plain"))
+
+
+@contextlib.contextmanager
+def plain_autograd():
+    """Every kernel wrapper swapped for its plain version and no autograd
+    Function entered: torch autograd through the plain versions."""
+
+    needed = _grad.needed
+    _grad.needed = lambda *ts: False
+    try:
+        with plain_kernels():
+            yield
+    finally:
+        _grad.needed = needed
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the calls of every plain version (none may run on the card)."""
+
+    calls = []
+    saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN_FNS]
+    for mod, name, fn in saved:
+        setattr(mod, name, lambda *a, _f=fn, _n=name, **k: (calls.append(_n), _f(*a, **k))[1])
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def as_real(y: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(y) if y.is_complex() else y
+
+
+def packed_rfft(x: torch.Tensor, dim: int):
+    """The packed real spectrum planes (bin0 = DC + i*Nyquist) of x along
+    ``dim`` by complex128 ``torch.fft.rfft`` (differentiable)."""
+
+    f = torch.fft.rfft(x.double(), dim=dim).movedim(dim, -1)
+    h = f.shape[-1] - 1
+    sr = torch.cat([f[..., :1].real, f[..., 1:h].real], -1)
+    si = torch.cat([f[..., h:].real, f[..., 1:h].imag], -1)
+    return sr.movedim(-1, dim), si.movedim(-1, dim)
+
+
+def packed_irfft(sr: torch.Tensor, si: torch.Tensor, dim: int):
+    """The unscaled real backward of packed planes by complex128
+    ``torch.fft.irfft`` (differentiable)."""
+
+    sr, si = sr.double().movedim(dim, -1), si.double().movedim(dim, -1)
+    h = sr.shape[-1]
+    z = torch.complex(torch.cat([sr, si[..., :1]], -1),
+                      torch.cat([torch.zeros_like(si[..., :1]), si[..., 1:],
+                                 torch.zeros_like(si[..., :1])], -1))
+    return (torch.fft.irfft(z, n=2 * h, dim=-1) * (2 * h)).movedim(-1, dim)
+
+
+def grad_transform_fns(kind: str, tm: bool, n: int, backward: bool):
+    """(port call, complex128 torch.fft call) on planes of one transform case."""
+
+    dim = 0 if tm else -1
+    if kind == "complex":
+        plan = pt.new_setup(n)
+        call = pt.transform_ordered_split_tmajor if tm else pt.transform_ordered_split
+        d = pt.BACKWARD if backward else pt.FORWARD
+
+        def oracle(re, im):
+            z = torch.complex(re.double(), im.double())
+            y = torch.fft.ifft(z, dim=dim) * n if backward else torch.fft.fft(z, dim=dim)
+            return y.real, y.imag
+
+        return (lambda re, im: call(plan, (re, im), d)), oracle
+    plan = pt.new_setup(n, pt.REAL)
+    call = pt.transform_ordered_split_tmajor if tm else pt.transform_ordered_split
+    if backward:
+        return (lambda sr, si: (call(plan, (sr, si), pt.BACKWARD),),
+                lambda sr, si: (packed_irfft(sr, si, dim),))
+    return (lambda x: call(plan, x)), (lambda x: packed_rfft(x, dim))
+
+
+def phase_grad(gen, smi: str):
+    """Gradients through every kernel-backed path at full size: the
+    transforms (B1, kern2, B9, B3, B4 + B2 + B5, B6 + B9) both ways,
+    FastConv (B7's stream map; "tmajor"), a StreamingConv push (B7's column
+    map), a channelizer step (B8 + kern2, gradients for the chunk and the
+    history), an oversampled step, DDCChain (mixer + B7) and stft_split,
+    each held to torch autograd through the plain versions on the card
+    (2e-6 of max|plain gradient|), the dot-product test (1e-5) and, for the
+    transforms and the STFT, complex128 ``torch.fft`` autograd (1e-5); the
+    backward's launches (no plain version may run); forward and backward ms
+    beside the bytes bound and ``torch.fft``'s own backward.  Then three
+    steps of gradient descent on a [4, 2^22] signal toward a target
+    magnitude spectrogram.  Returns the launch counts of the cases' first
+    runs, from zero."""
+
+    reset_counts()
+    total = {w.__name__: 0 for w in WRAPPERS}
+    dev = torch.device(DEV)
+
+    def case(name, fn, xs, want_bwd, oracle=None, flops=0.0, library=None, d_pass=None,
+             inner=5, **info):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        c0 = counts()
+        with plain_calls() as plain_run:
+            ys = tuple(as_real(y) for y in fn(*xs))
+            c1 = counts()
+            gs = [torch.randn(y.shape, generator=gen, device=DEV) for y in ys]
+            grads = torch.autograd.grad(ys, xs, gs, retain_graph=True)
+            torch.cuda.synchronize()
+        c2 = counts()
+        fwd, bwd = launched(c1, c0), launched(c2, c1)
+        for k, v in launched(c2, c0).items():
+            total[k] += v
+        # torch autograd through the plain versions, on the same inputs
+        with plain_autograd():
+            xp = [x.detach().clone().requires_grad_(True) for x in xs]
+            plain = torch.autograd.grad(tuple(as_real(y) for y in fn(*xp)), xp, gs)
+        scale = max(float(p.abs().max()) for p in plain)
+        e_plain = max(float((g - p).abs().max()) for g, p in zip(grads, plain)) / scale
+        del xp, plain
+        # the dot-product test, accumulated in float64
+        lhs = sum(float((g.double() * y.detach().double()).sum()) for g, y in zip(gs, ys))
+        rhs = sum(float((g.double() * x.detach().double()).sum()) for g, x in zip(grads, xs))
+        norm = math.sqrt(sum(float(g.double().square().sum()) for g in gs)
+                         * sum(float(y.detach().double().square().sum()) for y in ys))
+        e_dot = abs(lhs - rhs) / norm
+        row = {"phase": "grad", "case": name, **info, "in_shapes": [list(x.shape) for x in xs],
+               "rel_err_vs_plain_autograd": e_plain, "dot_product_gap": e_dot,
+               "fwd_launches": fwd, "bwd_launches": bwd, "plain_calls": len(plain_run)}
+        if oracle is not None:
+            xo = [x.detach().double().requires_grad_(True) for x in xs]
+            ref = torch.autograd.grad(oracle(*xo), xo, [g.double() for g in gs])
+            row["rel_err_vs_complex128"] = max(
+                float((g - r).abs().max()) for g, r in zip(grads, ref)) / max(
+                float(r.abs().max()) for r in ref)
+            del xo, ref
+        nbytes = 4.0 * (sum(x.numel() for x in xs) + sum(y.numel() for y in ys))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        fwd_call = lambda: fn(*xs)
+        bwd_call = lambda: torch.autograd.grad(ys, xs, gs, retain_graph=True)
+        row["fwd_ms"] = time_ms(fwd_call, inner=inner)
+        row["bwd_ms"] = time_ms(bwd_call, inner=inner)
+        row["fwd_device_ms"], row["bwd_device_ms"] = device_ms(fwd_call), device_ms(bwd_call)
+        row["fwd_enqueue_us"], row["bwd_enqueue_us"] = enqueue_us(fwd_call), enqueue_us(bwd_call)
+        if d_pass is not None:
+            row["d_pass_ms"] = time_ms(lambda: d_pass(gs), inner=inner)
+        if library is not None:
+            lib_name, lib_fn = library
+            lx = [x.detach().requires_grad_(True) for x in xs]
+            ly = lib_fn(*lx)
+            lg = torch.randn(ly.shape, dtype=ly.dtype, generator=None, device=DEV)
+            row["library"] = lib_name
+            row["library_fwd_ms"] = time_ms(lambda: lib_fn(*lx), inner=inner)
+            row["library_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(ly, lx, lg, retain_graph=True), inner=inner)
+            del lx, ly, lg
+        emit(row)
+        check(not plain_run, f"grad {name}: plain versions ran on the card: {plain_run[:5]}")
+        check(e_plain <= KERNEL_TOL, f"grad {name}: {e_plain} of the plain autograd gradient")
+        check(e_dot <= GRAD_DOT_TOL, f"grad {name}: dot-product gap {e_dot}")
+        check(row.get("rel_err_vs_complex128", 0.0) <= ORACLE_TOL,
+              f"grad {name}: {row.get('rel_err_vs_complex128')} of complex128 torch.fft")
+        check(all(bwd.get(w, 0) > 0 for w in want_bwd),
+              f"grad {name}: backward launches {bwd}, expected {want_bwd}")
+        check(all(torch.isfinite(g).all() for g in grads), f"grad {name}: gradient not finite")
+        return row
+
+    # the transforms, both directions
+    for kind, tm, n, b in GRAD_TRANSFORMS:
+        real = kind == "real"
+        shape = (lambda rows: (rows, b)) if tm else (lambda rows: (b, rows))
+        plan = pt.new_setup(n, pt.REAL if real else pt.COMPLEX)
+        h = n // 2
+        eng = D.select_engine(plan, b, tm, dev)
+        for backward in (False, True):
+            fn, oracle = grad_transform_fns(kind, tm, n, backward)
+            dim = 0 if tm else -1
+            if real:
+                xs = (planes(*shape(h), gen) if backward
+                      else (torch.randn(shape(n), generator=gen, device=DEV),))
+                lib = (("torch.fft.irfft", lambda sr, si: torch.fft.irfft(
+                    torch.complex(sr, si), n=n, dim=dim)) if backward
+                       else ("torch.fft.rfft", lambda x: torch.view_as_real(
+                           torch.fft.rfft(x, dim=dim))))
+                # the backward's D pass on spectrum planes: bins 1 .. H-1
+                # halved before the real backward, or doubled after the forward
+                spec = planes(*shape(h), gen)
+                d_pass = (lambda gs, _s=spec, _tm=tm, _d=2.0 if backward else 0.5:
+                          pt.fft._scale_bins(*_s, _d, _tm))
+            else:
+                xs = planes(*shape(n), gen)
+                lib = ("torch.fft.ifft" if backward else "torch.fft.fft",
+                       lambda re, im, _bw=backward: torch.view_as_real(
+                           (torch.fft.ifft if _bw else torch.fft.fft)(torch.complex(re, im),
+                                                                     dim=dim)))
+                d_pass = None
+            want = grad_kernels(kind, tm, eng, backward)
+            case(f"{kind}_{'tmajor' if tm else 'bmajor'}", fn, xs, want, oracle,
+                 fft_flops(h if real else n, b), lib, d_pass, n=n, b=b, engine=eng,
+                 backward=backward)
+            del xs
+            torch.cuda.empty_cache()
+
+    # the host's share with gradients: the small public calls of the host
+    # lines (complex N = 1024, real N = 8192, B = 16) on inputs that require
+    # grad, the forward alone and the forward with its backward
+    for kind, n, calls in (("complex", 1024, 200), ("real", 8192, 200)):
+        fn, _ = grad_transform_fns(kind, True, n, False)
+        xs = ([torch.randn((n, 16), generator=gen, device=DEV).requires_grad_(True)
+               for _ in range(2 if kind == "complex" else 1)])
+        fn(*xs)
+        us = []
+        for backward in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                ys = fn(*xs)
+                if backward:
+                    torch.autograd.grad(ys, xs, [torch.ones_like(y) for y in ys])
+            torch.cuda.synchronize()
+            us.append((time.perf_counter() - t0) / calls * 1e6)
+        emit({"phase": "host", "grad": True, "kind": kind, "n": n, "b": 16,
+              "public_call_us": us[0], "call_and_backward_us": us[1]})
+    # what a call without gradients pays for them: one _grad.needed check per
+    # entry point it passes (one or two a transform)
+    x = torch.randn((1024, 16), generator=gen, device=DEV)
+    t0 = time.perf_counter()
+    for _ in range(100000):
+        _grad.needed(x, x)
+    emit({"phase": "host", "grad": False, "needed_check_us": (time.perf_counter() - t0) * 10})
+
+    # FastConv on the [16, 2^22] stream: B7's stream map at F = 1024, the
+    # "tmajor" route (kern2 both ways) at F = 4096
+    x = torch.randn((CONV_ROWS, CONV_LEN), generator=gen, device=DEV)
+    for taps in GRAD_CONV_TAPS:
+        fc = C.FastConv(pt.design_lowpass(taps, 0.1), device=DEV)
+        route = D.conv_route_mode(fc.nfft, None, dev)
+        want = ("zconv_stream",) if route == "fused" else ("cfft_chain_tmajor",
+                                                          "cfft_combine_tmajor")
+        frames = 2 * conv_columns(fc, CONV_ROWS, CONV_LEN)
+        case("fastconv", lambda v, _fc=fc: (_fc.apply_batched(v, flush=True),), [x], want,
+             flops=2 * fft_flops(fc.nfft, frames // 2), inner=2, taps=taps, nfft=fc.nfft,
+             route=route)
+        torch.cuda.empty_cache()
+    # one StreamingConv push of 2^22 samples: its frames through B7's column map
+    sc = C.StreamingConv(pt.design_lowpass(CONV_TAPS[1], 0.1), device=DEV)
+    sc._framer.push(np.random.default_rng(SEED).standard_normal(GRAD_PUSH).astype(np.float32))
+    fr = torch.from_numpy(sc._framer.frames()).to(DEV)
+    case("streaming_conv_push", lambda f: (sc._filter(f),), [fr], ("zconv_tmajor",),
+         flops=fft_flops(sc.setup.nfft, fr.shape[0]), inner=2, frames=fr.shape[0],
+         nfft=sc.setup.nfft)
+    del fr
+
+    # a channelizer step, gradients for the chunk and the history (B8's
+    # identity maps, then kern2 at M = 4096), and one oversampled step
+    m, p, batch, frames = CHAN_CONFIGS[0]
+    ch = CH.Channelizer(m, p, device=DEV)
+
+    def chan_step(hr, hi, xr, xi):
+        y, _ = ch.process_split(CH.ChannelizerState(hr, hi), xr, xi)
+        return y
+
+    kern2 = D.select_engine(ch.plan, batch * frames, True, dev) == "kern2"
+    case("channelizer", chan_step, [*planes(batch, p * m, gen), *planes(batch, frames * m, gen)],
+         ("pfb_fir", "cfft_chain_tmajor") + (("cfft_combine_tmajor",) if kern2 else ()),
+         flops=fft_flops(m, batch * frames) + 4.0 * p * m * batch * frames, inner=2, m=m, p=p,
+         batch=batch, frames=frames)
+    om, v, op = GRAD_OVERSAMPLED
+    ob, of = CHAN_CONFIGS[1][2], CHAN_CONFIGS[1][3]
+    och = CH.OversampledChannelizer(om, v, op, device=DEV)
+
+    def over_step(hr, hi, xr, xi):
+        y, _ = och.process_split(CH.ChannelizerState(hr, hi), xr, xi)
+        return y
+
+    case("oversampled_channelizer", over_step,
+         [*planes(ob, op * om, gen), *planes(ob, of * om, gen)], ("pfb_fir", "cfft_chain_tmajor"),
+         flops=v * (fft_flops(om, ob * of) + 4.0 * op * om * ob * of), inner=2, m=om, v=v, p=op,
+         batch=ob, frames=of)
+    torch.cuda.empty_cache()
+
+    # DDCChain on one chunk of 2^24 complex samples at 129 taps
+    ddc = CH.DDCChain(DDC_RATE, pt.design_lowpass(DDC_TAPS[0], 0.5 / DDC_DECIM), DDC_DECIM,
+                      device=DEV)
+    mixer = ddc.init_state().mixer
+
+    def ddc_step(xr, xi, tr, ti):
+        y, st = ddc.process(CH.DDCState(mixer, torch.complex(tr, ti)),
+                            torch.complex(xr, xi))
+        return y, st.tail
+
+    case("ddc_chain", ddc_step, [torch.randn(DDC_N, generator=gen, device=DEV) for _ in range(2)]
+         + [torch.randn(DDC_TAPS[0] - 1, generator=gen, device=DEV) for _ in range(2)],
+         ("zconv_stream",), flops=2 * fft_flops(ddc.conv.nfft, DDC_N // ddc.conv.nfft * 4),
+         inner=2, taps=DDC_TAPS[0], n=DDC_N)
+    torch.cuda.empty_cache()
+
+    # stft_split on [4, 2^22] at 1024 / 512 (B9 and B6 both ways), against
+    # complex128 torch.fft autograd and torch.stft's own backward
+    sp = pt.spectral
+    w = sp.hann(STFT_NFFT)
+    wt = torch.from_numpy(w).to(DEV)
+    xs = torch.randn(STFT_SHAPE, generator=gen, device=DEV)
+    k = (STFT_SHAPE[1] - STFT_NFFT) // STFT_HOP + 1
+
+    def stft_ref(x):
+        s = stft_oracle(x, STFT_NFFT, STFT_HOP, w)
+        return s.real, s.imag
+
+    case("stft_split", lambda v: sp.stft_split(v, STFT_NFFT, STFT_HOP), [xs],
+         ("cfft_fused2", "real_split"), stft_ref,
+         flops=fft_flops(STFT_NFFT // 2, STFT_SHAPE[0] * k),
+         library=("torch.stft", lambda v: torch.view_as_real(torch.stft(
+             v, STFT_NFFT, STFT_HOP, window=wt, center=False, return_complex=True))),
+         inner=2, n_fft=STFT_NFFT, hop=STFT_HOP)
+    torch.cuda.empty_cache()
+
+    # the trainer: plain gradient descent toward a target magnitude
+    # spectrogram; the step is 1/4 of the inverse of the loss's curvature
+    # bound (2/numel(S) * n_fft * the window's overlap sum, at most 1.5)
+    target = sp.stft_split(torch.randn(STFT_SHAPE, generator=gen, device=DEV), STFT_NFFT,
+                           STFT_HOP)
+    mag_t = torch.sqrt(target[0] ** 2 + target[1] ** 2)
+    lr = 0.25 * mag_t.numel() / (2.0 * STFT_NFFT * 1.5)
+    xt = xs.clone().requires_grad_(True)
+    c0 = counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS + 1):
+        t = time.perf_counter()
+        sr, si = sp.stft_split(xt, STFT_NFFT, STFT_HOP)
+        loss = ((torch.sqrt(sr * sr + si * si + 1e-12) - mag_t) ** 2).mean()
+        (g,) = torch.autograd.grad(loss, xt)
+        with torch.no_grad():
+            xt -= lr * g
+        losses.append(float(loss.detach()))  # synchronizes
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    steps = launched(counts(), c0)
+    for k_, v_ in steps.items():
+        total[k_] += v_
+    emit({"phase": "grad", "case": "trainer", "shape": list(STFT_SHAPE), "n_fft": STFT_NFFT,
+          "hop": STFT_HOP, "lr": lr, "losses": losses, "step_ms": step_ms,
+          "launches": steps, "card": smi})
+    check(all(b_ < a_ for a_, b_ in zip(losses, losses[1:])),
+          f"trainer: the loss did not fall at every step: {losses}")
+    check(all(steps.get(w_, 0) > 0 for w_ in ("cfft_fused2", "real_split")),
+          f"trainer: launches {steps}")
+    emit({"phase": "grad", "launches": total})
+    return total
+
+
+def grad_kernels(kind: str, tm: bool, engine: str, backward: bool):
+    """The kernels the backward of one transform case must launch: the
+    adjoint is the transform of the other direction on the same route."""
+
+    if kind == "complex":
+        if not tm:
+            return ("cfft_fused2",) if engine == "fused2" else ("cfft_chain_tmajor",)
+        return ("cfft_chain_tmajor",) + (("cfft_combine_tmajor",) if engine == "kern2" else ())
+    if not tm:
+        return ("cfft_fused2", "real_split")
+    if engine == "chain":  # B3: the adjoint of one direction is the other's kernel
+        return ("rfft_chain_tmajor_fused",) if backward else ("rfft_bwd_chain_tmajor_fused",)
+    if backward:  # the adjoint of the real backward: the packed chain, combine, split
+        return ("cfft_chain_tmajor_packed", "cfft_combine_tmajor", "real_split_tmajor")
+    return ("real_split_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3588,6 +4078,7 @@ def main() -> int:
     rows.update(run(phase_bmajor_timing, gen, bm_shapes, bmr_shapes))
     rows.update(run(phase_ksplit2_timing, gen))
     run(phase_anylen_timing, gen)
+    grad_launches = run(phase_grad, gen, smi)
     tune_launches = run(phase_tune, gen)
     for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split",
                  "conv_fused", "pfb_fir", "fused2", "real_split_bmajor", "ksplit2"):
@@ -3621,15 +4112,20 @@ def main() -> int:
     for name in ("cfft_chain_tmajor", "cfft_combine_tmajor", "cfft_fused2", "zconv_stream"):
         check(sum(c[name] for c in par_launches) > 0,
               f"distribution paths did not launch every path kernel: {par_launches}")
+    for name in ("cfft_chain_tmajor", "cfft_combine_tmajor", "cfft_chain_tmajor_packed",
+                 "rfft_chain_tmajor_fused", "rfft_bwd_chain_tmajor_fused", "real_split_tmajor",
+                 "real_split", "zconv_stream", "zconv_tmajor", "pfb_fir", "cfft_fused2"):
+        check(grad_launches[name] > 0,
+              f"the gradient paths did not launch every path kernel: {grad_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "phase_seconds": secs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     # launches: the count over the main-path runs, each from zero (the ten
     # paths, then the anylen paths, the capture path, the distribution
-    # layer's four paths and measure mode's public calls); the float64
-    # phases launch none
+    # layer's four paths, the gradient paths' forward and backward and
+    # measure mode's public calls); the float64 phases launch none
     paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
              bmr_launches, ks2_launches, ksplit_launches, dsp_launches, spectral_launches,
-             *anylen_launches, cap_launches, *par_launches, tune_launches)
+             *anylen_launches, cap_launches, *par_launches, grad_launches, tune_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),

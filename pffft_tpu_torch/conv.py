@@ -47,6 +47,7 @@ import torch
 from . import fft as _fft
 from . import plan as _plan
 from . import runtime as _runtime
+from .ops import _grad
 from .ops import conv_kernel as _ck
 from .ops import dispatch as _dispatch
 
@@ -155,6 +156,7 @@ class FastConv:
         g[(nfft - cplx_factor * np.arange(filter_len)) % nfft] = c
         self._g = g
         self._hf: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._hf_adjoint: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor, int]] = {}
         # None: the dispatch table; 'fused' or 'tmajor' forces a route
         # (tests, probes).  Set before first apply.
         self._force_conv_kernel: Optional[str] = None
@@ -190,6 +192,24 @@ class FastConv:
             hf = (torch.from_numpy(hfr).to(device), torch.from_numpy(hfi).to(device))
             self._hf[device] = hf
         return hf
+
+    def _adjoint(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """(hfr, hfi, span) of the stream map's adjoint on ``device``: the
+        spectrum of the time-arranged filter of the taps reversed and
+        conjugated (the correlation taps a[d] become conj(a[span-1-d])), and
+        the filter span.  Built once per device, as :meth:`_spectrum` is."""
+
+        adj = self._hf_adjoint.get(device)
+        if adj is None:
+            n, cf = self.nfft, self.cplx_factor
+            j = np.arange(self.filter_len)
+            g = np.zeros_like(self._g)
+            g[(n - cf * j) % n] = np.conj(self._g[(n - cf * j[::-1]) % n])
+            hfr, hfi = _ck.filter_spectrum(self.plan, g)
+            adj = (torch.from_numpy(hfr).to(device), torch.from_numpy(hfi).to(device),
+                   self.filter_span)
+            self._hf_adjoint[device] = adj
+        return adj
 
     def _route(self, device: torch.device) -> str:
         """The block pipeline of ``dispatch.conv_route_mode`` ("tmajor" for
@@ -235,7 +255,8 @@ class FastConv:
         if self._route(x.device) == "fused":
             cplan = _dispatch.conv_kernel_choice(self.nfft, 1, x.device)[0]
             hfr, hfi = self._spectrum(x.device)
-            return _ck.zconv_stream(cplan, x.contiguous(), hfr, hfi, u, total)
+            adjoint = self._adjoint(x.device) if _grad.needed(x) else None
+            return _ck.zconv_stream(cplan, x.contiguous(), hfr, hfi, u, total, adjoint)
         return _ck.stream_conv(self._block_conv, x, self.nfft, u, total)
 
     # ------------------------------------------------------------------
@@ -387,13 +408,19 @@ class StreamingConv:
 
         return self._framer.native
 
-    def _run(self, frames: np.ndarray) -> np.ndarray:
-        s = self.setup
-        f = _as_tensor(frames, s.device, s.dtype)
+    def _filter(self, f: torch.Tensor) -> torch.Tensor:
+        """The framer's frames [k, nfft] -> their valid samples [k, u]:
+        two frames per column of the block pipeline (an odd k padded by a
+        zero frame).  Differentiable with respect to the frames."""
+
         k = f.shape[0]
         if k % 2:
             f = torch.nn.functional.pad(f, (0, 0, 0, 1))
-        y = s._conv_real_frames(f[None])[0, :k]
+        return self.setup._conv_real_frames(f[None])[0, :k]
+
+    def _run(self, frames: np.ndarray) -> np.ndarray:
+        s = self.setup
+        y = self._filter(_as_tensor(frames, s.device, s.dtype))
         return y.reshape(-1).cpu().numpy()
 
     def push(self, chunk) -> np.ndarray:

@@ -75,6 +75,7 @@ class CicDDC:
             w[j * r : j * r + 3 * r - 2, j] = self.b3_rev
         self.block_w = w
         self._w: Dict[torch.device, torch.Tensor] = {}
+        self._gains: Dict[Tuple[float, torch.device], torch.Tensor] = {}
         # integrator-gain compensation 1/R^3 (pf_cic.cpp:70); the extra
         # 1/SHRT_MAX of the C gain is the int16 normalization, per fmt
         self.gain = np.float32(1.0 / self.factor**3)
@@ -84,6 +85,17 @@ class CicDDC:
         if w is None:
             w = self._w[device] = torch.from_numpy(self.block_w).to(device)
         return w
+
+    def _signs(self, g: float, device: torch.device) -> torch.Tensor:
+        """[[-g], [g]]: the output gain of the two planes, the first one
+        negated back (see :meth:`_apply_impl`)."""
+
+        key = (g, device)
+        t = self._gains.get(key)
+        if t is None:
+            t = self._gains[key] = torch.tensor([[-g], [g]], dtype=torch.float32,
+                                                device=device)
+        return t
 
     def init_state(self, device=None) -> CicState:
         z = torch.zeros(2 * self.factor, dtype=torch.float32,
@@ -145,16 +157,18 @@ class CicDDC:
         kp = -(-k_out // s) * s
         ext = torch.empty((2, r * kp + 2 * r), dtype=torch.float32, device=dev)
         ext[:, 2 * r + n :] = 0.0
-        ext[0, : 2 * r] = state.hist_re
+        # the carrier (-sin + i*cos) is the mixer's times i: (yr, yi) -> (-yi, yr);
+        # row 0 holds the negated real plane, yi, and the gain negates it back
+        # (exact in floating point; no negation pass, and autograd-safe)
+        ext[0, : 2 * r] = -state.hist_re
         ext[1, : 2 * r] = state.hist_im
-        # the carrier (-sin + i*cos) is the mixer's times i: (yr, yi) -> (-yi, yr)
         (yr, yi), mst = _mixer.mixer_apply_split(_mixer.MixerState(state.phase_fp, rate_fp),
                                                  xr, xi)
-        torch.neg(yi, out=ext[0, 2 * r : 2 * r + n])
+        ext[0, 2 * r : 2 * r + n] = yi
         ext[1, 2 * r : 2 * r + n] = yr
         new_state = CicState(
             phase_fp=mst.phase_fp,
-            hist_re=ext[0, n : n + 2 * r].clone(),
+            hist_re=-ext[0, n : n + 2 * r],
             hist_im=ext[1, n : n + 2 * r].clone(),
         )
         if kp == 0:
@@ -163,7 +177,7 @@ class CicDDC:
         rows = ext.unfold(1, (s + 2) * r, s * r).reshape(-1, (s + 2) * r)
         y = torch.matmul(rows, self._weight(dev))  # [2*kp/S, S], full fp32
         g = float(self.gain * np.float32(scale))
-        y = y.reshape(2, kp)[:, :k_out] * g
+        y = y.reshape(2, kp)[:, :k_out] * self._signs(g, dev)
         return (y[0], y[1]), new_state
 
 

@@ -27,12 +27,14 @@ steps of ``ops/split.py``, in float64.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import plan as _plan
+from .ops import _grad
 from .ops import dispatch as _dispatch
 from .ops import split as _split
 from .ops import stages as _stages
@@ -208,12 +210,12 @@ def _split_call(plan: Plan, x, d, ordered: bool, device: Optional[str], name: st
     if plan.is_real and not backward:
         x = _as_plane(x, device, plan)
         _check_len(plan, x, False)
-        return _real_forward_planar(plan, x)
+        return _real_forward(plan, x, False)
     re, im = (_as_plane(a, device, plan) for a in x)
     _check_pair(re, im)
     _check_len(plan, re, backward)
     if plan.is_real:
-        return _real_backward_planar(plan, re, im)
+        return _real_backward(plan, re, im, False)
     return _complex_planar(plan, re, im, backward, ordered)
 
 
@@ -529,6 +531,110 @@ def _real_backward_tmajor(plan: Plan, sr: torch.Tensor, si: torch.Tensor):
     return _split.interleave_to_real_split_tmajor(wr, wi)
 
 
+# ---------------------------------------------------------------------------
+# Function 2: the real transforms, differentiable
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _bin_scale(h: int, scale: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[H]: 1 at the packed bin0 (DC and Nyquist), ``scale`` at bins 1 .. H-1."""
+
+    d = torch.full((h,), scale, dtype=dtype, device=device)
+    d[0] = 1.0
+    return d
+
+
+def _scale_bins(sr: torch.Tensor, si: torch.Tensor, scale: float, time_major: bool):
+    """Packed spectrum planes with bins 1 .. H-1 times ``scale`` and both parts
+    of bin0 as they are: one elementwise pass, whose output is contiguous."""
+
+    axis = 0 if time_major else -1
+    d = _bin_scale(sr.shape[axis], scale, sr.dtype, sr.device)
+    if time_major:
+        d = d[:, None]
+    return sr * d, si * d
+
+
+class _RealForward(torch.autograd.Function):
+    """Function 2, the real forward transform [..., N] (or time-major [N,
+    B]) -> the packed spectrum planes.
+
+    With D the diagonal map that halves bins 1 .. N/2-1 and leaves both
+    parts of the packed bin0 (DC + i*Nyquist), the adjoint of the unscaled
+    forward is the unscaled real backward of D*g."""
+
+    @staticmethod
+    def forward(x, plan, time_major):
+        return (_real_forward_tmajor if time_major else _real_forward_planar)(plan, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.plan, ctx.time_major = inputs
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        gr, gi = _scale_bins(gr, gi, 0.5, ctx.time_major)
+        return _real_backward(ctx.plan, gr, gi, ctx.time_major), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, plan, time_major):
+        # the mapped dimension joins the batch, as in dispatch._Cfft
+        x = _grad.batched(x, in_dims[0], info.batch_size, 1 if time_major else 0)
+        if not time_major:
+            return _real_forward(plan, x.contiguous(), False), (0, 0)
+        n, v, b = x.shape
+        sr, si = _real_forward(plan, x.reshape(n, v * b), True)
+        return (sr.view(-1, v, b), si.view(-1, v, b)), (1, 1)
+
+
+class _RealBackward(torch.autograd.Function):
+    """Function 2, the real backward transform: the packed spectrum planes
+    -> [..., N] (or time-major [N, B]), unscaled.  Its adjoint is D^-1 times
+    the real forward of the gradient (see :class:`_RealForward`)."""
+
+    @staticmethod
+    def forward(sr, si, plan, time_major):
+        return (_real_backward_tmajor if time_major else _real_backward_planar)(plan, sr, si)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, ctx.plan, ctx.time_major = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        gr, gi = _real_forward(ctx.plan, g.contiguous(), ctx.time_major)
+        return (*_scale_bins(gr, gi, 2.0, ctx.time_major), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, sr, si, plan, time_major):
+        sr, si = (_grad.batched(t, d, info.batch_size, 1 if time_major else 0)
+                  for t, d in zip((sr, si), in_dims))
+        if not time_major:
+            return _real_backward(plan, sr.contiguous(), si.contiguous(), False), 0
+        h, v, b = sr.shape
+        x = _real_backward(plan, sr.reshape(h, v * b), si.reshape(h, v * b), True)
+        return x.view(-1, v, b), 1
+
+
+def _real_forward(plan: Plan, x: torch.Tensor, time_major: bool):
+    """The real forward of either layout; through :class:`_RealForward`
+    where a gradient is recorded."""
+
+    if _grad.needed(x):
+        return _RealForward.apply(x, plan, time_major)
+    return (_real_forward_tmajor if time_major else _real_forward_planar)(plan, x)
+
+
+def _real_backward(plan: Plan, sr: torch.Tensor, si: torch.Tensor, time_major: bool):
+    """The real backward of either layout; through :class:`_RealBackward`
+    where a gradient is recorded."""
+
+    if _grad.needed(sr, si):
+        return _RealBackward.apply(sr, si, plan, time_major)
+    return (_real_backward_tmajor if time_major else _real_backward_planar)(plan, sr, si)
+
+
 def transform_ordered_split_tmajor(plan: Plan, x, direction=FORWARD, *,
                                    device: Optional[str] = None):
     """Split-format ordered transform in TIME-MAJOR layout.
@@ -555,7 +661,7 @@ def transform_ordered_split_tmajor(plan: Plan, x, direction=FORWARD, *,
                     f"[{plan.spectrum_size}, B]; got {tuple(sr.shape)}"
                 )
             _check_pair(sr, si)
-            return _real_backward_tmajor(plan, sr, si)
+            return _real_backward(plan, sr, si, True)
         if isinstance(x, (tuple, list)):
             raise ValueError(
                 "time-major REAL forward takes a single [N, B] real array "
@@ -566,7 +672,7 @@ def transform_ordered_split_tmajor(plan: Plan, x, direction=FORWARD, *,
             raise ValueError(
                 f"time-major real input must be [N={plan.n}, B]; got {tuple(x.shape)}"
             )
-        return _real_forward_tmajor(plan, x)
+        return _real_forward(plan, x, True)
     re, im = (_as_plane(a, device, plan) for a in x)
     if re.ndim != 2 or re.shape[0] != plan.n:
         raise ValueError(

@@ -25,6 +25,11 @@ complex lane.  A complex filter's lane holds one complex frame.
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises.  ``zconv_tmajor.launches`` and
 ``zconv_stream.launches`` count the launches.
+
+Both maps are differentiable with respect to the signal (Function 3,
+:class:`_ZconvTmajor` and :class:`_ZconvStream`), not the filter: the
+backward is the same kernel, with the conjugate spectrum for the column
+map and the reversed taps' spectrum for the stream map.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 
 from .. import plan as _plan
 from . import _build
+from . import _grad
 from . import fused_stage as _fs
 from . import pallas_fft as _pk
 
@@ -98,6 +104,13 @@ def zconv_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor,
     slice.  The launch shape is :func:`column_tile`'s; ``tb`` and ``elems``
     override it (measurement only).  The inputs are not modified."""
 
+    if _grad.needed(re, im):
+        return _ZconvTmajor.apply(re, im, plan, hfr, hfi, tb, elems)
+    return _zconv_tmajor(plan, re, im, hfr, hfi, tb, elems)
+
+
+def _zconv_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, hfr: torch.Tensor,
+                  hfi: torch.Tensor, tb: Optional[int], elems: Optional[int]):
     n, b = _pk._planes(re, im)
     _pk._chain_plan_fits(plan, n)
     _check_spectrum(n, re.device, hfr, hfi)
@@ -120,6 +133,28 @@ def zconv_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor,
 
 
 zconv_tmajor.launches = 0
+
+
+class _ZconvTmajor(torch.autograd.Function):
+    """Function 3, the column map: a circular convolution per column, a
+    complex-linear map of the planes, whose adjoint is the same kernel
+    with the conjugate spectrum (hfr, -hfi)."""
+
+    @staticmethod
+    def forward(re, im, plan, hfr, hfi, tb, elems):
+        return _zconv_tmajor(plan, re, im, hfr, hfi, tb, elems)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, ctx.plan, hfr, hfi, ctx.tb, ctx.elems = inputs
+        ctx.save_for_backward(hfr, hfi)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        hfr, hfi = ctx.saved_tensors
+        xr, xi = zconv_tmajor(ctx.plan, gr.contiguous(), gi.contiguous(), hfr, -hfi,
+                              tb=ctx.tb, elems=ctx.elems)
+        return xr, xi, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +245,8 @@ def stream_tile(n: int, device: Optional[torch.device] = None) -> Optional[_fs.F
 
 
 def zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torch.Tensor,
-                 u: int, total: int):
+                 u: int, total: int, adjoint: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                              int]] = None):
     """Overlap-save block convolution of streams x [R, L] in one launch:
     frame j of a row is x[j*u : j*u + N] (zero past L), convolved with Hf =
     (hfr, hfi) [N] (:func:`filter_spectrum`), and its first u outputs land
@@ -218,8 +254,23 @@ def zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torc
 
     Real float32 x: a real filter, two frames per lane, real output.
     complex64 x: one frame per lane, complex64 output.  The inputs are not
-    modified."""
+    modified.
 
+    A gradient with respect to x (:class:`_ZconvStream`) needs ``adjoint``
+    = (hfr', hfi', span): the spectrum of the filter's taps reversed (and
+    conjugated), and the filter's span F, the taps a[d], d < F, of the
+    valid correlation y[m] = sum_d a[d] x[m + d] the map computes."""
+
+    if _grad.needed(x):
+        if adjoint is None:
+            raise ValueError("a gradient through the stream map needs adjoint=(hfr, hfi, "
+                             "span) of the reversed taps (FastConv passes it)")
+        return _ZconvStream.apply(x, plan, hfr, hfi, u, total, *adjoint)
+    return _zconv_stream(plan, x, hfr, hfi, u, total)
+
+
+def _zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torch.Tensor,
+                  u: int, total: int):
     n = plan.engine_n
     _pk._chain_plan_fits(plan, n)
     if x.ndim != 2:
@@ -256,3 +307,27 @@ def zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torc
 
 
 zconv_stream.launches = 0
+
+
+class _ZconvStream(torch.autograd.Function):
+    """Function 3, the stream map: the valid correlation y[m] = sum_{d<F}
+    a[d] x[m + d], m < total.  Its adjoint is the full convolution, which
+    is the same map run with the reversed taps' spectrum (hfra, hfia) over
+    the gradient with F - 1 zeros in front, to the input's length."""
+
+    @staticmethod
+    def forward(x, plan, hfr, hfi, u, total, hfra, hfia, span):
+        return _zconv_stream(plan, x, hfr, hfi, u, total)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.plan, hfr, hfi, ctx.u, _, hfra, hfia, ctx.span = inputs
+        ctx.length = x.shape[-1]
+        ctx.save_for_backward(hfr, hfi, hfra, hfia)
+
+    @staticmethod
+    def backward(ctx, g):
+        hfr, hfi, hfra, hfia = ctx.saved_tensors
+        gx = zconv_stream(ctx.plan, F.pad(g, (ctx.span - 1, 0)), hfra, hfia, ctx.u,
+                          ctx.length, adjoint=(hfr, hfi, ctx.span))
+        return gx, None, None, None, None, None, None, None, None

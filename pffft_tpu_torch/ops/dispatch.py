@@ -80,6 +80,7 @@ import torch
 
 from .. import plan as _plan
 from . import _build
+from . import _grad
 from . import conv_kernel as _ck
 from . import fused_stage as _fs
 from . import pallas_fft as _pk
@@ -436,8 +437,18 @@ def cfft_ksplit2_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     cluster) and ``cluster`` (blocks per cluster) override
     :func:`ksplit2_tile`'s choice.  ValueError when m*r != N, when r is
     not a combine radix, or when no cluster of at most 16 blocks holds the
-    split (at the given tb and cluster).  The inputs are not modified."""
+    split (at the given tb and cluster).  The inputs are not modified.
+    Differentiable (:class:`_Cfft`): the backward runs B10 in the other
+    direction."""
 
+    if _grad.needed(re, im):
+        return _Cfft.apply(re, im, plan, backward, True, True, (conf, tb, cluster))
+    return _cfft_ksplit2(plan, re, im, backward, conf, tb, cluster)
+
+
+def _cfft_ksplit2(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, backward: bool,
+                  conf: Optional[Tuple[int, int]], tb: Optional[int],
+                  cluster: Optional[int]):
     n = plan.engine_n
     m, r = conf if conf is not None else (2048, n // 2048)
     _check_conf("ksplit2", n, m, r)
@@ -619,8 +630,18 @@ def cfft_dispatch(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
 
     Unscaled.  ``ordered=False`` (batch-major only) writes a forward
     spectrum in the plan's internal order (``stages.reorder_spectrum``);
-    a backward input is always in canonical order."""
+    a backward input is always in canonical order.  Differentiable with
+    respect to both planes (:class:`_Cfft`), in either layout and on every
+    engine."""
 
+    if _grad.needed(re, im):
+        return _Cfft.apply(re, im, plan, backward, time_major, ordered or backward, None)
+    return _cfft_dispatch(plan, re, im, backward=backward, time_major=time_major,
+                          ordered=ordered)
+
+
+def _cfft_dispatch(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
+                   backward: bool, time_major: bool, ordered: bool):
     if not time_major:
         return _cfft_bmajor(plan, re, im, backward=backward, ordered=ordered or backward)
     if not ordered:
@@ -640,6 +661,65 @@ def _cfft_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
         return cfft_ksplit_tmajor(plan, re, im, backward=backward)
     return _split.cfft_stages_split_tmajor(
         re, im, plan.stages, backward=backward, ordered=True)
+
+
+class _Cfft(torch.autograd.Function):
+    """Function 1: the complex transform of :func:`cfft_dispatch` (either
+    layout, every engine) or of B10 (:func:`cfft_ksplit2_tmajor`), as a map
+    of the real planes.
+
+    The adjoint of the unscaled DFT of one direction is the unscaled DFT
+    of the other, so the backward is the same call in the other direction
+    on the gradient planes, in the same layout.  A forward into the plan's
+    internal order is the permutation P of the DFT; its adjoint reorders
+    the gradient to canonical order first (P^T = P^-1).  ``ksplit2`` is
+    None for the dispatcher, else B10's (conf, tb, cluster)."""
+
+    @staticmethod
+    def forward(re, im, plan, backward, time_major, ordered, ksplit2):
+        if ksplit2 is not None:
+            return _cfft_ksplit2(plan, re, im, backward, *ksplit2)
+        return _cfft_dispatch(plan, re, im, backward=backward, time_major=time_major,
+                              ordered=ordered)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.call = inputs[2:]
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        plan, backward, time_major, ordered, ksplit2 = ctx.call
+        gr, gi = gr.contiguous(), gi.contiguous()
+        if not ordered:
+            gr = _stages.reorder_spectrum(gr, plan.factors, to_canonical=True)
+            gi = _stages.reorder_spectrum(gi, plan.factors, to_canonical=True)
+        xr, xi = _cfft_call(gr, gi, plan, not backward, time_major, True, ksplit2)
+        return xr, xi, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, re, im, *call):
+        # the mapped dimension joins the batch: time-major planes [N, V, B]
+        # run as [N, V*B], batch-major ones as a leading dimension
+        time_major = call[2]
+        re, im = (_grad.batched(t, d, info.batch_size, 1 if time_major else 0)
+                  for t, d in zip((re, im), in_dims))
+        if not time_major:
+            return _cfft_call(re.contiguous(), im.contiguous(), *call), (0, 0)
+        n, v, b = re.shape
+        out = _cfft_call(re.reshape(n, v * b), im.reshape(n, v * b), *call)
+        return tuple(t.view(n, v, b) for t in out), (1, 1)
+
+
+def _cfft_call(re, im, plan, backward, time_major, ordered, ksplit2):
+    """The public entry point of a :class:`_Cfft` call, which enters the
+    Function again where a transform around it needs one."""
+
+    if ksplit2 is not None:
+        conf, tb, cluster = ksplit2
+        return cfft_ksplit2_tmajor(plan, re, im, backward=backward, conf=conf, tb=tb,
+                                   cluster=cluster)
+    return cfft_dispatch(plan, re, im, backward=backward, time_major=time_major,
+                         ordered=ordered)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,10 @@ The TPU's lane-block and VMEM gate (``supported``) has no counterpart:
 the kernel serves any M and P >= 1 in f32.  Each wrapper takes its plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.  Each counts its launches in ``<wrapper>.launches``.
+
+Both maps are differentiable with respect to the data, not the weights
+(Function 4, :class:`_PfbFir` and :class:`_PfbStream`): each backward is
+the identity maps' kernel on the padded gradient.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import _grad
 from . import pallas_fft as _pk
 
 __all__ = ["pfb_fir", "pfb_fir_plain", "pfb_fir_stream_tmajor",
@@ -127,9 +132,16 @@ def pfb_fir(rows: torch.Tensor, weights: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"rows have {rows.shape[-1]} columns; weights have M={m}")
     if q < k + p - 1:
         raise ValueError(f"rows axis {q} < K + P - 1 = {k + p - 1}")
+    if _grad.needed(rows):
+        return _PfbFir.apply(rows, weights, k)
+    return _pfb_fir(rows, weights, k)
+
+
+def _pfb_fir(rows: torch.Tensor, weights: torch.Tensor, k: int) -> torch.Tensor:
     if rows.device.type == "cpu":
         return pfb_fir_plain(rows, weights, k)
     _pk._check_cuda(rows, weights)
+    m, q = weights.shape[1], rows.shape[-2]
     lead = rows.shape[:-2]
     r = math.prod(lead)
     out = torch.empty((*lead, k, m), dtype=rows.dtype, device=rows.device)
@@ -202,6 +214,17 @@ def pfb_fir_stream_tmajor(hist: Tuple[torch.Tensor, torch.Tensor],
                          f"{(p + k - 1) * m + 1}")
     if offset < 0:
         raise ValueError(f"offset {offset} < 0")
+    if _grad.needed(hr, hi, xr, xi):
+        return _PfbStream.apply(hr, hi, xr, xi, weights, k, offset, warps)
+    return _pfb_fir_stream(hist, x, weights, k, offset, warps)
+
+
+def _pfb_fir_stream(hist, x, weights: torch.Tensor, k: int, offset: int,
+                    warps: Optional[int]):
+    (hr, hi), (xr, xi) = hist, x
+    p, m = weights.shape
+    lead = xr.shape[:-1]
+    length = xr.shape[-1]
     if xr.device.type == "cpu":
         return pfb_fir_stream_tmajor_plain(hist, x, weights, k, offset)
     _pk._check_cuda(weights)
@@ -226,3 +249,65 @@ def pfb_fir_stream_tmajor(hist: Tuple[torch.Tensor, torch.Tensor],
 
 
 pfb_fir_stream_tmajor.launches = 0
+
+
+class _PfbFir(torch.autograd.Function):
+    """Function 4, the identity maps: a valid correlation along the rows
+    for each column phi.  Its adjoint is the same map on the gradient
+    padded with P - 1 zero rows at each end, with the weights reversed
+    along s; rows past K + P - 1 get no gradient."""
+
+    @staticmethod
+    def forward(rows, weights, k):
+        return _pfb_fir(rows, weights, k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        rows, weights, ctx.k = inputs
+        ctx.q = rows.shape[-2]
+        ctx.save_for_backward(weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        (weights,) = ctx.saved_tensors
+        p = weights.shape[0]
+        pad = torch.nn.functional.pad(g, (0, 0, p - 1, p - 1))
+        gr = pfb_fir(pad, weights.flip(0), ctx.k + p - 1)
+        return torch.nn.functional.pad(gr, (0, 0, 0, ctx.q - ctx.k - p + 1)), None, None
+
+
+class _PfbStream(torch.autograd.Function):
+    """Function 4, the stream map, v[phi, r*K + k] = sum_s w[s, phi] *
+    ext[r, (P + k - s)*M - phi + o] on both planes.
+
+    The adjoint sends v's gradient (time-major [M, R*K], moved to rows [R,
+    K, M] with P - 1 zero frames at each end) through the identity map,
+    u[j, phi] = sum_s w[s, phi] * grad[j + s - (P - 1), phi], whose value
+    belongs to ext position (j + 1)*M - phi + o, that is o + 1 + j*M +
+    (M - 1 - phi): u with its phases reversed is ext's gradient from o + 1
+    on.  It is then split into the history's and the chunk's."""
+
+    @staticmethod
+    def forward(hr, hi, xr, xi, weights, k, offset, warps):
+        return _pfb_fir_stream((hr, hi), (xr, xi), weights, k, offset, warps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        hr, _, xr, _, weights, ctx.k, ctx.offset, _ = inputs
+        ctx.hist_shape, ctx.x_shape = hr.shape, xr.shape
+        ctx.save_for_backward(weights)
+
+    @staticmethod
+    def backward(ctx, gvr, gvi):
+        (weights,) = ctx.saved_tensors
+        p, m = weights.shape
+        k, hist = ctx.k, ctx.hist_shape[-1]
+        total = hist + ctx.x_shape[-1]
+        g = torch.stack((gvr, gvi)).view(2, m, -1, k).permute(0, 2, 3, 1)  # [2, R, K, M]
+        u = pfb_fir(torch.nn.functional.pad(g, (0, 0, p - 1, p - 1)), weights, k + p - 1)
+        seg = u.flip(-1).reshape(2, u.shape[1], -1)
+        start = ctx.offset + 1
+        ext = torch.nn.functional.pad(seg, (start, total - start - seg.shape[-1]))
+        gh = ext[..., :hist].reshape(2, *ctx.hist_shape)
+        gx = ext[..., hist:].reshape(2, *ctx.x_shape)
+        return gh[0], gh[1], gx[0], gx[1], None, None, None, None

@@ -29,6 +29,7 @@ import torch
 
 from . import fft as _fft
 from . import plan as _plan
+from .ops import _grad
 
 __all__ = ["frame_signal", "stft_split", "stft_split_tmajor", "stft",
            "istft", "spectrogram", "welch_psd", "hann", "hamming",
@@ -169,8 +170,12 @@ def _stft_split_tmajor(x: torch.Tensor, plan, hop: int, w: np.ndarray,
     n_fft = plan.n
     lead = x.shape[:-1]
     fv = frame_signal(x, n_fft, hop).movedim(-1, 0)  # [n_fft, ..., K] view
-    fr = torch.empty(fv.shape, dtype=torch.float32, device=x.device)
-    torch.mul(fv, _window(w, x.device).reshape((n_fft,) + (1,) * (fv.ndim - 1)), out=fr)
+    wv = _window(w, x.device).reshape((n_fft,) + (1,) * (fv.ndim - 1))
+    if _grad.needed(fv):  # autograd takes no out=; the product then costs a copy more
+        fr = (fv * wv).contiguous()
+    else:
+        fr = torch.empty(fv.shape, dtype=torch.float32, device=x.device)
+        torch.mul(fv, wv, out=fr)
     k = fr.shape[-1]
     sr, si = _fft.transform_ordered_split_tmajor(plan, fr.reshape(n_fft, -1), _plan.FORWARD)
     h = plan.spectrum_size

@@ -22,6 +22,11 @@ GROUPS (comma-separated; all by default):
     4096 (B3's route) and the forward at N = 8192 .. 131072 (N*B = 2^24);
   * ``chan``: a channelizer step (``process_split_tmajor``) at (M, P,
     batch, frames) = (4096, 8, 4, 1024) and (1024, 8, 16, 1024);
+  * ``host``: host µs per public call at small sizes, where the card
+    waits on the host (200 calls, one synchronize): complex time-major
+    (1024, 16) and batch-major [4, 4096], real time-major (8192, 16) and
+    batch-major [4, 1024], FastConv on [1, 20000] at 64 taps, a channelizer
+    step at (M, P, batch, frames) = (256, 8, 1, 16);
   * ``chan64``: float64 steps, ``Channelizer(4096, 8)`` on [4, 2^22]
     (``process_split`` and ``process_split_tmajor``) and
     ``OversampledChannelizer(1024, 2, 8).process_split`` on [16, 2^20],
@@ -38,6 +43,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -63,7 +69,7 @@ def time_ms(fn, inner: int = 5, reps: int = 10, warm: int = 3) -> float:
 def main() -> int:
     root, label = sys.argv[1], sys.argv[2]
     groups = set(sys.argv[3].split(",")) if len(sys.argv) > 3 else {"chain", "conv", "real",
-                                                                      "chan", "chan64"}
+                                                                      "chan", "chan64", "host"}
     if not torch.cuda.is_available():
         print("port_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -144,6 +150,32 @@ def main() -> int:
             out[f"chan_step_{m}_ms"] = time_ms(
                 lambda: ch.process_split_tmajor(st, xr, xi), inner=2)
             del xr, xi
+    if "host" in groups:
+        def host_us(fn, calls=200):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / calls * 1e6
+
+        cplan, rplan = pt.new_setup(1024), pt.new_setup(8192, pt.REAL)
+        re, im, x = rnd(1024, 16), rnd(1024, 16), rnd(8192, 16)
+        br, bi, bx = rnd(4, 4096), rnd(4, 4096), rnd(4, 1024)
+        fc = C.FastConv(pt.design_lowpass(64, 0.1))
+        xs = rnd(1, 20000)
+        ch = CH.Channelizer(256, 8)
+        st, cr, ci = ch.init_state((1,)), rnd(1, 16 * 256), rnd(1, 16 * 256)
+        bplan, brplan = pt.new_setup(4096), pt.new_setup(1024, pt.REAL)
+        out["host_us"] = {
+            "complex_tmajor_1024x16": host_us(
+                lambda: pt.transform_ordered_split_tmajor(cplan, (re, im))),
+            "complex_bmajor_4x4096": host_us(lambda: pt.transform_ordered_split(bplan, (br, bi))),
+            "real_tmajor_8192x16": host_us(lambda: pt.transform_ordered_split_tmajor(rplan, x)),
+            "real_bmajor_4x1024": host_us(lambda: pt.transform_ordered_split(brplan, bx)),
+            "fastconv_f64_1x20000": host_us(lambda: fc.apply_batched(xs)),
+            "channelizer_256x16": host_us(lambda: ch.process_split(st, cr, ci))}
     if "chan64" in groups:
         f64 = {"generator": gen, "device": "cuda", "dtype": torch.float64}
         ch = CH.Channelizer(4096, 8, dtype="float64")

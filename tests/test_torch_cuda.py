@@ -1275,3 +1275,203 @@ def test_profiling_on_the_card(cuda_device, tmp_path):
         torch.cuda.synchronize()
     assert list(tmp_path.glob("*.pt.trace.json"))
     assert any("chain_kernel" in e.key for e in prof.key_averages())
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the kernels: the backward of each autograd Function
+# against torch autograd through the plain versions (KERNEL_TOL) and, for
+# the transforms, complex128 torch.fft autograd (ORACLE_TOL)
+# ---------------------------------------------------------------------------
+
+from pffft_tpu_torch.ops import _grad  # noqa: E402
+
+# every kernel wrapper a gradient path runs, and its plain version
+_PLAIN = {
+    (pk, "cfft_chain_tmajor"): lambda plan, re, im, *, backward=False, tb=None, elems=None:
+        pk.chain_tmajor_plain(plan, re, im, backward=backward),
+    (pk, "cfft_combine_tmajor"): lambda last, re, im, *, backward=False:
+        pk.combine_tmajor_plain(last, re, im, backward=backward),
+    (pk, "cfft_chain_tmajor_packed"): lambda plan, y, *, slabs=1, tb=None, elems=None:
+        pk.chain_tmajor_packed_plain(plan, y, slabs=slabs),
+    (pk, "rfft_chain_tmajor_fused"): lambda plan, y, tw, *, tb=None, elems=None:
+        pk.rfft_chain_tmajor_fused_plain(plan, y, tw),
+    (pk, "rfft_bwd_chain_tmajor_fused"): lambda plan, sr, si, tw, *, tb=None, elems=None:
+        pk.rfft_bwd_chain_tmajor_fused_plain(plan, sr, si, tw),
+    (pk, "real_split_tmajor"): lambda zr, zi, tw, *, backward=False:
+        pk.real_split_tmajor_plain(zr, zi, tw, backward=backward),
+    (fs, "cfft_fused2"): lambda plan, re, im, *, backward=False, ordered=True:
+        fs.cfft_fused2_plain(plan, re, im, backward=backward, ordered=ordered),
+    (rk, "real_split"): lambda zr, zi, tw, *, backward=False:
+        rk.real_split_plain(zr, zi, tw, backward=backward),
+    (ck, "zconv_tmajor"): lambda plan, re, im, hfr, hfi, *, tb=None, elems=None:
+        ck.zconv_tmajor_plain(plan, re, im, hfr, hfi),
+    (ck, "zconv_stream"): lambda plan, x, hfr, hfi, u, total, adjoint=None:
+        ck.zconv_stream_plain(plan, x, hfr, hfi, u, total),
+    (pfb, "pfb_fir"): lambda rows, w, k: pfb.pfb_fir_plain(rows, w, k),
+    (pfb, "pfb_fir_stream_tmajor"): lambda hist, x, w, k, offset=0, warps=None:
+        pfb.pfb_fir_stream_tmajor_plain(hist, x, w, k, offset),
+}
+
+
+def _grad_launches():
+    return {name: getattr(mod, name).launches for mod, name in _PLAIN}
+
+
+def _hold_gradient(fn, xs, monkeypatch, want, oracle=None, seed=0):
+    """The gradient of fn at xs through the kernels: within KERNEL_TOL of
+    autograd through the plain versions (no Function entered) and of
+    ``oracle`` (complex128 torch.fft) within ORACLE_TOL; the backward
+    launches every wrapper of ``want``."""
+
+    xs = [x.detach().requires_grad_(True) for x in xs]
+    ys = fn(*xs)
+    gen = torch.Generator(device=xs[0].device).manual_seed(seed)
+    gs = [torch.randn(y.shape, generator=gen, device=y.device) for y in ys]
+    before = _grad_launches()
+    grads = torch.autograd.grad(ys, xs, gs)
+    torch.cuda.synchronize()
+    after = _grad_launches()
+    assert all(after[w] > before[w] for w in want), (before, after)
+    with monkeypatch.context() as mp:
+        for (mod, name), plain in _PLAIN.items():
+            mp.setattr(mod, name, plain)
+        mp.setattr(_grad, "needed", lambda *ts: False)
+        xp = [x.detach().clone().requires_grad_(True) for x in xs]
+        plain = torch.autograd.grad(fn(*xp), xp, gs)
+    scale = max(float(p.abs().max()) for p in plain)
+    assert max(float((g - p).abs().max()) for g, p in zip(grads, plain)) <= KERNEL_TOL * scale
+    if oracle is not None:
+        xo = [x.detach().double().requires_grad_(True) for x in xs]
+        ref = torch.autograd.grad(oracle(*xo), xo, [g.double() for g in gs])
+        scale = max(float(r.abs().max()) for r in ref)
+        assert max(float((g - r).abs().max()) for g, r in zip(grads, ref)) <= ORACLE_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,time_major,want", [
+    (1024, 256, True, ("cfft_chain_tmajor",)),
+    (4096, 16, True, ("cfft_chain_tmajor", "cfft_combine_tmajor")),
+    (1024, 64, False, ("cfft_fused2",))])
+@pytest.mark.parametrize("backward", [False, True])
+def test_complex_transform_gradient_on_the_card(cuda_device, monkeypatch, n, b, time_major,
+                                                want, backward):
+    plan = pt.new_setup(n)
+    dim = 0 if time_major else -1
+    re, im = _planes(n, b, n + b, cuda_device)
+    if not time_major:
+        re, im = re.T.contiguous(), im.T.contiguous()
+    call = pt.transform_ordered_split_tmajor if time_major else pt.transform_ordered_split
+    d = pt.BACKWARD if backward else pt.FORWARD
+
+    def oracle(a, c):
+        z = torch.complex(a, c)
+        y = torch.fft.ifft(z, dim=dim) * n if backward else torch.fft.fft(z, dim=dim)
+        return y.real, y.imag
+
+    _hold_gradient(lambda a, c: call(plan, (a, c), d), (re, im), monkeypatch, want, oracle)
+
+
+def _packed_rfft(x, dim):
+    f = torch.fft.rfft(x, dim=dim).movedim(dim, -1)
+    h = f.shape[-1] - 1
+    sr = torch.cat([f[..., :1].real, f[..., 1:h].real], -1)
+    si = torch.cat([f[..., h:].real, f[..., 1:h].imag], -1)
+    return sr.movedim(-1, dim), si.movedim(-1, dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,time_major,want_fwd,want_bwd", [
+    (1024, 256, True, ("rfft_bwd_chain_tmajor_fused",), ("rfft_chain_tmajor_fused",)),
+    (8192, 16, True, ("real_split_tmajor", "cfft_chain_tmajor", "cfft_combine_tmajor"),
+     ("cfft_chain_tmajor_packed", "cfft_combine_tmajor", "real_split_tmajor")),
+    (1024, 64, False, ("cfft_fused2", "real_split"), ("cfft_fused2", "real_split"))])
+def test_real_transform_gradient_on_the_card(cuda_device, monkeypatch, n, b, time_major,
+                                             want_fwd, want_bwd):
+    """Both directions: the forward's gradient runs the real backward (on
+    D*g), the backward's the real forward (then D^-1)."""
+
+    plan = pt.new_setup(n, pt.REAL)
+    dim = 0 if time_major else -1
+    call = pt.transform_ordered_split_tmajor if time_major else pt.transform_ordered_split
+    x = _planes(n, b, n, cuda_device)[0]
+    if not time_major:
+        x = x.T.contiguous()
+    _hold_gradient(lambda v: call(plan, v), (x,), monkeypatch, want_fwd,
+                   lambda v: _packed_rfft(v, dim))
+    sr, si = call(plan, x)
+
+    def inverse(a, c):  # complex128 irfft of the packed planes, unscaled
+        a, c = a.movedim(dim, -1), c.movedim(dim, -1)
+        zero = torch.zeros_like(c[..., :1])
+        z = torch.complex(torch.cat([a, c[..., :1]], -1), torch.cat([zero, c[..., 1:], zero], -1))
+        return (torch.fft.irfft(z, n=n, dim=-1).movedim(-1, dim) * n,)
+
+    _hold_gradient(lambda a, c: (call(plan, (a, c), pt.BACKWARD),), (sr, si), monkeypatch,
+                   want_bwd, inverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps,flags,want", [
+    (64, tc.ConvFlags.NONE, ("zconv_stream",)),
+    (40, tc.ConvFlags.CPLX_INP_OUT | tc.ConvFlags.CPLX_FILTER, ("zconv_stream",)),
+    (1100, tc.ConvFlags.NONE, ("cfft_chain_tmajor", "cfft_combine_tmajor"))])
+def test_fastconv_gradient_on_the_card(cuda_device, monkeypatch, taps, flags, want):
+    """B7's stream map (the reversed, conjugated taps' spectrum over the
+    padded gradient) and the "tmajor" route past nfft 2048."""
+
+    rng = np.random.default_rng(taps)
+    h = rng.standard_normal(taps)
+    if flags & tc.ConvFlags.CPLX_FILTER:
+        h = h + 1j * rng.standard_normal(taps)
+    fc = tc.FastConv(h, flags=flags)
+    xr, xi = _planes(3, 20001, taps, cuda_device)
+    if flags & tc.ConvFlags.CPLX_INP_OUT:
+        fn = lambda a, c: (torch.view_as_real(fc.apply_batched(torch.complex(a, c))),)
+        _hold_gradient(fn, (xr, xi), monkeypatch, want)
+    else:
+        _hold_gradient(lambda a: (fc.apply_batched(a),), (xr,), monkeypatch, want)
+
+
+@pytest.mark.cuda
+def test_streaming_conv_gradient_on_the_card(cuda_device, monkeypatch):
+    """A push's frames through B7's column map (its backward: the conjugate
+    spectrum), an odd frame count."""
+
+    sc = tc.StreamingConv(np.hanning(100))
+    frames = _planes(37, sc.setup.nfft, 3, cuda_device)[0]
+    _hold_gradient(lambda f: (sc._filter(f),), (frames,), monkeypatch, ("zconv_tmajor",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p,k,v", [(256, 8, 32, 1), (1000, 4, 3, 1), (512, 8, 16, 2)])
+def test_channelizer_gradient_on_the_card(cuda_device, monkeypatch, m, p, k, v):
+    """B8's stream map (its backward: the identity maps on the padded
+    gradient rows) and the transform over the phases, with gradients for
+    the chunk and the history; K < P; the oversampled step's two residues."""
+
+    ch = (tch.Channelizer(m, p) if v == 1 else tch.OversampledChannelizer(m, v, p))
+    hr, hi = _planes(2, p * m, m, cuda_device)
+    xr, xi = _planes(2, k * m, m + 1, cuda_device)
+
+    def step(a, c, d, e):
+        return ch.process_split(tch.ChannelizerState(a, c), d, e)[0]
+
+    _hold_gradient(step, (hr, hi, xr, xi), monkeypatch, ("pfb_fir", "cfft_chain_tmajor"))
+
+
+@pytest.mark.cuda
+def test_pfb_fir_gradient_on_the_card(cuda_device, monkeypatch):
+    rows = torch.randn((3, 47, 128), device=cuda_device)
+    w = torch.randn((8, 128), device=cuda_device)
+    _hold_gradient(lambda r: (pfb.pfb_fir(r, w, 40),), (rows,), monkeypatch, ("pfb_fir",))
+
+
+@pytest.mark.cuda
+def test_no_grad_runs_no_function_on_the_card(cuda_device):
+    plan = pt.new_setup(1024, pt.REAL)
+    x = _planes(1024, 64, 1, cuda_device)[0].requires_grad_(True)
+    with torch.no_grad():
+        sr, si = pt.transform_ordered_split_tmajor(plan, x)
+    assert sr.grad_fn is None and si.grad_fn is None
+    sr, si = pt.transform_ordered_split_tmajor(plan, x)
+    assert type(sr.grad_fn).__name__ == "_RealForwardBackward"
