@@ -130,7 +130,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      layouts, ``sharded_fastconv_valid`` at 1024 taps on [16, 2^22] against
      the local FastConv; each path from zero counts (kern2, B9, B7's stream
      map), held to complex128 ``torch.fft``, timed beside its bound and
-     ``torch.fft``; phase 3 holds each kernel shape these paths give;
+     ``torch.fft``; then each path's gradient (the four-step, the real
+     four-step, the pencil in both layouts, the sharded FastConv) against
+     torch autograd through the plain versions (2e-6) and complex128
+     autograd (1e-5), its backward's launches (no plain version) and its
+     ms, device-busy ms and host enqueue µs beside the forward's bytes
+     bound; phase 3 holds each kernel shape these paths give;
  20. measure mode (``tune``, after every timed phase; it empties the tables
      it fills): ``tune_engine`` at the band shapes time-major and at three
      batch-major shapes (each engine's median, the winner, the default
@@ -156,7 +161,20 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      ``torch.fft``'s own backward; then three steps of gradient descent on
      [4, 2^22] toward a target magnitude spectrogram, the loss falling at
      each; phase 3 holds every kernel at the shapes the backward hands it;
- 22. the ``kernels`` line, the card line, and the final ``ok`` line (the done
+ 22. ``torch.func.vmap`` over the public calls (``vmap``, after phase 21),
+     at BASELINE.json config #3's and #5's widths: ``FastConv.apply_batched``
+     over [4, 4, 2^22] at 1024 taps (B7's stream map) and 4096 (the
+     composed kern2 route), StreamingConv's block step over the frames of 4
+     streams (B7's column map), ``Channelizer(4096, 8)`` over 4 streams of
+     4096 x 1024 samples and ``OversampledChannelizer(1024, 2, 8)`` over
+     [16, 2^20], each stream with its own state, ``DDCChain`` at 129 taps
+     and ``CicDDC(16)`` over 4 x 2^22; ``vmap(grad(...))`` of FastConv at
+     1024 taps on [4, 4, 2^20] and of the channelizer step (B8's identity
+     maps): each against the loop of unbatched calls (2e-6), each kernel
+     launched as often as by one unbatched call, the vmapped call's ms and
+     host enqueue us beside the loop's and the batched call's; phase 3
+     holds B7 at the folded calls' shapes;
+ 23. the ``kernels`` line, the card line, and the final ``ok`` line (the done
      line before them gives each phase's seconds).
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda), g++ (the
@@ -309,6 +327,13 @@ ORACLE_CPLX_NS, ORACLE_REAL_N, ORACLE_BMAJOR_N, ORACLE_B = (1024, 4096), 2048, 4
 FOURSTEP_N, FOURSTEP_REAL_N, FOURSTEP_B = 1 << 24, 1 << 25, 2
 PENCIL_SHAPE, PENCIL_B = (4096, 4096), 4
 SHARDED_CONV_TAPS = 1024
+# torch.func.vmap over V streams at the full widths: FastConv over [V, 4,
+# 2^22] at 1024 and 4096 taps (config #3's rows as 4 x 4), the
+# channelizers over CHAN_CONFIGS' streams (config #5), DDCChain and the CIC
+# over V x 2^22, vmap(grad) of FastConv over [V, 4, 2^20]
+VMAP_V = 4
+VMAP_CONV_TAPS, VMAP_CONV_LEN, VMAP_GRAD_LEN = (1024, 4096), 1 << 22, 1 << 20
+VMAP_DSP_N, VMAP_CIC_FACTOR = 1 << 22, 16
 # measure mode: tune_engine at the time-major BAND shapes and at these
 # batch-major (N, B); tuned_setup at these (N, kind, dtype)
 TUNE_BMAJOR = ((4096, 4096), (16384, 256), (65536, 64))
@@ -862,6 +887,29 @@ def phase_kernels(gen):
                          device="cuda")
         stream_case(fc.nfft, fc.num_out_per_block, xs, CONV_LEN, False)
         del xs
+        # its backward at one rank: the reversed taps over the local
+        # output's gradient, to the rows and halo's length
+        adjoint_stream_case(fc, CONV_ROWS, CONV_LEN, False)
+    # the shapes phase_vmap's folded calls hand B7 (B8's folded calls take
+    # the channelizer phase's rows and phase_grad's identity-map rows):
+    # FastConv's vmap(grad) rows [4V, 2^20] both ways, StreamingConv's
+    # frames of V streams as columns, DDCChain's [I; Q] rows of V streams
+    fc = C.FastConv(pt.design_lowpass(VMAP_CONV_TAPS[0], 0.1))
+    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+        xs = torch.randn((CONV_ROWS, VMAP_GRAD_LEN), generator=gen, device="cuda")
+        out_len = VMAP_GRAD_LEN - fc.filter_len + 1
+        stream_case(fc.nfft, fc.num_out_per_block, xs, out_len, False)
+        adjoint_stream_case(fc, CONV_ROWS, out_len, False)
+        del xs
+        frames = (VMAP_CONV_LEN - fc.nfft) // fc.num_out_per_block + 1
+        conv_case(fc.nfft, VMAP_V * (-(-(-(-frames // 2)) // 4) * 4), False)
+    fc = CH.DDCChain(DDC_RATE, pt.design_lowpass(DDC_TAPS[0], 0.5 / DDC_DECIM), DDC_DECIM).conv
+    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+        xs = torch.randn((2 * VMAP_V, VMAP_DSP_N + fc.filter_len - 1), generator=gen,
+                         device="cuda")
+        stream_case(fc.nfft, fc.num_out_per_block, xs, VMAP_DSP_N, False)
+        del xs
+    del fc
 
     def tmajor_engine_case(plan, n, b, engine):
         # one time-major engine's kernel calls at [N, B]
@@ -3404,8 +3452,11 @@ def phase_parallel(gen):
     held to a complex128 ``torch.fft`` oracle (the four-step, ordered and
     internal with ``reorder``, and the pencil in both layouts), the unscaled
     round trips, and the sharded FastConv to the local one (KERNEL_TOL);
-    then each call timed beside its bytes bound and ``torch.fft``.  Returns
-    the launch counts of the four paths."""
+    then each call timed beside its bytes bound and ``torch.fft``; then the
+    gradient of each path's forward (both pencil layouts) through
+    :func:`grad_case`.  At one rank every exchange is the identity: the
+    multi-rank adjoints are held in gloo worlds on the CPU.  Returns the
+    launch counts of the four paths and of the gradients."""
 
     import torch.distributed as dist
 
@@ -3431,6 +3482,13 @@ def parallel_paths(gen, mesh):
         emit({"phase": "parallel", "path": name, **case, **errs})
         for k, e in errs.items():
             check(math.isfinite(e) and e <= ORACLE_TOL, f"{name} {k}: {e}")
+
+    def grad(name, fn, xs, oracle, flops, want=path_kernels, **info):
+        # the path's gradient: its backward runs the forward's kernels
+        got = {w.__name__: 0 for w in WRAPPERS}
+        grad_case("parallel", name, fn, xs, want, gen, got, oracle, flops, inner=2, **info)
+        paths.append(got)
+        torch.cuda.empty_cache()
 
     def timed(name, shape, ms, nbytes, flops, library_ms, library, **parts):
         bnd = bound(nbytes, flops)
@@ -3487,7 +3545,11 @@ def parallel_paths(gen, mesh):
           rows_ms=time_ms(lambda: D.cfft_dispatch(fp.plan2, *rows, time_major=False), inner=2),
           rows_engine=D.select_engine(fp.plan2, b * fp.n1, False, torch.device("cuda")),
           **parts)
-    del x, xd, xl, cols, rows, fp
+    del x, xd, xl, cols, rows
+    grad("fourstep_grad", lambda re, im: (fp.forward(torch.complex(re, im)).to_local(),),
+         planes(b, n, gen), lambda re, im: (as_real(torch.fft.fft(torch.complex(re, im))),),
+         fft_flops(n, b), n=n, b=b)
+    del fp
 
     # the real four-step
     n = FOURSTEP_REAL_N
@@ -3511,7 +3573,11 @@ def parallel_paths(gen, mesh):
           split_step_ms=time_ms(lambda: fr._real_post_fwd(zr, zi), inner=2),
           split_step_bound_ms=bound(16.0 * n // 2 * b, 0)[0])
     del zr, zi
-    del x, xd, fr
+    del x, xd
+    grad("fourstep_real_grad", lambda v: (fr.forward(v).to_local(),),
+         [torch.randn((b, n), generator=gen, device=DEV)],
+         lambda v: (torch.stack(packed_rfft(v, -1), -1),), fft_flops(n // 2, b), n=n, b=b)
+    del fr
 
     # the pencil, both layouts
     p = PP.Pencil2D(PENCIL_SHAPE, mesh)
@@ -3536,10 +3602,22 @@ def parallel_paths(gen, mesh):
           16.0 * PENCIL_B * n0 * n1, fft_flops(n0 * n1, PENCIL_B),
           time_ms(lambda: torch.fft.fft2(x), inner=2), "torch.fft.fft2",
           transposed_ms=time_ms(lambda: p.forward(xd, transposed=True), inner=2))
-    del x, xd, p
+    del x, xd
+    def pencil_oracle(re, im, transposed):
+        y = torch.fft.fft2(torch.complex(re, im).view(PENCIL_B, n0, n1))
+        return (as_real(y.transpose(-1, -2) if transposed else y),)
+
+    for transposed in (False, True):
+        grad("pencil_grad", lambda re, im, _t=transposed: (p.forward(
+            torch.complex(re, im).view(PENCIL_B, n0, n1), transposed=_t).to_local(),),
+            planes(PENCIL_B * n0, n1, gen),
+            lambda re, im, _t=transposed: pencil_oracle(re, im, _t),
+            fft_flops(n0 * n1, PENCIL_B), shape=[PENCIL_B, n0, n1], transposed=transposed)
+    del p
 
     # the sharded FastConv against the local one
-    fc = C.FastConv(pt.design_lowpass(SHARDED_CONV_TAPS, 0.1))
+    h = pt.design_lowpass(SHARDED_CONV_TAPS, 0.1)
+    fc = C.FastConv(h)
     x = torch.randn((CONV_ROWS, CONV_LEN), generator=gen, device="cuda")
     xd = PP.shard_batch(x, mesh, axis=1)
     y, got = drive("sharded_fastconv", lambda: PP.sharded_fastconv_valid(fc, xd, mesh),
@@ -3557,6 +3635,12 @@ def parallel_paths(gen, mesh):
           time_ms(lambda: PP.sharded_fastconv_valid(fc, xd, mesh), inner=2),
           4.0 * CONV_ROWS * (CONV_LEN + out_len), 0.0, None, None,
           local_ms=time_ms(lambda: fc.apply_batched(x), inner=2))
+    del x, xd
+    grad("sharded_fastconv_grad",
+         lambda v: (PP.sharded_fastconv_valid(fc, v, mesh).to_local(),),
+         [torch.randn((CONV_ROWS, CONV_LEN), generator=gen, device=DEV)],
+         lambda v: (torch.stack([conv_oracle(r, h) for r in v]),), 0.0, want=("zconv_stream",),
+         taps=SHARDED_CONV_TAPS, shape=[CONV_ROWS, CONV_LEN])
     return paths
 
 
@@ -3749,6 +3833,84 @@ def grad_transform_fns(kind: str, tm: bool, n: int, backward: bool):
     return (lambda x: call(plan, x)), (lambda x: packed_rfft(x, dim))
 
 
+def grad_case(phase: str, name: str, fn, xs, want_bwd, gen, total, oracle=None, flops=0.0,
+              library=None, d_pass=None, inner=5, **info):
+    """The gradient of ``fn``'s outputs (a tuple) for the inputs ``xs`` on
+    random output gradients, held to torch autograd through the plain
+    versions (KERNEL_TOL), the dot-product test (GRAD_DOT_TOL) and, with
+    ``oracle`` (the same map in float64 / complex128), complex128 autograd
+    (ORACLE_TOL); the backward must launch each of ``want_bwd`` and no plain
+    version.  Emits forward and backward ms (CUDA events), device-busy ms
+    and host enqueue us beside the forward's bound, and ``library``'s own
+    forward and backward; adds the launches to ``total``; returns the row."""
+
+    xs = [x.detach().requires_grad_(True) for x in xs]
+    c0 = counts()
+    with plain_calls() as plain_run:
+        ys = tuple(as_real(y) for y in fn(*xs))
+        c1 = counts()
+        gs = [torch.randn(y.shape, generator=gen, device=DEV) for y in ys]
+        grads = torch.autograd.grad(ys, xs, gs, retain_graph=True)
+        torch.cuda.synchronize()
+    c2 = counts()
+    fwd, bwd = launched(c1, c0), launched(c2, c1)
+    for k, v in launched(c2, c0).items():
+        total[k] += v
+    # torch autograd through the plain versions, on the same inputs
+    with plain_autograd():
+        xp = [x.detach().clone().requires_grad_(True) for x in xs]
+        plain = torch.autograd.grad(tuple(as_real(y) for y in fn(*xp)), xp, gs)
+    scale = max(float(p.abs().max()) for p in plain)
+    e_plain = max(float((g - p).abs().max()) for g, p in zip(grads, plain)) / scale
+    del xp, plain
+    # the dot-product test, accumulated in float64
+    lhs = sum(float((g.double() * y.detach().double()).sum()) for g, y in zip(gs, ys))
+    rhs = sum(float((g.double() * x.detach().double()).sum()) for g, x in zip(grads, xs))
+    norm = math.sqrt(sum(float(g.double().square().sum()) for g in gs)
+                     * sum(float(y.detach().double().square().sum()) for y in ys))
+    e_dot = abs(lhs - rhs) / norm
+    row = {"phase": phase, "case": name, **info, "in_shapes": [list(x.shape) for x in xs],
+           "rel_err_vs_plain_autograd": e_plain, "dot_product_gap": e_dot,
+           "fwd_launches": fwd, "bwd_launches": bwd, "plain_calls": len(plain_run)}
+    if oracle is not None:
+        xo = [x.detach().double().requires_grad_(True) for x in xs]
+        ref = torch.autograd.grad(oracle(*xo), xo, [g.double() for g in gs])
+        row["rel_err_vs_complex128"] = max(
+            float((g - r).abs().max()) for g, r in zip(grads, ref)) / max(
+            float(r.abs().max()) for r in ref)
+        del xo, ref
+    nbytes = 4.0 * (sum(x.numel() for x in xs) + sum(y.numel() for y in ys))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    fwd_call = lambda: fn(*xs)
+    bwd_call = lambda: torch.autograd.grad(ys, xs, gs, retain_graph=True)
+    row["fwd_ms"] = time_ms(fwd_call, inner=inner)
+    row["bwd_ms"] = time_ms(bwd_call, inner=inner)
+    row["fwd_device_ms"], row["bwd_device_ms"] = device_ms(fwd_call), device_ms(bwd_call)
+    row["fwd_enqueue_us"], row["bwd_enqueue_us"] = enqueue_us(fwd_call), enqueue_us(bwd_call)
+    if d_pass is not None:
+        row["d_pass_ms"] = time_ms(lambda: d_pass(gs), inner=inner)
+    if library is not None:
+        lib_name, lib_fn = library
+        lx = [x.detach().requires_grad_(True) for x in xs]
+        ly = lib_fn(*lx)
+        lg = torch.randn(ly.shape, dtype=ly.dtype, generator=None, device=DEV)
+        row["library"] = lib_name
+        row["library_fwd_ms"] = time_ms(lambda: lib_fn(*lx), inner=inner)
+        row["library_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(ly, lx, lg, retain_graph=True), inner=inner)
+        del lx, ly, lg
+    emit(row)
+    check(not plain_run, f"{phase} {name}: plain versions ran on the card: {plain_run[:5]}")
+    check(e_plain <= KERNEL_TOL, f"{phase} {name}: {e_plain} of the plain autograd gradient")
+    check(e_dot <= GRAD_DOT_TOL, f"{phase} {name}: dot-product gap {e_dot}")
+    check(row.get("rel_err_vs_complex128", 0.0) <= ORACLE_TOL,
+          f"{phase} {name}: {row.get('rel_err_vs_complex128')} of complex128 torch.fft")
+    check(all(bwd.get(w, 0) > 0 for w in want_bwd),
+          f"{phase} {name}: backward launches {bwd}, expected {want_bwd}")
+    check(all(torch.isfinite(g).all() for g in grads), f"{phase} {name}: gradient not finite")
+    return row
+
+
 def phase_grad(gen, smi: str):
     """Gradients through every kernel-backed path at full size: the
     transforms (B1, kern2, B9, B3, B4 + B2 + B5, B6 + B9) both ways,
@@ -3770,71 +3932,8 @@ def phase_grad(gen, smi: str):
 
     def case(name, fn, xs, want_bwd, oracle=None, flops=0.0, library=None, d_pass=None,
              inner=5, **info):
-        xs = [x.detach().requires_grad_(True) for x in xs]
-        c0 = counts()
-        with plain_calls() as plain_run:
-            ys = tuple(as_real(y) for y in fn(*xs))
-            c1 = counts()
-            gs = [torch.randn(y.shape, generator=gen, device=DEV) for y in ys]
-            grads = torch.autograd.grad(ys, xs, gs, retain_graph=True)
-            torch.cuda.synchronize()
-        c2 = counts()
-        fwd, bwd = launched(c1, c0), launched(c2, c1)
-        for k, v in launched(c2, c0).items():
-            total[k] += v
-        # torch autograd through the plain versions, on the same inputs
-        with plain_autograd():
-            xp = [x.detach().clone().requires_grad_(True) for x in xs]
-            plain = torch.autograd.grad(tuple(as_real(y) for y in fn(*xp)), xp, gs)
-        scale = max(float(p.abs().max()) for p in plain)
-        e_plain = max(float((g - p).abs().max()) for g, p in zip(grads, plain)) / scale
-        del xp, plain
-        # the dot-product test, accumulated in float64
-        lhs = sum(float((g.double() * y.detach().double()).sum()) for g, y in zip(gs, ys))
-        rhs = sum(float((g.double() * x.detach().double()).sum()) for g, x in zip(grads, xs))
-        norm = math.sqrt(sum(float(g.double().square().sum()) for g in gs)
-                         * sum(float(y.detach().double().square().sum()) for y in ys))
-        e_dot = abs(lhs - rhs) / norm
-        row = {"phase": "grad", "case": name, **info, "in_shapes": [list(x.shape) for x in xs],
-               "rel_err_vs_plain_autograd": e_plain, "dot_product_gap": e_dot,
-               "fwd_launches": fwd, "bwd_launches": bwd, "plain_calls": len(plain_run)}
-        if oracle is not None:
-            xo = [x.detach().double().requires_grad_(True) for x in xs]
-            ref = torch.autograd.grad(oracle(*xo), xo, [g.double() for g in gs])
-            row["rel_err_vs_complex128"] = max(
-                float((g - r).abs().max()) for g, r in zip(grads, ref)) / max(
-                float(r.abs().max()) for r in ref)
-            del xo, ref
-        nbytes = 4.0 * (sum(x.numel() for x in xs) + sum(y.numel() for y in ys))
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
-        fwd_call = lambda: fn(*xs)
-        bwd_call = lambda: torch.autograd.grad(ys, xs, gs, retain_graph=True)
-        row["fwd_ms"] = time_ms(fwd_call, inner=inner)
-        row["bwd_ms"] = time_ms(bwd_call, inner=inner)
-        row["fwd_device_ms"], row["bwd_device_ms"] = device_ms(fwd_call), device_ms(bwd_call)
-        row["fwd_enqueue_us"], row["bwd_enqueue_us"] = enqueue_us(fwd_call), enqueue_us(bwd_call)
-        if d_pass is not None:
-            row["d_pass_ms"] = time_ms(lambda: d_pass(gs), inner=inner)
-        if library is not None:
-            lib_name, lib_fn = library
-            lx = [x.detach().requires_grad_(True) for x in xs]
-            ly = lib_fn(*lx)
-            lg = torch.randn(ly.shape, dtype=ly.dtype, generator=None, device=DEV)
-            row["library"] = lib_name
-            row["library_fwd_ms"] = time_ms(lambda: lib_fn(*lx), inner=inner)
-            row["library_bwd_ms"] = time_ms(
-                lambda: torch.autograd.grad(ly, lx, lg, retain_graph=True), inner=inner)
-            del lx, ly, lg
-        emit(row)
-        check(not plain_run, f"grad {name}: plain versions ran on the card: {plain_run[:5]}")
-        check(e_plain <= KERNEL_TOL, f"grad {name}: {e_plain} of the plain autograd gradient")
-        check(e_dot <= GRAD_DOT_TOL, f"grad {name}: dot-product gap {e_dot}")
-        check(row.get("rel_err_vs_complex128", 0.0) <= ORACLE_TOL,
-              f"grad {name}: {row.get('rel_err_vs_complex128')} of complex128 torch.fft")
-        check(all(bwd.get(w, 0) > 0 for w in want_bwd),
-              f"grad {name}: backward launches {bwd}, expected {want_bwd}")
-        check(all(torch.isfinite(g).all() for g in grads), f"grad {name}: gradient not finite")
-        return row
+        return grad_case("grad", name, fn, xs, want_bwd, gen, total, oracle, flops, library,
+                         d_pass, inner, **info)
 
     # the transforms, both directions
     for kind, tm, n, b in GRAD_TRANSFORMS:
@@ -4019,6 +4118,143 @@ def phase_grad(gen, smi: str):
     return total
 
 
+def phase_vmap(gen):
+    """``torch.func.vmap`` over the public calls at the full widths: each
+    vmapped call against the loop of unbatched calls (KERNEL_TOL of max),
+    with every kernel launched as often as by one unbatched call (the
+    mapped dimension folds into the kernel's batch), its ms beside the
+    loop's and, where the call has a batched form, the batched call's.
+    Returns the launch counts of the vmapped calls, from zero."""
+
+    from torch.func import grad, vmap
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    total = {w.__name__: 0 for w in WRAPPERS}
+    v = VMAP_V
+
+    def stack(*ts):
+        return torch.stack(ts) if isinstance(ts[0], torch.Tensor) else torch.tensor(ts)
+
+    def case(name, fn, args, in_dims, batched=None, kernels=True, **info):
+        # kernels=False: a call that runs no kernel (the CIC's matmul)
+        def row(i):
+            return [a if d is None else tree_map(lambda t: t[i], a) for a, d in zip(args, in_dims)]
+
+        size = next(tree_leaves(a)[0].shape[0] for a, d in zip(args, in_dims) if d is not None)
+        vfn = vmap(fn, in_dims=in_dims)
+        loop = lambda: [fn(*row(i)) for i in range(size)]
+        c0 = counts()
+        fn(*row(0))
+        torch.cuda.synchronize()
+        one = launched(counts(), c0)
+        c0 = counts()
+        got = vfn(*args)
+        torch.cuda.synchronize()
+        folded = launched(counts(), c0)
+        for k, n in folded.items():
+            total[k] += n
+        want = tree_map(stack, *loop())
+        err = 0.0
+        for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+            check(g.shape == w.shape, f"vmap {name}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
+            if g.is_floating_point() or g.is_complex():
+                err = max(err, rel_err(g, w))
+            else:
+                check(bool(torch.equal(g, w)), f"vmap {name}: integer state differs")
+        del got, want
+        out = {"phase": "vmap", "case": name, **info, "launches": folded,
+               "unbatched_launches": one, "rel_err_vs_loop": err,
+               "ms": time_ms(lambda: vfn(*args), inner=2), "loop_ms": time_ms(loop, inner=1),
+               "enqueue_us": enqueue_us(lambda: vfn(*args), calls=10)}
+        if batched is not None:
+            out["batched_ms"] = time_ms(batched, inner=2)
+            out["batched_enqueue_us"] = enqueue_us(batched, calls=10)
+        emit(out)
+        check(err <= KERNEL_TOL, f"vmap {name}: {err} of the loop of unbatched calls")
+        check(folded == one and bool(one) == kernels,
+              f"vmap {name}: launched {folded}, one unbatched call {one}")
+        torch.cuda.empty_cache()
+        return folded
+
+    def cplx(shape):
+        return torch.complex(*(torch.randn(shape, generator=gen, device=DEV) for _ in range(2)))
+
+    # FastConv over [V, 4, 2^22]: B7's stream map at 1024 taps, kern2 around
+    # the composed route's copies at 4096; the batched call takes [4V, L]
+    rows = CONV_ROWS // v
+    x = torch.randn((v, rows, VMAP_CONV_LEN), generator=gen, device=DEV)
+    for taps in VMAP_CONV_TAPS:
+        fc = C.FastConv(pt.design_lowpass(taps, 0.1))
+        case("fastconv", fc.apply_batched, (x,), (0,),
+             lambda _fc=fc: _fc.apply_batched(x.view(v * rows, -1)), taps=taps,
+             route=D.conv_route_mode(fc.nfft, None, torch.device(DEV)),
+             shape=list(x.shape))
+    del x
+    # StreamingConv's block step over V streams' frames (B7's column map);
+    # the batched call filters all V*k frames at once
+    sc = C.StreamingConv(pt.design_lowpass(VMAP_CONV_TAPS[0], 0.1))
+    k = (VMAP_CONV_LEN - sc.setup.nfft) // sc.setup.num_out_per_block + 1
+    fr = torch.randn((v, k, sc.setup.nfft), generator=gen, device=DEV)
+    case("streaming_conv_frames", sc._filter, (fr,), (0,),
+         lambda: sc._filter(fr.view(v * k, -1)), frames=k, nfft=sc.setup.nfft)
+    del fr
+    # the channelizers over CHAN_CONFIGS' streams, one state each; the
+    # batched call takes the streams as a leading dimension
+    m, p, streams, frames = CHAN_CONFIGS[0]
+    ch = CH.Channelizer(m, p)
+    st = CH.ChannelizerState(*planes(streams, p * m, gen))
+    cx = cplx((streams, frames * m))
+    case("channelizer", ch.process, (st, cx), (0, 0), lambda: ch.process(st, cx), m=m, p=p,
+         streams=streams, frames=frames)
+    om, ov, op = GRAD_OVERSAMPLED
+    ostreams, oframes = CHAN_CONFIGS[1][2:]
+    och = CH.OversampledChannelizer(om, ov, op)
+    ost = CH.ChannelizerState(*planes(ostreams, op * om, gen))
+    ox = cplx((ostreams, oframes * om))
+    case("oversampled_channelizer", och.process, (ost, ox), (0, 0),
+         lambda: och.process(ost, ox), m=om, v=ov, p=op, streams=ostreams, frames=oframes)
+    del ost, ox, och
+    # DDCChain at 129 taps and the CIC over V x 2^22, each stream with its
+    # own NCO phase and history (no batched form: both take one stream)
+    rng = np.random.default_rng(SEED)
+    ddc = CH.DDCChain(DDC_RATE, pt.design_lowpass(DDC_TAPS[0], 0.5 / DDC_DECIM), DDC_DECIM)
+    rate_fp = pt.dsp.mixer_init(DDC_RATE).rate_fp
+    dst = CH.ddc_state_from_arrays(
+        rng.integers(0, 1 << 32, v), np.full(v, rate_fp),
+        (rng.standard_normal((v, DDC_TAPS[0] - 1))
+         + 1j * rng.standard_normal((v, DDC_TAPS[0] - 1))).astype(np.complex64), DEV)
+    dx = cplx((v, VMAP_DSP_N))
+    case("ddc_chain", ddc.process, (dst, dx), (0, 0), taps=DDC_TAPS[0], n=VMAP_DSP_N)
+    cic = pt.dsp.CicDDC(VMAP_CIC_FACTOR)
+    cst = pt.dsp.cic.state_from_arrays(
+        rng.integers(0, 1 << 32, v), *rng.standard_normal((2, v, 2 * VMAP_CIC_FACTOR)), DEV)
+    case("cic", lambda s_, x_: cic.apply(s_, x_, MIX_RATE), (cst, dx), (0, 0), kernels=False,
+         factor=VMAP_CIC_FACTOR, n=VMAP_DSP_N)
+    del dx
+    # per-sample gradients: FastConv at 1024 taps over [V, 4, 2^20] (B7's
+    # stream map both ways) and the channelizer step over CHAN_CONFIGS[0]'s
+    # streams (B8's stream map, then its identity maps in the backward)
+    fc = C.FastConv(pt.design_lowpass(VMAP_CONV_TAPS[0], 0.1))
+    x = torch.randn((v, rows, VMAP_GRAD_LEN), generator=gen, device=DEV)
+    w = torch.randn((v, rows, VMAP_GRAD_LEN - fc.filter_len + 1), generator=gen, device=DEV)
+    case("fastconv_grad", grad(lambda x_, w_: (fc.apply_batched(x_) * w_).sum()), (x, w),
+         (0, 0), taps=VMAP_CONV_TAPS[0], shape=list(x.shape))
+    del x, w
+
+    def chan_loss(hr, hi, xr, xi, wr, wi):
+        (yr, yi), _ = ch.process_split(CH.ChannelizerState(hr, hi), xr, xi)
+        return (yr * wr).sum() + (yi * wi).sum()
+
+    ws = planes(streams * frames, m, gen)
+    got = case("channelizer_grad", grad(chan_loss, argnums=(2, 3)),
+               (*st, cx.real.contiguous(), cx.imag.contiguous(),
+                *(t.view(streams, frames, m) for t in ws)), (0,) * 6, m=m, p=p,
+               streams=streams, frames=frames)
+    check(got.get("pfb_fir", 0) > 0, f"vmap(grad) of the channelizer: launches {got}")
+    emit({"phase": "vmap", "launches": total})
+    return total
+
+
 def grad_kernels(kind: str, tm: bool, engine: str, backward: bool):
     """The kernels the backward of one transform case must launch: the
     adjoint is the transform of the other direction on the same route."""
@@ -4079,6 +4315,7 @@ def main() -> int:
     rows.update(run(phase_ksplit2_timing, gen))
     run(phase_anylen_timing, gen)
     grad_launches = run(phase_grad, gen, smi)
+    vmap_launches = run(phase_vmap, gen)
     tune_launches = run(phase_tune, gen)
     for name in ("chain", "combine", "copy", "chain_packed", "real_fused", "real_split",
                  "conv_fused", "pfb_fir", "fused2", "real_split_bmajor", "ksplit2"):
@@ -4117,15 +4354,20 @@ def main() -> int:
                  "real_split", "zconv_stream", "zconv_tmajor", "pfb_fir", "cfft_fused2"):
         check(grad_launches[name] > 0,
               f"the gradient paths did not launch every path kernel: {grad_launches}")
+    for name in ("zconv_stream", "zconv_tmajor", "pfb_fir_stream_tmajor", "pfb_fir"):
+        check(vmap_launches[name] > 0,
+              f"the vmapped paths did not launch every path kernel: {vmap_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "phase_seconds": secs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     # launches: the count over the main-path runs, each from zero (the ten
     # paths, then the anylen paths, the capture path, the distribution
-    # layer's four paths, the gradient paths' forward and backward and
-    # measure mode's public calls); the float64 phases launch none
+    # layer's four paths and their gradients, the gradient paths' forward
+    # and backward, the vmapped calls and measure mode's public calls); the
+    # float64 phases launch none
     paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
              bmr_launches, ks2_launches, ksplit_launches, dsp_launches, spectral_launches,
-             *anylen_launches, cap_launches, *par_launches, grad_launches, tune_launches)
+             *anylen_launches, cap_launches, *par_launches, grad_launches, vmap_launches,
+             tune_launches)
     meta = {
         "chain": ("pffft_tpu_torch/csrc/stockham_chain.cu",
                   "pffft_tpu/ops/pallas_fft.py:950", ("cfft_chain_tmajor",)),

@@ -52,6 +52,7 @@ from . import conv as _conv
 from . import fft as _fft
 from . import plan as _plan
 from .dsp import mixer as _mixer
+from .ops import _grad
 from .ops import pfb_kernel as _pfb
 
 __all__ = ["Channelizer", "OversampledChannelizer", "ChannelizerState", "design_lowpass",
@@ -330,16 +331,13 @@ class OversampledChannelizer:
         dev = x[0].device
         ph_re = torch.from_numpy(self.ph_re).to(dev)
         ph_im = torch.from_numpy(self.ph_im).to(dev)
-        yr = torch.empty((*lead, k, self.v, b.m), dtype=_fft._real_dtype(b.plan), device=dev)
-        yi = torch.empty_like(yr)
         # residue r samples times k*M + r*H: the stream read from offset r*H
         offsets = [r * self.hop for r in range(self.v)]
-        for r, (vr, vi) in enumerate(b._pfb_split(state, x, k, offsets)):
-            pr, pi = ph_re[r], ph_im[r]
-            yr[..., r, :] = vr * pr - vi * pi
-            yi[..., r, :] = vr * pi + vi * pr
+        ys = [(vr * ph_re[r] - vi * ph_im[r], vr * ph_im[r] + vi * ph_re[r])
+              for r, (vr, vi) in enumerate(b._pfb_split(state, x, k, offsets))]
         # interleave residues: output frame k*V + r = residue r's frame k
-        return (yr.reshape(*lead, k * self.v, b.m), yi.reshape(*lead, k * self.v, b.m)), st
+        return tuple(torch.stack(y, dim=-2).reshape(*lead, k * self.v, b.m)
+                     for y in zip(*ys)), st
 
     def process(self, state: ChannelizerState, x):
         (yr, yi), st = self.process_split(state, *_planes(x, self.base.device, self.base.plan))
@@ -355,7 +353,7 @@ def ddc_state_from_arrays(phase_fp, rate_fp, tail, device="cuda") -> DDCState:
     """The port's state from a reference ``DDCState`` as numpy (its mixer's
     phase_fp and rate_fp, and its tail): the stream carries on from there."""
 
-    return DDCState(_mixer.state_from_arrays(phase_fp, rate_fp),
+    return DDCState(_mixer.state_from_arrays(phase_fp, rate_fp, device),
                     _mixer._to_device(tail, device, torch.complex64))
 
 
@@ -393,7 +391,10 @@ class DDCChain:
         """x [L] complex chunk -> (y [L/decim] complex, state').
 
         L must be a multiple of ``decim`` so that the decimation phase is
-        the same in every chunk (streaming == one-shot)."""
+        the same in every chunk (streaming == one-shot).  Under
+        ``torch.func.vmap`` over streams, the state may be one per stream
+        (``ddc_state_from_arrays`` of arrays) or shared; the new mixer
+        state comes back as int64 tensors."""
 
         x = _mixer._to_device(x, self.device, torch.complex64)
         n = x.shape[0]
@@ -403,11 +404,12 @@ class DDCChain:
                 f"{self.decim} (keeps the decimation phase chunk-invariant)"
             )
         (mr, mi), mst = _mixer.mixer_apply_split(state.mixer, x.real, x.imag)
-        # [I; Q] rows of the stream [tail, mixed chunk]
+        if _grad._transforms_active():
+            mst = _mixer.as_tensors(mst, x.device)
+        # [I; Q] rows of the stream [tail, mixed chunk], in one pass
         f1 = self.filter_len - 1
-        ext = torch.empty((2, f1 + n), dtype=torch.float32, device=x.device)
-        ext[:, :f1] = torch.view_as_real(state.tail).T
-        ext[0, f1:], ext[1, f1:] = mr, mi
+        tail = torch.view_as_real(state.tail)
+        ext = torch.cat([tail[:, 0], mr, tail[:, 1], mi]).view(2, f1 + n)
         y = self.conv._conv_stream(ext.to(_fft._real_dtype(self.conv.plan)), n)
         tail = ext[:, n:]
         return (torch.complex(y[0, :: self.decim], y[1, :: self.decim]),

@@ -23,29 +23,34 @@ setup's ``device`` (default "cuda"); tensors stay where they are.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..ops import _grad
 from . import mixer as _mixer
 
 __all__ = ["CicState", "CicDDC", "cicddc_init", "cicddc_apply", "state_from_arrays"]
 
 class CicState(NamedTuple):
-    """Planar streaming state."""
+    """Planar streaming state.  The phase is an int, or an int64 tensor (one
+    per stream under ``torch.func.vmap``, and always out of a transformed
+    call)."""
 
-    phase_fp: int            # NCO phase, 32-bit fixed point
+    phase_fp: Union[int, torch.Tensor]  # NCO phase, 32-bit fixed point
     hist_re: torch.Tensor    # [2R] float32 mixed-sample history
     hist_im: torch.Tensor
 
 
 def state_from_arrays(phase_fp, hist_re, hist_im, device="cuda") -> CicState:
     """The port's state from a reference ``CicState`` as numpy arrays: the
-    stream carries on from there."""
+    stream carries on from there.  A phase array (one state per stream, for
+    ``torch.func.vmap``) becomes an int64 tensor on ``device``."""
 
-    return CicState(int(phase_fp) & 0xFFFFFFFF,
-                    *(_mixer._to_device(h, device, torch.float32) for h in (hist_re, hist_im)))
+    phase = _mixer.state_from_arrays(phase_fp, 0, device).phase_fp
+    return CicState(phase, *(_mixer._to_device(h, device, torch.float32)
+                             for h in (hist_re, hist_im)))
 
 
 def _boxcar3(r: int) -> np.ndarray:
@@ -152,22 +157,22 @@ class CicDDC:
         n = xr.shape[0]
         k_out = n // r
         dev = xr.device
-        # ext = [history, mixed chunk], zero-padded to whole rows: the
-        # zeros feed only the trimmed tail outputs
         kp = -(-k_out // s) * s
-        ext = torch.empty((2, r * kp + 2 * r), dtype=torch.float32, device=dev)
-        ext[:, 2 * r + n :] = 0.0
-        # the carrier (-sin + i*cos) is the mixer's times i: (yr, yi) -> (-yi, yr);
-        # row 0 holds the negated real plane, yi, and the gain negates it back
-        # (exact in floating point; no negation pass, and autograd-safe)
-        ext[0, : 2 * r] = -state.hist_re
-        ext[1, : 2 * r] = state.hist_im
         (yr, yi), mst = _mixer.mixer_apply_split(_mixer.MixerState(state.phase_fp, rate_fp),
                                                  xr, xi)
-        ext[0, 2 * r : 2 * r + n] = yi
-        ext[1, 2 * r : 2 * r + n] = yr
+        # the carrier (-sin + i*cos) is the mixer's times i: (yr, yi) -> (-yi, yr);
+        # row 0 holds the negated real plane, yi, and the gain negates it back
+        # (exact in floating point; no negation pass, and autograd-safe).
+        # ext = [history, mixed chunk], zero-padded to whole rows (the zeros
+        # feed only the trimmed tail outputs), is built in one pass
+        zeros = xr.new_zeros(r * kp - n)
+        ext = torch.cat([-state.hist_re, yi, zeros, state.hist_im, yr, zeros]
+                        ).view(2, r * kp + 2 * r)
+        phase = mst.phase_fp
+        if _grad._transforms_active():
+            phase = _mixer.as_tensors(mst, dev).phase_fp
         new_state = CicState(
-            phase_fp=mst.phase_fp,
+            phase_fp=phase,
             hist_re=-ext[0, n : n + 2 * r],
             hist_im=ext[1, n : n + 2 * r].clone(),
         )

@@ -10,7 +10,9 @@ then float32 cos/sin.  The phase arithmetic runs in int64 masked to 32
 bits (PyTorch's uint32 is incomplete on CUDA); a chunk holds fewer than
 2^31 samples, so ``k * rate_fp + phase_fp`` stays below 2^63.  The
 streaming state (``MixerState``) is two Python ints, advanced mod 2^32 on
-the host.  The phase in [0, 2^32) converts to float32 with round to
+the host, or two int64 tensors on the device: a per-stream state for
+``torch.func.vmap`` (a function transform carries tensors only, so a
+state of ints comes out of a transformed call as tensors, :func:`as_tensors`).  The phase in [0, 2^32) converts to float32 with round to
 nearest even, as the reference's uint32 conversion does, so the angles
 agree bit for bit before cos/sin.
 
@@ -22,7 +24,7 @@ its own numerics (see the notes above them).  numpy input goes to
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,8 +60,8 @@ class MixerState(NamedTuple):
     rate_fp:  fixed-point frequency (cycles/sample * 2^32, wrapped).
     """
 
-    phase_fp: int
-    rate_fp: int
+    phase_fp: Union[int, torch.Tensor]
+    rate_fp: Union[int, torch.Tensor]
 
 
 def _to_fp(cycles: float) -> int:
@@ -76,11 +78,27 @@ def mixer_init(rate: float, starting_phase: float = 0.0) -> MixerState:
     return MixerState(phase_fp=_to_fp(starting_phase / (2.0 * np.pi)), rate_fp=_to_fp(rate))
 
 
-def state_from_arrays(phase_fp, rate_fp) -> MixerState:
-    """The port's state from a reference ``MixerState`` as numpy scalars:
-    the stream carries on from there."""
+def state_from_arrays(phase_fp, rate_fp, device=None) -> MixerState:
+    """The port's state from a reference ``MixerState`` as numpy: the stream
+    carries on from there.  Scalars become ints; arrays (one state per
+    stream, for ``torch.func.vmap``) int64 tensors on ``device`` (default
+    "cuda")."""
 
-    return MixerState(int(phase_fp) & _MASK, int(rate_fp) & _MASK)
+    if np.ndim(phase_fp) == 0 and np.ndim(rate_fp) == 0:
+        return MixerState(int(phase_fp) & _MASK, int(rate_fp) & _MASK)
+    return MixerState(*(_to_device(np.asarray(v, np.int64) & _MASK, device, None)
+                        for v in (phase_fp, rate_fp)))
+
+
+def as_tensors(state: MixerState, device) -> MixerState:
+    """``state`` with its int fields as int64 tensors on ``device``."""
+
+    return MixerState(*(v if isinstance(v, torch.Tensor)
+                        else torch.tensor(v, dtype=torch.int64, device=device) for v in state))
+
+
+def _fp(v):
+    return v if isinstance(v, torch.Tensor) else int(v)
 
 
 def _advance(state: MixerState, n: int) -> MixerState:
@@ -99,15 +117,15 @@ def _to_device(x, device: Optional[str], dtype: Optional[torch.dtype]) -> torch.
     return x if dtype is None else x.to(dtype)
 
 
-def nco_angles(phase_fp: int, rate_fp: int, n: int, device) -> torch.Tensor:
+def nco_angles(phase_fp, rate_fp, n: int, device) -> torch.Tensor:
     """Angles [n] float32 of samples k = 0..n-1: the fixed-point phase
     (phase_fp + k*rate_fp) mod 2^32 in int64, rounded to float32, times
-    2*pi/2^32 in float32."""
+    2*pi/2^32 in float32.  phase_fp and rate_fp are ints or int64 tensors."""
 
     if n >= _MAX_CHUNK:
         raise ValueError(f"a chunk holds fewer than 2^31 samples; got {n}")
     k = torch.arange(n, dtype=torch.int64, device=device)
-    ph = (k * int(rate_fp) + int(phase_fp)) & _MASK
+    ph = (k * _fp(rate_fp) + _fp(phase_fp)) & _MASK
     return ph.to(torch.float32) * float(_PHASE_SCALE)
 
 

@@ -156,6 +156,25 @@ class _ZconvTmajor(torch.autograd.Function):
                               tb=ctx.tb, elems=ctx.elems)
         return xr, xi, None, None, None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, re, im, plan, hfr, hfi, tb, elems):
+        # the mapped dimension joins the columns: planes [N, V, B] run as
+        # [N, V*B] in one call
+        _unmapped_filter(in_dims[3:5])
+        re, im = (_grad.batched(t, d, info.batch_size, 1) for t, d in zip((re, im), in_dims))
+        n, v, b = re.shape
+        out = zconv_tmajor(plan, re.reshape(n, v * b), im.reshape(n, v * b), hfr, hfi,
+                           tb=tb, elems=elems)
+        return tuple(t.view(n, v, b) for t in out), (1, 1)
+
+
+def _unmapped_filter(dims) -> None:
+    """A vmap rule's check that the filter spectra are shared by every
+    mapped call (no public path maps them)."""
+
+    if any(d is not None for d in dims):
+        raise ValueError("vmap over the filter spectrum is not supported: map the signal")
+
 
 # ---------------------------------------------------------------------------
 # The stream map: FastConv's framing, block convolution and valid-sample
@@ -179,14 +198,14 @@ def columns(fr: torch.Tensor, fi: torch.Tensor):
     4, the extra columns zero."""
 
     r, c, nfft = fr.shape
-    cols = r * c
-    colsp = -(-cols // 4) * 4
+    pad = -(r * c) % 4
     planes = []
     for f in (fr, fi):
-        p = torch.empty((nfft, colsp), dtype=f.dtype, device=f.device)
-        p[:, cols:].zero_()
-        p[:, :cols].view(nfft, r, c).copy_(f.permute(2, 0, 1))
-        planes.append(p)
+        # one pass: each row's frames [nfft, c] read in place, then the zeros
+        parts = list(f.permute(2, 0, 1).unbind(1))
+        if pad:
+            parts.append(f.new_zeros((nfft, pad)))
+        planes.append(torch.cat(parts, dim=1))
     return planes
 
 
@@ -201,9 +220,7 @@ def unpack_pairs(yr: torch.Tensor, yi: torch.Tensor, u: int, r: int, h: int):
     """Block outputs of R*h column pairs -> the valid samples [R, 2h, u] of
     the frames (even frames from re, odd from im)."""
 
-    out = torch.empty((r, h, 2, u), dtype=yr.dtype, device=yr.device)
-    out[:, :, 0] = keep(yr, u, r, h)
-    out[:, :, 1] = keep(yi, u, r, h)
+    out = torch.stack((keep(yr, u, r, h), keep(yi, u, r, h)), dim=2)  # [R, h, 2, u]
     return out.view(r, 2 * h, -1)
 
 
@@ -331,3 +348,14 @@ class _ZconvStream(torch.autograd.Function):
         gx = zconv_stream(ctx.plan, F.pad(g, (ctx.span - 1, 0)), hfra, hfia, ctx.u,
                           ctx.length, adjoint=(hfr, hfi, ctx.span))
         return gx, None, None, None, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, plan, hfr, hfi, u, total, hfra, hfia, span):
+        # the mapped dimension joins the rows: streams [V, R, L] run as
+        # [V*R, L] in one call
+        _unmapped_filter(in_dims[2:4] + in_dims[6:8])
+        x = _grad.batched(x, in_dims[0], info.batch_size, 0)
+        v, r, length = x.shape
+        y = zconv_stream(plan, x.reshape(v * r, length).contiguous(), hfr, hfi, u, total,
+                         adjoint=(hfra, hfia, span))
+        return y.view(v, r, total), 0

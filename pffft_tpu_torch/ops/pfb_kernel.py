@@ -275,6 +275,21 @@ class _PfbFir(torch.autograd.Function):
         gr = pfb_fir(pad, weights.flip(0), ctx.k + p - 1)
         return torch.nn.functional.pad(gr, (0, 0, 0, ctx.q - ctx.k - p + 1)), None, None
 
+    @staticmethod
+    def vmap(info, in_dims, rows, weights, k):
+        # the mapped dimension joins the leading dims: one call
+        _unmapped_weights(in_dims[1])
+        rows = _grad.batched(rows, in_dims[0], info.batch_size, 0)
+        return pfb_fir(rows.contiguous(), weights, k), 0
+
+
+def _unmapped_weights(dim) -> None:
+    """A vmap rule's check that the weights are shared by every mapped call
+    (no public path maps them)."""
+
+    if dim is not None:
+        raise ValueError("vmap over the polyphase weights is not supported: map the data")
+
 
 class _PfbStream(torch.autograd.Function):
     """Function 4, the stream map, v[phi, r*K + k] = sum_s w[s, phi] *
@@ -311,3 +326,15 @@ class _PfbStream(torch.autograd.Function):
         gh = ext[..., :hist].reshape(2, *ctx.hist_shape)
         gx = ext[..., hist:].reshape(2, *ctx.x_shape)
         return gh[0], gh[1], gx[0], gx[1], None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, hr, hi, xr, xi, weights, k, offset, warps):
+        # the mapped dimension joins the rows as the leading one: columns
+        # (v, r, k) frame-fastest, so v [M, V*R*K] is [M, V, R*K]; an unmapped
+        # history is broadcast to every mapped chunk
+        _unmapped_weights(in_dims[4])
+        hr, hi, xr, xi = (_grad.batched(t, d, info.batch_size, 0)
+                          for t, d in zip((hr, hi, xr, xi), in_dims))
+        vr, vi = pfb_fir_stream_tmajor((hr, hi), (xr, xi), weights, k, offset, warps)
+        m, v = vr.shape[0], info.batch_size
+        return (vr.view(m, v, -1), vi.view(m, v, -1)), (1, 1)

@@ -5,6 +5,14 @@ out at index j of a leading axis, ``all_to_all_single`` swaps the blocks,
 and one permute puts the received blocks where the next local phase
 wants them.  At one shard nothing is sent: the exchange is the identity
 and only the layout copies remain.
+
+Every exchange is differentiable: each collective is an autograd Function
+whose backward runs its adjoint on the gradient (an all-to-all of equal
+blocks is its own adjoint; a shift to one rank and from another is
+adjoint to the shift the other way), and a plain tensor's shard is a
+slice whose backward gathers the shards' gradients, so a gradient reaches
+an input given as the same global tensor on every rank whole, as it does
+a DTensor's.
 """
 
 from __future__ import annotations
@@ -15,8 +23,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
+from ..ops import _grad
 from . import mesh as _mesh
 
 
@@ -34,6 +43,93 @@ def sendrecv(ops: Sequence[Tuple[str, torch.Tensor, int]], group) -> None:
     batch = [dist.P2POp(fns[kind], t, global_rank(group, r), group) for kind, t, r in ops]
     for req in dist.batch_isend_irecv(batch):
         req.wait()
+
+
+def _shift(x: torch.Tensor, to: Optional[int], frm: Optional[int], group) -> torch.Tensor:
+    out = torch.zeros_like(x) if frm is None else torch.empty_like(x)
+    ops = [] if to is None else [("send", x, to)]
+    if frm is not None:
+        ops.append(("recv", out, frm))
+    sendrecv(ops, group)
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """x sent to rank ``to`` and the result received from rank ``frm`` (None:
+    send nothing, or receive zeros).  Its adjoint sends the gradient the
+    other way: to ``frm``, and receives from ``to``."""
+
+    @staticmethod
+    def forward(x, to, frm, group):
+        return _shift(x, to, frm, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.to, ctx.frm, ctx.group = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g.contiguous(), ctx.frm, ctx.to, ctx.group), None, None, None
+
+
+def shift(x: torch.Tensor, to: Optional[int], frm: Optional[int], group) -> torch.Tensor:
+    """This rank's ``x`` sent to rank ``to`` of ``group`` while the result is
+    received from rank ``frm`` (None: nothing sent, or zeros received); every
+    rank of the pattern calls it.  Differentiable."""
+
+    x = x.contiguous()
+    if _grad.needed(x):
+        return _Shift.apply(x, to, frm, group)
+    return _shift(x, to, frm, group)
+
+
+def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """all_to_all of equal blocks: block j to rank j.  Its own adjoint: the
+    gradient of received block i goes back to rank i as its block j."""
+
+    @staticmethod
+    def forward(send, group):
+        return _all_to_all(send, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.group), None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's block ``x.narrow(axis, start, length)`` of a tensor that
+    every rank holds whole.  The adjoint gathers every rank's block
+    gradient, so each rank's input gradient is the whole one."""
+
+    @staticmethod
+    def forward(x, axis, start, length, size, group):
+        return x.narrow(axis, start, length)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.axis, _, _, ctx.size, ctx.group = inputs
+        ctx.extent = x.shape[ctx.axis]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.movedim(ctx.axis, 0).contiguous()
+        chunk = -(-ctx.extent // ctx.size)
+        if g.shape[0] < chunk:  # a short last block: equal sizes on the wire
+            g = torch.nn.functional.pad(g, (0, 0) * (g.ndim - 1) + (0, chunk - g.shape[0]))
+        parts = [torch.empty_like(g) for _ in range(ctx.size)]
+        dist.all_gather(parts, g, group=ctx.group)
+        full = torch.cat(parts)[:ctx.extent].movedim(0, ctx.axis)
+        return full, None, None, None, None, None
 
 
 class MeshAxis:
@@ -63,8 +159,10 @@ class MeshAxis:
 
         A DTensor is redistributed as needed (its other mesh axes keep
         their placements unless they split ``axis`` too); a tensor is
-        taken as the same global tensor on every rank and distributed.  A
-        tensor on another device type than the mesh's raises."""
+        taken as the same global tensor on every rank and this rank's
+        block sliced out of it, in DTensor's chunks (a gradient gathers
+        the blocks' gradients back).  A tensor on another device type than
+        the mesh's raises."""
 
         if isinstance(x, DTensor):
             if x.device_mesh != self.mesh:
@@ -75,7 +173,14 @@ class MeshAxis:
             return x.redistribute(self.mesh, place).to_local(), place
         _mesh.check_device(x, self.mesh)
         place = list(_mesh.batch_sharding(self.mesh, x.ndim, axis, self.name))
-        return distribute_tensor(x, self.mesh, place).to_local(), place
+        axis %= x.ndim
+        extent = x.shape[axis]
+        chunk = -(-extent // self.size)
+        start = min(self.rank * chunk, extent)
+        length = min(chunk, extent - start)
+        if self.size > 1 and _grad.needed(x):
+            return _Scatter.apply(x, axis, start, length, self.size, self.group), place
+        return x.narrow(axis, start, length), place
 
     def dtensor(self, local: torch.Tensor, place: Sequence[Placement]) -> DTensor:
         return DTensor.from_local(local, self.mesh, list(place), run_check=False)
@@ -87,9 +192,9 @@ class MeshAxis:
         send = send.contiguous()
         if self.size == 1:
             return send
-        out = torch.empty_like(send)
-        dist.all_to_all_single(out, send, group=self.group)
-        return out
+        if _grad.needed(send):
+            return _AllToAll.apply(send, self.group)
+        return _all_to_all(send, self.group)
 
     # The three exchange patterns of the four-step and the pencil, each on
     # a list of planes.  A "rows" tensor is [B, a/D, c] (this rank's block

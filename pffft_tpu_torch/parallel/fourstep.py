@@ -219,14 +219,9 @@ class FourStepPlan:
             # global flip: rank s now holds flip-block D-1-s -> swap ranks
             partner = d - 1 - ax.rank
             if partner != ax.rank:
-                got = torch.empty_like(f)
-                _comm.sendrecv((("send", f, partner), ("recv", got, partner)), ax.group)
-                f = got
+                f = _comm.shift(f, partner, partner, ax.group)
             # rotate right by one element across the rank boundary
-            tail = f[..., -1:].contiguous()
-            prev = torch.empty_like(tail)
-            _comm.sendrecv((("send", tail, (ax.rank + 1) % d),
-                            ("recv", prev, (ax.rank - 1) % d)), ax.group)
+            prev = _comm.shift(f[..., -1:], (ax.rank + 1) % d, (ax.rank - 1) % d, ax.group)
         else:
             prev = f[..., -1:]
         out = torch.cat([prev, f[..., :-1]], dim=-1)

@@ -30,22 +30,19 @@ __all__ = ["halo_exchange_right", "sharded_fastconv_valid"]
 def halo_exchange_right(x_local: torch.Tensor, halo: int, group=None) -> torch.Tensor:
     """The first ``halo`` samples (last axis) of the *next* rank's
     ``x_local`` in ``group`` (the default group when None); the last rank
-    receives zeros (stream end padding).  At one rank no collective runs."""
+    receives zeros (stream end padding).  At one rank no collective runs.
+    Differentiable: the halo's gradient goes back to the rank it came from
+    and lands on that rank's first ``halo`` samples."""
 
     if halo <= 0:
         return x_local[..., :0]
-    head = x_local[..., :halo].contiguous()
-    out = torch.zeros_like(head)
+    head = x_local[..., :halo]
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     if n == 1:
-        return out
-    ops = []
-    if rank > 0:       # rank i sends its head to rank i-1
-        ops.append(("send", head, rank - 1))
-    if rank < n - 1:
-        ops.append(("recv", out, rank + 1))
-    _comm.sendrecv(ops, group)
-    return out
+        return torch.zeros_like(head)
+    # rank i sends its head to rank i-1 and receives rank i+1's
+    return _comm.shift(head, rank - 1 if rank > 0 else None,
+                       rank + 1 if rank < n - 1 else None, group)
 
 
 def sharded_fastconv_valid(

@@ -22,6 +22,9 @@ GROUPS (comma-separated; all by default):
     4096 (B3's route) and the forward at N = 8192 .. 131072 (N*B = 2^24);
   * ``chan``: a channelizer step (``process_split_tmajor``) at (M, P,
     batch, frames) = (4096, 8, 4, 1024) and (1024, 8, 16, 1024);
+  * ``dsp``: ``DDCChain`` at 129 taps (decim 8) on 2^24 complex samples,
+    ``CicDDC(16)`` on 2^22, an ``OversampledChannelizer(1024, 2, 8)``
+    step (``process_split``) on [16, 2^20];
   * ``host``: host µs per public call at small sizes, where the card
     waits on the host (200 calls, one synchronize): complex time-major
     (1024, 16) and batch-major [4, 4096], real time-major (8192, 16) and
@@ -69,7 +72,8 @@ def time_ms(fn, inner: int = 5, reps: int = 10, warm: int = 3) -> float:
 def main() -> int:
     root, label = sys.argv[1], sys.argv[2]
     groups = set(sys.argv[3].split(",")) if len(sys.argv) > 3 else {"chain", "conv", "real",
-                                                                      "chan", "chan64", "host"}
+                                                                      "chan", "dsp", "chan64",
+                                                                      "host"}
     if not torch.cuda.is_available():
         print("port_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -150,6 +154,20 @@ def main() -> int:
             out[f"chan_step_{m}_ms"] = time_ms(
                 lambda: ch.process_split_tmajor(st, xr, xi), inner=2)
             del xr, xi
+    if "dsp" in groups:
+        x = torch.complex(rnd(1 << 24), rnd(1 << 24))
+        ddc = CH.DDCChain(-0.1, pt.design_lowpass(129, 0.5 / 8), 8)
+        st = ddc.init_state()
+        out["ddc_chain_129_2p24_ms"] = time_ms(lambda: ddc.process(st, x), inner=2)
+        cic = pt.dsp.CicDDC(16)
+        cst, xc = cic.init_state(), x[: 1 << 22]
+        out["cic_16_2p22_ms"] = time_ms(lambda: cic.apply(cst, xc, 0.123), inner=2)
+        del x, xc
+        och = CH.OversampledChannelizer(1024, 2, 8)
+        xr, xi = rnd(16, 1 << 20), rnd(16, 1 << 20)
+        st = och.init_state((16,))
+        out["oversampled_step_1024_ms"] = time_ms(lambda: och.process_split(st, xr, xi), inner=2)
+        del xr, xi
     if "host" in groups:
         def host_us(fn, calls=200):
             fn()
