@@ -29,6 +29,16 @@ oracle, :mod:`oracle`.  Every kernel is f32; float64 plans run the einsum
 stage engine.
 """
 
+import time as _time
+
+_T0 = _time.perf_counter()
+
+from .utils import profiling as _profiling  # noqa: E402
+
+# the package's own import, its first line to its last: setup.seconds.import
+_import = _profiling.setup("import", start=_T0)
+_import.__enter__()
+
 from . import (bluestein, channelizer, conv, dct, dsp, fft, nd, ops, oracle, parallel, pconv,
                resample, runtime, spectral, tune, utils, wrapper)
 from .bluestein import (
@@ -218,3 +228,6 @@ __all__ = [
     "Fft",
     "__version__",
 ]
+
+_import.__exit__(None, None, None)
+del _import, _T0, _time

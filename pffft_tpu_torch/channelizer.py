@@ -54,6 +54,7 @@ from . import plan as _plan
 from .dsp import mixer as _mixer
 from .ops import _grad
 from .ops import pfb_kernel as _pfb
+from .utils import profiling as _profiling
 
 __all__ = ["Channelizer", "OversampledChannelizer", "ChannelizerState", "design_lowpass",
            "state_from_arrays", "DDCChain", "DDCState", "ddc_state_from_arrays"]
@@ -95,7 +96,7 @@ def _chunk_plane(x, device, plan) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         return _fft._as_plane(x, device, plan)
     x = x.to(_fft._real_dtype(plan))
-    return x if x.ndim and x.stride(-1) == 1 else x.contiguous()
+    return x if x.ndim and x.stride(-1) == 1 else _profiling.contiguous(x, "chunk_plane")
 
 
 class ChannelizerState(NamedTuple):
@@ -214,7 +215,8 @@ class Channelizer:
         """As :meth:`_pfb_split_tmajor` -> for each offset ([..., K, M]) x2."""
 
         lead = x[0].shape[:-1]
-        return [tuple(y.reshape(self.m, *lead, k).movedim(0, -1).contiguous() for y in ys)
+        return [tuple(_profiling.contiguous(y.reshape(self.m, *lead, k).movedim(0, -1), "movedim")
+                      for y in ys)
                 for ys in self._pfb_split_tmajor(state, x, k, offsets)]
 
     def _advance(self, state: ChannelizerState, x_re, x_im):
@@ -232,14 +234,16 @@ class Channelizer:
                 f"stream chunk length {x_re.shape[-1]} must be a multiple of M={self.m}")
         hist, length = self.p * self.m, x_re.shape[-1]
         if length >= hist:
-            st = ChannelizerState(*torch.stack(
-                (x_re[..., length - hist:], x_im[..., length - hist:])).unbind(0))
+            st = ChannelizerState(*_profiling.copy(
+                "state", torch.stack, (x_re[..., length - hist:], x_im[..., length - hist:])
+            ).unbind(0))
         else:
-            st = ChannelizerState(
-                hist_re=torch.cat([state.hist_re[..., length:], x_re], dim=-1),
-                hist_im=torch.cat([state.hist_im[..., length:], x_im], dim=-1))
+            st = ChannelizerState(*(
+                _profiling.copy("state", torch.cat, [h[..., length:], x], dim=-1)
+                for h, x in zip(state, (x_re, x_im))))
         return state, (x_re, x_im), length // self.m, st
 
+    @_profiling.entry("Channelizer.process_split_tmajor")
     def process_split_tmajor(
         self, state: ChannelizerState, x_re, x_im
     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ChannelizerState]:
@@ -250,6 +254,7 @@ class Channelizer:
         state, x, k, st = self._advance(state, x_re, x_im)
         return self._pfb_split_tmajor(state, x, k)[0], st
 
+    @_profiling.entry("Channelizer.process_split")
     def process_split(
         self, state: ChannelizerState, x_re, x_im
     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ChannelizerState]:
@@ -321,6 +326,7 @@ class OversampledChannelizer:
     def init_state(self, channels_shape: Tuple[int, ...] = (), device=None) -> ChannelizerState:
         return self.base.init_state(channels_shape, device)
 
+    @_profiling.entry("OversampledChannelizer.process_split")
     def process_split(self, state: ChannelizerState, x_re, x_im):
         """Planes [..., L] (L % M == 0) -> ([..., V*L//M, M]) x2, state'.
         Output frame k is stream time k*H (H = M/V)."""
@@ -336,8 +342,8 @@ class OversampledChannelizer:
         ys = [(vr * ph_re[r] - vi * ph_im[r], vr * ph_im[r] + vi * ph_re[r])
               for r, (vr, vi) in enumerate(b._pfb_split(state, x, k, offsets))]
         # interleave residues: output frame k*V + r = residue r's frame k
-        return tuple(torch.stack(y, dim=-2).reshape(*lead, k * self.v, b.m)
-                     for y in zip(*ys)), st
+        return tuple(_profiling.copy("interleave", torch.stack, y, dim=-2).reshape(
+            *lead, k * self.v, b.m) for y in zip(*ys)), st
 
     def process(self, state: ChannelizerState, x):
         (yr, yi), st = self.process_split(state, *_planes(x, self.base.device, self.base.plan))
@@ -387,6 +393,7 @@ class DDCChain:
                              device=self.device if device is None else device),
         )
 
+    @_profiling.entry("DDCChain.process")
     def process(self, state: DDCState, x) -> Tuple[torch.Tensor, DDCState]:
         """x [L] complex chunk -> (y [L/decim] complex, state').
 
@@ -409,7 +416,7 @@ class DDCChain:
         # [I; Q] rows of the stream [tail, mixed chunk], in one pass
         f1 = self.filter_len - 1
         tail = torch.view_as_real(state.tail)
-        ext = torch.cat([tail[:, 0], mr, tail[:, 1], mi]).view(2, f1 + n)
+        ext = _profiling.copy("ext", torch.cat, [tail[:, 0], mr, tail[:, 1], mi]).view(2, f1 + n)
         y = self.conv._conv_stream(ext.to(_fft._real_dtype(self.conv.plan)), n)
         tail = ext[:, n:]
         return (torch.complex(y[0, :: self.decim], y[1, :: self.decim]),

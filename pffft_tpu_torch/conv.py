@@ -50,6 +50,7 @@ from . import runtime as _runtime
 from .ops import _grad
 from .ops import conv_kernel as _ck
 from .ops import dispatch as _dispatch
+from .utils import profiling as _profiling
 
 __all__ = ["ConvFlags", "FastConv", "StreamingConv", "new_setup", "apply", "fastconv_valid"]
 
@@ -184,12 +185,13 @@ class FastConv:
 
     def _spectrum(self, device: torch.device):
         """Hf = FFT(g) / nfft as planes [nfft] of the setup's dtype on
-        ``device``."""
+        ``device``; a miss's time goes to ``setup.seconds.spectrum``."""
 
         hf = self._hf.get(device)
         if hf is None:
-            hfr, hfi = _ck.filter_spectrum(self.plan, self._g)
-            hf = (torch.from_numpy(hfr).to(device), torch.from_numpy(hfi).to(device))
+            with _profiling.setup("spectrum"):
+                hfr, hfi = _ck.filter_spectrum(self.plan, self._g)
+                hf = (torch.from_numpy(hfr).to(device), torch.from_numpy(hfi).to(device))
             self._hf[device] = hf
         return hf
 
@@ -201,13 +203,14 @@ class FastConv:
 
         adj = self._hf_adjoint.get(device)
         if adj is None:
-            n, cf = self.nfft, self.cplx_factor
-            j = np.arange(self.filter_len)
-            g = np.zeros_like(self._g)
-            g[(n - cf * j) % n] = np.conj(self._g[(n - cf * j[::-1]) % n])
-            hfr, hfi = _ck.filter_spectrum(self.plan, g)
-            adj = (torch.from_numpy(hfr).to(device), torch.from_numpy(hfi).to(device),
-                   self.filter_span)
+            with _profiling.setup("spectrum"):
+                n, cf = self.nfft, self.cplx_factor
+                j = np.arange(self.filter_len)
+                g = np.zeros_like(self._g)
+                g[(n - cf * j) % n] = np.conj(self._g[(n - cf * j[::-1]) % n])
+                hfr, hfi = _ck.filter_spectrum(self.plan, g)
+                adj = (torch.from_numpy(hfr).to(device), torch.from_numpy(hfi).to(device),
+                       self.filter_span)
             self._hf_adjoint[device] = adj
         return adj
 
@@ -256,7 +259,8 @@ class FastConv:
             cplan = _dispatch.conv_kernel_choice(self.nfft, 1, x.device)[0]
             hfr, hfi = self._spectrum(x.device)
             adjoint = self._adjoint(x.device) if _grad.needed(x) else None
-            return _ck.zconv_stream(cplan, x.contiguous(), hfr, hfi, u, total, adjoint)
+            return _ck.zconv_stream(cplan, _profiling.contiguous(x, "contiguous"), hfr, hfi, u,
+                                    total, adjoint)
         return _ck.stream_conv(self._block_conv, x, self.nfft, u, total)
 
     # ------------------------------------------------------------------
@@ -268,6 +272,7 @@ class FastConv:
             x = torch.complex(x[..., 0], x[..., 1])
         return x
 
+    @_profiling.entry("FastConv.apply")
     def apply(self, x, flush: bool = False) -> Tuple[torch.Tensor, int]:
         """pffastconv_apply parity.
 
@@ -334,6 +339,7 @@ class FastConv:
         return nb * u
 
     # ------------------------------------------------------------------
+    @_profiling.entry("FastConv.apply_batched")
     def apply_batched(self, x, flush: bool = True) -> torch.Tensor:
         """Batched one-shot convenience: x [..., L] -> [..., consumed]
         (valid-mode with flush), each row as ``apply`` gives it.  Every

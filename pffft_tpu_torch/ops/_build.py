@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from ..utils import profiling as _profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -141,14 +143,15 @@ def build(names: Iterable[str] = SOURCES) -> float:
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library ``name`` (see :data:`SOURCES`), built first if
-    needed."""
+    needed; a first load's time goes to ``setup.seconds.load``."""
 
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        lib.pf_error_string.argtypes = [ctypes.c_int]
-        lib.pf_error_string.restype = ctypes.c_char_p
+        with _profiling.setup("load"):
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.pf_error_string.argtypes = [ctypes.c_int]
+            lib.pf_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
 

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import plan as _plan
+from ..utils import profiling as _profiling
 from . import _build
 from . import _grad
 from . import fused_stage as _fs
@@ -121,13 +122,14 @@ def _zconv_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, hfr: tor
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
-    lib, fn = _pk._kernel("pf_conv_fused_tmajor")
-    tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, re.device)
-    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), hfr.data_ptr(),
-             hfi.data_ptr(), tw.data_ptr(), desc, count, n, b, t.tb, t.threads, t.elems,
-             t.shift, re.device.index or 0, _pk._stream(re))
-    _build.check(lib, err, f"fused conv kernel (N={n}, B={b}, tb={t.tb}, "
-                           f"threads={t.threads}, elems={t.elems})")
+    with _profiling.span("launch", "zconv_tmajor"):
+        lib, fn = _pk._kernel("pf_conv_fused_tmajor")
+        tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, re.device)
+        err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), hfr.data_ptr(),
+                 hfi.data_ptr(), tw.data_ptr(), desc, count, n, b, t.tb, t.threads, t.elems,
+                 t.shift, re.device.index or 0, _pk._stream(re))
+        _build.check(lib, err, f"fused conv kernel (N={n}, B={b}, tb={t.tb}, "
+                               f"threads={t.threads}, elems={t.elems})")
     zconv_tmajor.launches += 1
     return ore, oim
 
@@ -188,7 +190,7 @@ def frames(x: torch.Tensor, nfft: int, u: int, nb: int) -> torch.Tensor:
 
     need = (nb - 1) * u + nfft
     if x.shape[-1] < need:
-        x = F.pad(x, (0, need - x.shape[-1]))
+        x = _profiling.copy("frames", F.pad, x, (0, need - x.shape[-1]))
     return x[:, :need].unfold(-1, nfft, u)
 
 
@@ -205,7 +207,7 @@ def columns(fr: torch.Tensor, fi: torch.Tensor):
         parts = list(f.permute(2, 0, 1).unbind(1))
         if pad:
             parts.append(f.new_zeros((nfft, pad)))
-        planes.append(torch.cat(parts, dim=1))
+        planes.append(_profiling.copy("columns", torch.cat, parts, dim=1))
     return planes
 
 
@@ -220,7 +222,8 @@ def unpack_pairs(yr: torch.Tensor, yi: torch.Tensor, u: int, r: int, h: int):
     """Block outputs of R*h column pairs -> the valid samples [R, 2h, u] of
     the frames (even frames from re, odd from im)."""
 
-    out = torch.stack((keep(yr, u, r, h), keep(yi, u, r, h)), dim=2)  # [R, h, 2, u]
+    out = _profiling.copy("unpack_pairs", torch.stack, (keep(yr, u, r, h), keep(yi, u, r, h)),
+                          dim=2)  # [R, h, 2, u]
     return out.view(r, 2 * h, -1)
 
 
@@ -241,16 +244,19 @@ def stream_conv(block_conv: Callable, x: torch.Tensor, nfft: int, u: int, total:
         yr, yi = block_conv(*columns(v[:, 0::2], v[:, 1::2]))
         return unpack_pairs(yr, yi, u, r, nb // 2).reshape(r, -1)[:, :total]
     yr, yi = block_conv(*columns(frames(x.real, nfft, u, nb), frames(x.imag, nfft, u, nb)))
-    return torch.complex(keep(yr, u, r, nb).reshape(r, -1)[:, :total],
-                         keep(yi, u, r, nb).reshape(r, -1)[:, :total])
+    yr, yi = (_profiling.contiguous(keep(y, u, r, nb), "keep").view(r, -1)[:, :total]
+              for y in (yr, yi))
+    return _profiling.copy("complex", torch.complex, yr, yi)
 
 
 def zconv_stream_plain(plan: _plan.Plan, x, hfr, hfi, u: int, total: int):
     """Plain PyTorch version of the stream map: :func:`stream_conv` around
-    :func:`zconv_tmajor_plain`."""
+    :func:`zconv_tmajor_plain`, whose copies stand for the kernel's own
+    work, not the entry's layout copies."""
 
-    return stream_conv(lambda re, im: zconv_tmajor_plain(plan, re, im, hfr, hfi), x,
-                       plan.engine_n, u, total)
+    with _profiling.uncounted():
+        return stream_conv(lambda re, im: zconv_tmajor_plain(plan, re, im, hfr, hfi), x,
+                           plan.engine_n, u, total)
 
 
 def stream_tile(n: int, device: Optional[torch.device] = None) -> Optional[_fs.Fused2Tile]:
@@ -308,17 +314,18 @@ def _zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: tor
     y = torch.empty((rows, total), dtype=x.dtype, device=x.device)
     if rows == 0 or total == 0:
         return y
-    nb = -(-total // u)
-    lanes = -(-nb // 2) if pairs else nb
-    xv = x if pairs else torch.view_as_real(x)
-    yv = y if pairs else torch.view_as_real(y)
-    lib, fn = _pk._kernel("pf_conv_stream")
-    tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, x.device)
-    err = fn(xv.data_ptr(), yv.data_ptr(), hfr.data_ptr(), hfi.data_ptr(), tw.data_ptr(),
-             desc, count, n, rows, length, total, u, lanes, int(pairs), t.rows, t.threads,
-             t.elems, t.pitch, t.shift, x.device.index or 0, _pk._stream(x))
-    _build.check(lib, err, f"stream conv kernel (N={n}, R={rows}, L={length}, u={u}, "
-                           f"total={total})")
+    with _profiling.span("launch", "zconv_stream"):
+        nb = -(-total // u)
+        lanes = -(-nb // 2) if pairs else nb
+        xv = x if pairs else torch.view_as_real(x)
+        yv = y if pairs else torch.view_as_real(y)
+        lib, fn = _pk._kernel("pf_conv_stream")
+        tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, x.device)
+        err = fn(xv.data_ptr(), yv.data_ptr(), hfr.data_ptr(), hfi.data_ptr(), tw.data_ptr(),
+                 desc, count, n, rows, length, total, u, lanes, int(pairs), t.rows, t.threads,
+                 t.elems, t.pitch, t.shift, x.device.index or 0, _pk._stream(x))
+        _build.check(lib, err, f"stream conv kernel (N={n}, R={rows}, L={length}, u={u}, "
+                               f"total={total})")
     zconv_stream.launches += 1
     return y
 

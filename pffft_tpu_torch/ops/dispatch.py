@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from .. import plan as _plan
+from ..utils import profiling as _profiling
 from . import _build
 from . import _grad
 from . import conv_kernel as _ck
@@ -474,14 +475,15 @@ def _cfft_ksplit2(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, backward
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
-    lib, fn = _pk._kernel("pf_ksplit2_tmajor", f"ksplit2_r{r}")
-    tw, desc, count = _pk._core_tables(tuple(mplan.stages), re.device)
-    twc = _pk._core_tables((last,), re.device)[0]
-    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
-             desc, count, twc.data_ptr(), n, r, b, tile.tb, tile.cluster, tile.threads,
-             tile.shift, int(backward), re.device.index or 0, _pk._stream(re))
-    _build.check(lib, err, f"ksplit2 kernel (N={n}, (m, r)=({m}, {r}), B={b}, "
-                           f"tb={tile.tb}, cluster={tile.cluster})")
+    with _profiling.span("launch", "cfft_ksplit2_tmajor"):
+        lib, fn = _pk._kernel("pf_ksplit2_tmajor", f"ksplit2_r{r}")
+        tw, desc, count = _pk._core_tables(tuple(mplan.stages), re.device)
+        twc = _pk._core_tables((last,), re.device)[0]
+        err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
+                 desc, count, twc.data_ptr(), n, r, b, tile.tb, tile.cluster, tile.threads,
+                 tile.shift, int(backward), re.device.index or 0, _pk._stream(re))
+        _build.check(lib, err, f"ksplit2 kernel (N={n}, (m, r)=({m}, {r}), B={b}, "
+                               f"tb={tile.tb}, cluster={tile.cluster})")
     cfft_ksplit2_tmajor.launches += 1
     return ore, oim
 
@@ -583,6 +585,7 @@ def _choose(plan: _plan.Plan, batch: int, time_major: bool, device,
     raise ValueError(f"no engine runs plan {plan} (time_major={time_major})")
 
 
+@_profiling.decision
 def select_engine(plan: _plan.Plan, batch: int, time_major: bool = True,
                   device=None) -> str:
     avail = available_engines(plan, batch, time_major, device)
@@ -811,6 +814,7 @@ def record_conv_route(cap: Tuple[int, int], nfft: int, route: str) -> None:
     _CONV_TABLE[(tuple(cap), int(nfft))] = route
 
 
+@_profiling.decision
 def conv_route_mode(nfft: int, force: Optional[str] = None,
                     device=None) -> Optional[str]:
     """'fused' | 'tmajor' | None: which block pipeline FastConv runs at
@@ -842,6 +846,7 @@ def conv_route_mode(nfft: int, force: Optional[str] = None,
     return "tmajor" if tmajor_ok else None
 
 
+@_profiling.decision
 def conv_kernel_choice(nfft: int, cols: int,
                        device=None) -> Optional[Tuple[_plan.Plan, _pk.ChainCoreTile]]:
     """(chain plan, column launch shape) of the fused spectral-conv kernel

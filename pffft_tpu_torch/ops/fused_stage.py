@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import plan as _plan
+from ..utils import profiling as _profiling
 from . import _build
 from . import pallas_fft as _pk
 
@@ -145,15 +146,16 @@ def cfft_fused2(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
-    # the identity map n1 = N, n2 = 1 stores canonical order
-    n1, n2 = (n, 1) if ordered else _factors(plan)
-    lib, fn = _pk._kernel("pf_fused2")
-    tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, re.device)
-    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
-             desc, count, n, b, t.rows, t.threads, t.elems, t.pitch, t.shift, n1, n2,
-             int(ordered), int(backward), re.device.index or 0, _pk._stream(re))
-    _build.check(lib, err, f"fused two-stage kernel (N={n}, B={b}, rows={t.rows}, "
-                           f"threads={t.threads})")
+    with _profiling.span("launch", "cfft_fused2"):
+        # the identity map n1 = N, n2 = 1 stores canonical order
+        n1, n2 = (n, 1) if ordered else _factors(plan)
+        lib, fn = _pk._kernel("pf_fused2")
+        tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, re.device)
+        err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(),
+                 desc, count, n, b, t.rows, t.threads, t.elems, t.pitch, t.shift, n1, n2,
+                 int(ordered), int(backward), re.device.index or 0, _pk._stream(re))
+        _build.check(lib, err, f"fused two-stage kernel (N={n}, B={b}, rows={t.rows}, "
+                               f"threads={t.threads})")
     cfft_fused2.launches += 1
     return ore, oim
 

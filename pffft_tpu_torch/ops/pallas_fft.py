@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import plan as _plan
+from ..utils import profiling as _profiling
 from . import _build
 from . import split as _split
 
@@ -700,13 +701,14 @@ def cfft_chain_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
-    lib, fn = _kernel("pf_chain_tmajor")
-    tw, desc, count = _core_tables(thin_plan(n).stages, re.device)
-    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-             tw.data_ptr(), desc, count, n, b, t.tb, t.threads, t.elems, t.shift,
-             int(backward), re.device.index or 0, _stream(re))
-    _build.check(lib, err, f"chain kernel (N={n}, B={b}, tb={t.tb}, threads={t.threads}, "
-                           f"elems={t.elems})")
+    with _profiling.span("launch", "cfft_chain_tmajor"):
+        lib, fn = _kernel("pf_chain_tmajor")
+        tw, desc, count = _core_tables(thin_plan(n).stages, re.device)
+        err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+                 tw.data_ptr(), desc, count, n, b, t.tb, t.threads, t.elems, t.shift,
+                 int(backward), re.device.index or 0, _stream(re))
+        _build.check(lib, err, f"chain kernel (N={n}, B={b}, tb={t.tb}, threads={t.threads}, "
+                               f"elems={t.elems})")
     cfft_chain_tmajor.launches += 1
     return ore, oim
 
@@ -748,12 +750,13 @@ def cfft_combine_tmajor(last_stage, re: torch.Tensor, im: torch.Tensor, *,
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return ore, oim
-    lib, fn = _kernel("pf_combine_tmajor")
-    tw = _chain_tables((last_stage,), re.device)[0]
-    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-             tw.data_ptr(), m, r, b, int(backward), re.device.index or 0,
-             _stream(re))
-    _build.check(lib, err, f"combine kernel (m={m}, r={r}, B={b})")
+    with _profiling.span("launch", "cfft_combine_tmajor"):
+        lib, fn = _kernel("pf_combine_tmajor")
+        tw = _chain_tables((last_stage,), re.device)[0]
+        err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+                 tw.data_ptr(), m, r, b, int(backward), re.device.index or 0,
+                 _stream(re))
+        _build.check(lib, err, f"combine kernel (m={m}, r={r}, B={b})")
     cfft_combine_tmajor.launches += 1
     return ore, oim
 
@@ -771,10 +774,11 @@ def stream_copy(re: torch.Tensor, im: torch.Tensor):
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if re.numel() == 0:
         return ore, oim
-    lib, fn = _kernel("pf_stream_copy")
-    err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-             re.numel(), re.device.index or 0, _stream(re))
-    _build.check(lib, err, f"copy kernel ({re.numel()} elements)")
+    with _profiling.span("launch", "stream_copy"):
+        lib, fn = _kernel("pf_stream_copy")
+        err = fn(re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+                 re.numel(), re.device.index or 0, _stream(re))
+        _build.check(lib, err, f"copy kernel ({re.numel()} elements)")
     stream_copy.launches += 1
     return ore, oim
 
@@ -807,12 +811,13 @@ def cfft_chain_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *, slabs: int = 
     oim = torch.empty_like(ore)
     if b == 0:
         return ore, oim
-    lib, fn = _kernel("pf_chain_tmajor_packed")
-    tw, desc, count = _core_tables(thin_plan(n).stages, y.device)
-    err = fn(y.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(), desc, count,
-             n, b, slabs, t.tb, t.threads, t.elems, t.shift, y.device.index or 0, _stream(y))
-    _build.check(lib, err, f"packed chain kernel (N={n}, B={b}, slabs={slabs}, tb={t.tb}, "
-                           f"threads={t.threads}, elems={t.elems})")
+    with _profiling.span("launch", "cfft_chain_tmajor_packed"):
+        lib, fn = _kernel("pf_chain_tmajor_packed")
+        tw, desc, count = _core_tables(thin_plan(n).stages, y.device)
+        err = fn(y.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(), desc, count,
+                 n, b, slabs, t.tb, t.threads, t.elems, t.shift, y.device.index or 0, _stream(y))
+        _build.check(lib, err, f"packed chain kernel (N={n}, B={b}, slabs={slabs}, tb={t.tb}, "
+                               f"threads={t.threads}, elems={t.elems})")
     cfft_chain_tmajor_packed.launches += 1
     return ore, oim
 
@@ -844,13 +849,14 @@ def rfft_chain_tmajor_fused(plan: _plan.Plan, y: torch.Tensor, real_twiddle, *,
     oim = torch.empty_like(ore)
     if b == 0:
         return ore, oim
-    lib, fn = _kernel("pf_rfft_tmajor_fused_fwd")
-    tw, desc, count = _core_tables(thin_plan(h).stages, y.device)
-    err = fn(y.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(), wr.data_ptr(),
-             wi.data_ptr(), desc, count, h, b, t.tb, t.threads, t.elems, t.shift,
-             y.device.index or 0, _stream(y))
-    _build.check(lib, err, f"fused real forward kernel (H={h}, B={b}, tb={t.tb}, "
-                           f"threads={t.threads}, elems={t.elems})")
+    with _profiling.span("launch", "rfft_chain_tmajor_fused"):
+        lib, fn = _kernel("pf_rfft_tmajor_fused_fwd")
+        tw, desc, count = _core_tables(thin_plan(h).stages, y.device)
+        err = fn(y.data_ptr(), ore.data_ptr(), oim.data_ptr(), tw.data_ptr(), wr.data_ptr(),
+                 wi.data_ptr(), desc, count, h, b, t.tb, t.threads, t.elems, t.shift,
+                 y.device.index or 0, _stream(y))
+        _build.check(lib, err, f"fused real forward kernel (H={h}, B={b}, tb={t.tb}, "
+                               f"threads={t.threads}, elems={t.elems})")
     rfft_chain_tmajor_fused.launches += 1
     return ore, oim
 
@@ -879,13 +885,14 @@ def rfft_bwd_chain_tmajor_fused(plan: _plan.Plan, sr: torch.Tensor, si: torch.Te
     out = torch.empty((2 * h, b), dtype=sr.dtype, device=sr.device)
     if b == 0:
         return out
-    lib, fn = _kernel("pf_rfft_tmajor_fused_bwd")
-    tw, desc, count = _core_tables(thin_plan(h).stages, sr.device)
-    err = fn(sr.data_ptr(), si.data_ptr(), out.data_ptr(), tw.data_ptr(), wr.data_ptr(),
-             wi.data_ptr(), desc, count, h, b, t.tb, t.threads, t.elems, t.shift,
-             sr.device.index or 0, _stream(sr))
-    _build.check(lib, err, f"fused real backward kernel (H={h}, B={b}, tb={t.tb}, "
-                           f"threads={t.threads}, elems={t.elems})")
+    with _profiling.span("launch", "rfft_bwd_chain_tmajor_fused"):
+        lib, fn = _kernel("pf_rfft_tmajor_fused_bwd")
+        tw, desc, count = _core_tables(thin_plan(h).stages, sr.device)
+        err = fn(sr.data_ptr(), si.data_ptr(), out.data_ptr(), tw.data_ptr(), wr.data_ptr(),
+                 wi.data_ptr(), desc, count, h, b, t.tb, t.threads, t.elems, t.shift,
+                 sr.device.index or 0, _stream(sr))
+        _build.check(lib, err, f"fused real backward kernel (H={h}, B={b}, tb={t.tb}, "
+                               f"threads={t.threads}, elems={t.elems})")
     rfft_bwd_chain_tmajor_fused.launches += 1
     return out
 
@@ -924,10 +931,11 @@ def real_split_tmajor(zr: torch.Tensor, zi: torch.Tensor, real_twiddle, *,
     ore, oim = torch.empty_like(zr), torch.empty_like(zi)
     if b == 0 or h == 0:
         return ore, oim
-    lib, fn = _kernel("pf_real_split_tmajor")
-    err = fn(zr.data_ptr(), zi.data_ptr(), ore.data_ptr(), oim.data_ptr(), wr.data_ptr(),
-             wi.data_ptr(), h, b, int(backward), zr.device.index or 0, _stream(zr))
-    _build.check(lib, err, f"real split kernel (H={h}, B={b}, backward={backward})")
+    with _profiling.span("launch", "real_split_tmajor"):
+        lib, fn = _kernel("pf_real_split_tmajor")
+        err = fn(zr.data_ptr(), zi.data_ptr(), ore.data_ptr(), oim.data_ptr(), wr.data_ptr(),
+                 wi.data_ptr(), h, b, int(backward), zr.device.index or 0, _stream(zr))
+        _build.check(lib, err, f"real split kernel (H={h}, B={b}, backward={backward})")
     real_split_tmajor.launches += 1
     return ore, oim
 

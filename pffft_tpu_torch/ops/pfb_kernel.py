@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling as _profiling
 from . import _build
 from . import _grad
 from . import pallas_fft as _pk
@@ -147,7 +148,8 @@ def _pfb_fir(rows: torch.Tensor, weights: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty((*lead, k, m), dtype=rows.dtype, device=rows.device)
     if r == 0:
         return out
-    _launch(rows, weights, out, k, r, q)
+    with _profiling.span("launch", "pfb_fir"):
+        _launch(rows, weights, out, k, r, q)
     pfb_fir.launches += 1
     return out
 
@@ -233,17 +235,19 @@ def _pfb_fir_stream(hist, x, weights: torch.Tensor, k: int, offset: int,
     vi = torch.empty_like(vr)
     if r == 0:
         return vr, vi
-    hr2, hi2, xr2, xi2 = (_rows_2d(t, "stream planes") for t in (hr, hi, xr, xi))
-    if hr2.stride(0) != hi2.stride(0) or xr2.stride(0) != xi2.stride(0):
-        hr2, hi2, xr2, xi2 = (t.contiguous() for t in (hr2, hi2, xr2, xi2))
-    warps = warps or STREAM_WARPS
-    lib, fn = _pk._kernel("pf_pfb_stream")
-    err = fn(hr2.data_ptr(), xr2.data_ptr(), vr.data_ptr(), hi2.data_ptr(), xi2.data_ptr(),
-             vi.data_ptr(), weights.data_ptr(), p, k, m, r, p * m,
-             hr2.stride(0) if r > 1 else p * m, length, xr2.stride(0) if r > 1 else length,
-             offset, warps, xr.device.index or 0, _pk._stream(xr))
-    _build.check(lib, err, f"polyphase FIR kernel, stream map (P={p}, K={k}, M={m}, rows={r}, "
-                           f"offset={offset}, warps={warps})")
+    with _profiling.span("launch", "pfb_fir_stream_tmajor"):
+        hr2, hi2, xr2, xi2 = (_rows_2d(t, "stream planes") for t in (hr, hi, xr, xi))
+        if hr2.stride(0) != hi2.stride(0) or xr2.stride(0) != xi2.stride(0):
+            hr2, hi2, xr2, xi2 = (_profiling.contiguous(t, "stream_rows")
+                                  for t in (hr2, hi2, xr2, xi2))
+        warps = warps or STREAM_WARPS
+        lib, fn = _pk._kernel("pf_pfb_stream")
+        err = fn(hr2.data_ptr(), xr2.data_ptr(), vr.data_ptr(), hi2.data_ptr(), xi2.data_ptr(),
+                 vi.data_ptr(), weights.data_ptr(), p, k, m, r, p * m,
+                 hr2.stride(0) if r > 1 else p * m, length, xr2.stride(0) if r > 1 else length,
+                 offset, warps, xr.device.index or 0, _pk._stream(xr))
+        _build.check(lib, err, f"polyphase FIR kernel, stream map (P={p}, K={k}, M={m}, rows={r}, "
+                               f"offset={offset}, warps={warps})")
     pfb_fir_stream_tmajor.launches += 1
     return vr, vi
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling as _profiling
 from . import _build
 from . import pallas_fft as _pk
 from . import split as _split
@@ -55,11 +56,12 @@ def real_split(zr: torch.Tensor, zi: torch.Tensor, real_twiddle, *,
     ore, oim = torch.empty_like(zr), torch.empty_like(zi)
     if b == 0 or h == 0:
         return ore, oim
-    lib, fn = _pk._kernel("pf_real_split_bmajor")
-    err = fn(zr.data_ptr(), zi.data_ptr(), ore.data_ptr(), oim.data_ptr(), wr.data_ptr(),
-             wi.data_ptr(), h, b, int(backward), zr.device.index or 0, _pk._stream(zr))
-    _build.check(lib, err, f"batch-major real split kernel (H={h}, B={b}, "
-                           f"backward={backward})")
+    with _profiling.span("launch", "real_split"):
+        lib, fn = _pk._kernel("pf_real_split_bmajor")
+        err = fn(zr.data_ptr(), zi.data_ptr(), ore.data_ptr(), oim.data_ptr(), wr.data_ptr(),
+                 wi.data_ptr(), h, b, int(backward), zr.device.index or 0, _pk._stream(zr))
+        _build.check(lib, err, f"batch-major real split kernel (H={h}, B={b}, "
+                               f"backward={backward})")
     real_split.launches += 1
     return ore, oim
 

@@ -11,21 +11,184 @@ results (bench/unix_info.sh).  The equivalents here:
     lscpu/cpuinfo analog);
   * :class:`Roofline` — bytes/flops accounting against a peak bandwidth
     (the instructions/IPC analog for a bandwidth-bound library).
+
+The package's own spans and counters (beyond the reference's names):
+
+  * :func:`span` — a range named ``pffft.<layer>`` on the profiler's clock
+    and the caller's thread, in the same trace as the kernels; with no
+    profiler running it costs one check.  The layers: ``entry`` (a public
+    call, :func:`entry`), ``dispatch`` (a route or engine decision,
+    :func:`decision`), ``launch`` (a hand kernel wrapper's card path past
+    its empty-batch return: tables, the ctypes call and its check; one span
+    per launch) and ``layout`` (a layout copy outside a hand kernel,
+    :func:`copy`);
+  * :data:`counters` — always on: ``entry.calls.<entry>``,
+    ``entry.copy_bytes`` (bytes written by the entries' layout copies) and
+    ``setup.seconds.<part>`` (the package's import, library loads, plans
+    and filter spectra, each part's own time without the parts nested in
+    it, :func:`setup`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import platform
-from typing import Optional
+import threading
+import time
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity
 
 __all__ = ["trace", "device_info", "Roofline"]
+
+counters: dict = {}
+_counters_lock = threading.Lock()
+_COPY_BYTES = "entry.copy_bytes"
+
+_NULL = contextlib.nullcontext()
+# a torch without the check: every span opens a range (correct, only slower)
+_profiler_on = getattr(torch._C._autograd, "_profiler_enabled", lambda: True)
+
+
+def _range(name: str, args: dict):
+    """A profiler range ``name`` with ``args``: record_function's range
+    entered from C++ where this torch has it (under a profiler that records
+    the device alone it records nothing and costs under a microsecond, where
+    record_function costs several; torch tells no caller which activities
+    the running profiler records), else ``record_function``."""
+
+    fast = getattr(getattr(torch._C, "_profiler", None), "_RecordFunctionFast", None)
+    if fast is not None:
+        try:
+            return fast(name, (), args)
+        except TypeError:
+            pass
+    return torch.profiler.record_function(name, repr(args))
+
+
+def count(key: str, n=1):
+    """Add ``n`` to ``counters[key]`` and return the sum; a lock keeps the
+    updates of concurrent callers."""
+
+    with _counters_lock:
+        counters[key] = total = counters.get(key, 0) + n
+    return total
+
+
+def span(layer: str, what: str):
+    """Context manager: the range ``pffft.<layer>`` while a profiler runs,
+    with ``what`` in its args (the trace shows them where the profiler
+    records shapes), else a shared no-op."""
+
+    if not _profiler_on():
+        return _NULL
+    return _range(f"pffft.{layer}", {"what": what})
+
+
+def entry(name: str) -> Callable:
+    """Decorator of a public entry: counts its calls in
+    ``entry.calls.<name>`` and spans each in ``pffft.entry``, the call's
+    number in its args."""
+
+    key = f"entry.calls.{name}"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*a, **k):
+            with _counters_lock:
+                counters[key] = n = counters.get(key, 0) + 1
+            if not _profiler_on():
+                return fn(*a, **k)
+            with _range("pffft.entry", {"what": name, "call": n}):
+                return fn(*a, **k)
+
+        return call
+
+    return wrap
+
+
+def decision(fn: Callable) -> Callable:
+    """Decorator of a route or engine decision: spans it in
+    ``pffft.dispatch``, its name in the args."""
+
+    args = {"what": fn.__name__}
+
+    @functools.wraps(fn)
+    def call(*a, **k):
+        if not _profiler_on():
+            return fn(*a, **k)
+        with _range("pffft.dispatch", args):
+            return fn(*a, **k)
+
+    return call
+
+
+class _Flag(threading.local):
+    on = False
+
+
+_uncounted = _Flag()
+
+
+def copy(what: str, op: Callable, *a, **k) -> torch.Tensor:
+    """``op(*a, **k)``, a layout copy: spanned in ``pffft.layout`` and its
+    bytes added to ``entry.copy_bytes`` (not inside :func:`uncounted`)."""
+
+    if not _profiler_on():
+        t = op(*a, **k)
+    else:
+        with _range("pffft.layout", {"what": what}):
+            t = op(*a, **k)
+    if not _uncounted.on:
+        with _counters_lock:
+            counters[_COPY_BYTES] = counters.get(_COPY_BYTES, 0) + t.nbytes
+    return t
+
+
+def contiguous(t: torch.Tensor, what: str) -> torch.Tensor:
+    """``t.contiguous()``, a layout copy (:func:`copy`) where it copies."""
+
+    return t if t.is_contiguous() else copy(what, torch.Tensor.contiguous, t)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Copies made inside are not the entries' layout copies: a kernel's
+    plain version stands for the kernel's own work."""
+
+    before = _uncounted.on
+    _uncounted.on = True
+    try:
+        yield
+    finally:
+        _uncounted.on = before
+
+
+_setup = threading.local()
+
+
+@contextlib.contextmanager
+def setup(part: str, start: Optional[float] = None):
+    """Time a piece of set-up into ``setup.seconds.<part>``: its own time
+    (from ``start`` on the ``perf_counter`` clock, default now), less the
+    time of set-up parts nested in it, so that the parts add up to the
+    outermost ones' wall time."""
+
+    t0 = time.perf_counter() if start is None else start
+    stack = _setup.__dict__.setdefault("nested", [])
+    stack.append(0.0)
+    try:
+        yield
+    finally:
+        took = time.perf_counter() - t0
+        count(f"setup.seconds.{part}", took - stack.pop())
+        if stack:
+            stack[-1] += took
 
 
 @contextlib.contextmanager

@@ -1277,6 +1277,72 @@ def test_profiling_on_the_card(cuda_device, tmp_path):
     assert any("chain_kernel" in e.key for e in prof.key_averages())
 
 
+def _launch_total() -> int:
+    """Every kernel wrapper's ``.launches``, summed."""
+
+    import sys
+
+    return sum(obj.launches for name, mod in list(sys.modules.items())
+               if name.startswith("pffft_tpu_torch.ops.") and mod is not None
+               for obj in vars(mod).values()
+               if callable(obj) and isinstance(getattr(obj, "launches", None), int)
+               and getattr(obj, "__module__", None) == name)
+
+
+def _fir_chunk(taps, dev):
+    fc = pt.FastConv(np.hanning(taps), device=dev)
+    x = torch.randn(16, 1 << 16, device=dev)[:, 5:]
+    return lambda: fc.apply_batched(x, flush=False)
+
+
+def _chan_chunk(dev):
+    ch = pt.Channelizer(4096, 8, device=dev)
+    st = ch.init_state((4,))
+    xr, xi = torch.randn(2, 4, 32 * 4096, device=dev).unbind(0)
+    return lambda: ch.process_split(st, xr, xi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["fir_taps1024", "chan_bulk", "fir_taps4096"])
+def test_launch_spans_hold_their_launches(cuda_device, tmp_path, cell):
+    """One chunk of each benchmark entry under ``utils.profiling.trace``: one
+    ``pffft.launch`` span a launch the wrappers count, each inside the
+    chunk's ``pffft.entry`` and around its own launch call on the CUDA
+    runtime, on the profiler's one clock."""
+
+    import json
+
+    from pffft_tpu_torch.utils import profiling as P
+
+    chunk = {"fir_taps1024": lambda: _fir_chunk(1024, cuda_device),
+             "chan_bulk": lambda: _chan_chunk(cuda_device),
+             "fir_taps4096": lambda: _fir_chunk(4096, cuda_device)}[cell]()
+    chunk()  # loads and plans outside the trace
+    torch.cuda.synchronize()
+    before = _launch_total()
+    with P.trace(str(tmp_path)):
+        chunk()
+        torch.cuda.synchronize()
+    launched = _launch_total() - before
+    assert launched == {"fir_taps1024": 1, "chan_bulk": 3, "fir_taps4096": 4}[cell]
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    spans = [e for e in events if e["name"] == "pffft.launch"]
+    (entry,) = [e for e in events if e["name"] == "pffft.entry"]
+    calls = [e for e in events if str(e.get("cat")).startswith("cuda_")
+             and "LaunchKernel" in e["name"]]
+    assert len(spans) == launched
+
+    def inside(e, outer):
+        return (outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
+                and e["tid"] == outer["tid"])
+
+    for s in spans:
+        assert inside(s, entry)
+        assert len([c for c in calls if inside(c, s)]) == 1, s
+
+
 # ---------------------------------------------------------------------------
 # Gradients through the kernels: the backward of each autograd Function
 # against torch autograd through the plain versions (KERNEL_TOL) and, for
