@@ -710,8 +710,9 @@ def phase_kernels(gen):
     xs = torch.randn((CONV_ROWS, CONV_LEN), generator=gen, device="cuda")
     for taps in CONV_TAPS:
         fc = C.FastConv(pt.design_lowpass(taps, 0.1))
-        if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+        if D.conv_route_mode(fc.nfft, None, dev, stream=True) == "fused":
             stream_case(fc.nfft, fc.num_out_per_block, xs, CONV_LEN - taps + 1, False)
+        if D.conv_route_mode(fc.nfft, None, dev) == "fused":
             conv_case(fc.nfft, conv_columns(fc, CONV_ROWS, CONV_LEN), False)
     del xs
     # the stream map's flag runs: a complex stream (complex filter), rows
@@ -763,8 +764,9 @@ def phase_kernels(gen):
     # rows of both planes padded to K + 2P - 2 frames (the channelizer step
     # and the oversampled step)
     fc = C.FastConv(pt.design_lowpass(GRAD_CONV_TAPS[0], 0.1))
-    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+    if D.conv_route_mode(fc.nfft, None, dev, stream=True) == "fused":
         adjoint_stream_case(fc, CONV_ROWS, CONV_LEN - fc.filter_len + 1, False)
+    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
         frames = (GRAD_PUSH - fc.nfft) // fc.num_out_per_block + 1
         conv_case(fc.nfft, -(-(-(-frames // 2)) // 4) * 4, False, conj=True)
     fc = CH.DDCChain(DDC_RATE, pt.design_lowpass(DDC_TAPS[0], 0.5 / DDC_DECIM), DDC_DECIM).conv
@@ -840,7 +842,7 @@ def phase_kernels(gen):
     # batch-major (B9 and B6, both directions as istft runs them)
     for taps in DDC_TAPS:
         fc = CH.DDCChain(DDC_RATE, pt.design_lowpass(taps, 0.5 / DDC_DECIM), DDC_DECIM).conv
-        if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+        if D.conv_route_mode(fc.nfft, None, dev, stream=True) == "fused":
             xs = torch.randn((2, DDC_N + taps - 1), generator=gen, device="cuda")
             stream_case(fc.nfft, fc.num_out_per_block, xs, DDC_N, False)
             del xs
@@ -882,7 +884,7 @@ def phase_kernels(gen):
         if D.select_engine(plan, row_b, False, dev) == "fused2":
             fused2_case(plan, row_n, row_b, (True,))
     fc = C.FastConv(pt.design_lowpass(SHARDED_CONV_TAPS, 0.1))
-    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+    if D.conv_route_mode(fc.nfft, None, dev, stream=True) == "fused":
         xs = torch.randn((CONV_ROWS, CONV_LEN + fc.filter_len - 1), generator=gen,
                          device="cuda")
         stream_case(fc.nfft, fc.num_out_per_block, xs, CONV_LEN, False)
@@ -895,16 +897,17 @@ def phase_kernels(gen):
     # FastConv's vmap(grad) rows [4V, 2^20] both ways, StreamingConv's
     # frames of V streams as columns, DDCChain's [I; Q] rows of V streams
     fc = C.FastConv(pt.design_lowpass(VMAP_CONV_TAPS[0], 0.1))
-    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+    if D.conv_route_mode(fc.nfft, None, dev, stream=True) == "fused":
         xs = torch.randn((CONV_ROWS, VMAP_GRAD_LEN), generator=gen, device="cuda")
         out_len = VMAP_GRAD_LEN - fc.filter_len + 1
         stream_case(fc.nfft, fc.num_out_per_block, xs, out_len, False)
         adjoint_stream_case(fc, CONV_ROWS, out_len, False)
         del xs
+    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
         frames = (VMAP_CONV_LEN - fc.nfft) // fc.num_out_per_block + 1
         conv_case(fc.nfft, VMAP_V * (-(-(-(-frames // 2)) // 4) * 4), False)
     fc = CH.DDCChain(DDC_RATE, pt.design_lowpass(DDC_TAPS[0], 0.5 / DDC_DECIM), DDC_DECIM).conv
-    if D.conv_route_mode(fc.nfft, None, dev) == "fused":
+    if D.conv_route_mode(fc.nfft, None, dev, stream=True) == "fused":
         xs = torch.randn((2 * VMAP_V, VMAP_DSP_N + fc.filter_len - 1), generator=gen,
                          device="cuda")
         stream_case(fc.nfft, fc.num_out_per_block, xs, VMAP_DSP_N, False)
@@ -1661,7 +1664,7 @@ def conv_oracle(x: torch.Tensor, h: np.ndarray, correlation: bool = False) -> to
 
 
 # launches of one apply_batched call per route (the fused route is the
-# kernel's stream map; the composed route's nfft = 4096 and 8192 ride kern2
+# kernel's stream map, nfft <= 16384; the composed route past it rides kern2
 # in both directions)
 CONV_ROUTE_LAUNCHES = {"fused": {"zconv_stream": 1},
                        "tmajor": {"cfft_chain_tmajor": 2, "cfft_combine_tmajor": 2}}
@@ -1676,7 +1679,7 @@ def phase_fastconv(gen):
     runs = []
 
     def run(name, fc, x, sample_rows):
-        route = D.conv_route_mode(fc.nfft, None, dev)
+        route = fc._route(dev, stream=True)
         c0 = counts()
         y = fc.apply_batched(x, flush=True)
         torch.cuda.synchronize()
@@ -1701,6 +1704,12 @@ def phase_fastconv(gen):
         name = f"real_f{taps}"
         fc_taps[name] = pt.design_lowpass(taps, 0.1)
         run(name, C.FastConv(fc_taps[name]), x, (0, CONV_ROWS - 1))
+    # the composed route, forced at the longest taps: kern2 both ways
+    name = f"real_f{CONV_TAPS[-1]}_tmajor"
+    fc_taps[name] = fc_taps[f"real_f{CONV_TAPS[-1]}"]
+    fc = C.FastConv(fc_taps[name])
+    fc._force_conv_kernel = "tmajor"
+    run(name, fc, x, (0, CONV_ROWS - 1))
     xc = torch.complex(*planes(FLAG_ROWS, FLAG_LEN, gen))
     h = pt.design_lowpass(FLAG_TAPS, 0.1)
     for name, flags in (("cplx_inp_out", C.ConvFlags.CPLX_INP_OUT),
@@ -1901,7 +1910,7 @@ def phase_fir_timing(gen, conv_runs, chan_runs):
                "route": route, "ms": ms, "msamples_per_s": samples / ms / 1e3,
                "bound_ms": bnd[0], "bound_by": bnd[1], "frac_bound": bnd[0] / ms,
                "plain_ms": plain, "launches_per_call": per_call}
-        if route == "fused":
+        if route == "fused" and D.conv_kernel_choice(n, cols, dev) is not None:
             # the stream map against the composition it replaced, in this run:
             # framing into column planes, the column map, unpacking
             cplan = D.conv_kernel_choice(n, cols, dev)[0]
@@ -2419,7 +2428,7 @@ def phase_dsp(gen):
         want_launches = {"zconv_stream": 1} if dtype == "float32" else {}
         rec = {"phase": "dsp", "call": "ddc_chain", "taps": taps, "decim": DDC_DECIM,
                "dtype": dtype, "nfft": ddc.conv.nfft, "chunks": chunks, "chunk": DDC_N,
-               "route": ddc.conv._route(torch.device(DEV)), "oracle_rel_err": err,
+               "route": ddc.conv._route(torch.device(DEV), stream=True), "oracle_rel_err": err,
                "launches_per_chunk": deltas}
         check(y.shape == (ref_n // DDC_DECIM,) and y.dtype == want_dtype,
               f"DDCChain {taps} {dtype}: output {tuple(y.shape)} {y.dtype}")
@@ -3999,12 +4008,12 @@ def phase_grad(gen, smi: str):
         _grad.needed(x, x)
     emit({"phase": "host", "grad": False, "needed_check_us": (time.perf_counter() - t0) * 10})
 
-    # FastConv on the [16, 2^22] stream: B7's stream map at F = 1024, the
-    # "tmajor" route (kern2 both ways) at F = 4096
+    # FastConv on the [16, 2^22] stream: B7's stream map at F = 1024 and
+    # 4096 (nfft 2048 and 8192)
     x = torch.randn((CONV_ROWS, CONV_LEN), generator=gen, device=DEV)
     for taps in GRAD_CONV_TAPS:
         fc = C.FastConv(pt.design_lowpass(taps, 0.1), device=DEV)
-        route = D.conv_route_mode(fc.nfft, None, dev)
+        route = D.conv_route_mode(fc.nfft, None, dev, stream=True)
         want = ("zconv_stream",) if route == "fused" else ("cfft_chain_tmajor",
                                                           "cfft_combine_tmajor")
         frames = 2 * conv_columns(fc, CONV_ROWS, CONV_LEN)
@@ -4187,7 +4196,7 @@ def phase_vmap(gen):
         fc = C.FastConv(pt.design_lowpass(taps, 0.1))
         case("fastconv", fc.apply_batched, (x,), (0,),
              lambda _fc=fc: _fc.apply_batched(x.view(v * rows, -1)), taps=taps,
-             route=D.conv_route_mode(fc.nfft, None, torch.device(DEV)),
+             route=D.conv_route_mode(fc.nfft, None, torch.device(DEV), stream=True),
              shape=list(x.shape))
     del x
     # StreamingConv's block step over V streams' frames (B7's column map);

@@ -371,7 +371,7 @@ class DDCChain:
     the reference APIs carry: the NCO phase and the last filterLen-1 mixed
     samples.  The lowpass convolves I and Q as the two real rows of one
     ``FastConv._conv_stream`` call (one launch of the conv kernel's stream
-    map where nfft <= 2048); with dtype="float64" the conv runs in float64
+    map where nfft <= 16384); with dtype="float64" the conv runs in float64
     on the "tmajor" route (the mixer stays the float32 NCO, as in the
     reference).
     """

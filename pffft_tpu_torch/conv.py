@@ -21,13 +21,15 @@ so one complex transform carries two real frames (re = even frame, im =
 odd frame), or the I and Q frames of one complex frame; a complex filter's
 transform holds one complex frame.  The route is
 ``ops/dispatch.conv_route_mode``'s: ``"fused"``, one launch of the fused
-spectral-conv kernel's stream map (``csrc/conv_fused.cu``), which frames
-the streams, convolves and keeps the valid samples in the kernel, or
-``"tmajor"``, the same pipeline composed of copies (frames into time-major
-columns [Nfft, C], the routed forward transform, a multiply by Hf, the
-routed backward transform, the valid samples back out;
-``ops/conv_kernel.stream_conv``).  ``apply_batched`` serves every row in
-one call.
+spectral-conv kernel's stream map (``csrc/conv_fused.cu``; nfft up to
+16384), which frames the streams, convolves and keeps the valid samples in
+the kernel, or ``"tmajor"``, the same pipeline composed of copies (frames
+into time-major columns [Nfft, C], the block convolution, the valid
+samples back out; ``ops/conv_kernel.stream_conv``).  The column pipeline
+(:meth:`FastConv._block_conv`, which StreamingConv runs on its frames)
+routes on its own: the kernel's column map up to nfft 2048, else the
+routed forward transform, a multiply by Hf and the routed backward
+transform.  ``apply_batched`` serves every row in one call.
 
 numpy input goes to the setup's ``device`` (default "cuda"); tensors stay
 where they are.  A float64 setup computes in float64 and complex128 and
@@ -214,12 +216,13 @@ class FastConv:
             self._hf_adjoint[device] = adj
         return adj
 
-    def _route(self, device: torch.device) -> str:
+    def _route(self, device: torch.device, stream: bool = False) -> str:
         """The block pipeline of ``dispatch.conv_route_mode`` ("tmajor" for
-        float64)."""
+        float64) for the stream map (``stream``) or the column map."""
 
         mode = ("tmajor" if self.dtype == np.float64
-                else _dispatch.conv_route_mode(self.nfft, self._force_conv_kernel, device))
+                else _dispatch.conv_route_mode(self.nfft, self._force_conv_kernel, device,
+                                               stream=stream))
         if mode is None:
             raise ValueError(f"no conv route runs nfft={self.nfft}")
         return mode
@@ -255,12 +258,12 @@ class FastConv:
         transforms."""
 
         u = self.num_out_per_block
-        if self._route(x.device) == "fused":
-            cplan = _dispatch.conv_kernel_choice(self.nfft, 1, x.device)[0]
+        if self._route(x.device, stream=True) == "fused":
             hfr, hfi = self._spectrum(x.device)
             adjoint = self._adjoint(x.device) if _grad.needed(x) else None
-            return _ck.zconv_stream(cplan, _profiling.contiguous(x, "contiguous"), hfr, hfi, u,
-                                    total, adjoint)
+            return _ck.zconv_stream(_dispatch._thin_plan(self.nfft),
+                                    _profiling.contiguous(x, "contiguous"), hfr, hfi, u, total,
+                                    adjoint)
         return _ck.stream_conv(self._block_conv, x, self.nfft, u, total)
 
     # ------------------------------------------------------------------

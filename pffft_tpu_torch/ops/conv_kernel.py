@@ -14,9 +14,10 @@ scales.
     shape of :func:`column_tile`;
   * :func:`zconv_stream`, the stream map: FastConv's streams [R, L] framed
     at stride u inside the kernel, the first u outputs of each frame stored
-    straight into [R, total]; it replaces the framing and unpacking copies
-    around the column map (:func:`stream_conv` composes those, and is the
-    stream map's plain version with the column map's plain version inside).
+    straight into [R, total], for frames up to 16384 (:func:`stream_tile`);
+    it replaces the framing and unpacking copies around the column map
+    (:func:`stream_conv` composes those, and is the stream map's plain
+    version with the column map's plain version inside).
 
 For a REAL filter Hf is Hermitian, so a lane holding two real frames
 (re = a, im = b) comes back as (h*a) + i(h*b): two real convolutions per
@@ -259,12 +260,26 @@ def zconv_stream_plain(plan: _plan.Plan, x, hfr, hfi, u: int, total: int):
                            plan.engine_n, u, total)
 
 
+# Where the stream map's one-row block differs from B9's: n -> (threads,
+# values a thread).  At n = 8192, 512 x 16 (one block an SM) ran 4.2 - 4.7%
+# faster than B9's 256 x 32 on the H100; at 4096 and 16384 B9's shape was
+# the fastest the core takes.
+_STREAM_ROW = {8192: (512, 16)}
+
+
 def stream_tile(n: int, device: Optional[torch.device] = None) -> Optional[_fs.Fused2Tile]:
     """The stream map's launch shape for frames of length n: B9's rows
-    (``fused_stage.fused2_tile``), one frame (or frame pair) per row, or
-    None past B9's longest row."""
+    (``fused_stage.fused2_tile``), one frame (or frame pair) per row, with
+    :data:`_STREAM_ROW`'s threads and values a thread; None past B9's
+    longest row."""
 
-    return _fs.fused2_tile(n, device)
+    t = _fs.fused2_tile(n, device)
+    shape = _STREAM_ROW.get(n)
+    if t is None or shape is None:
+        return t
+    threads, elems = shape
+    return t._replace(threads=threads, elems=elems,
+                      blocks_per_sm=_pk.core_blocks_per_sm(threads, t.smem))
 
 
 def zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torch.Tensor,

@@ -63,10 +63,11 @@ The engine picks the real route (the routes below):
 
 FastConv's overlap-save block pipeline has routes of its own
 (:func:`conv_route_mode`): ``"fused"``, the spectral-conv kernel
-(``csrc/conv_fused.cu``) where the chain's tile holds nfft, else
-``"tmajor"``, the routed forward transform, a multiply by the filter
-spectrum and the routed backward transform.  Its measured table,
-keyed by (compute capability, nfft), starts empty too.
+(``csrc/conv_fused.cu``) where the map it launches holds nfft (the stream
+map's rows up to 16384, the column map's tile, the chain's, up to 2048),
+else ``"tmajor"``, the routed forward transform, a multiply by the filter
+spectrum and the routed backward transform.  Its measured table, keyed by
+(compute capability, nfft), starts empty too.
 """
 
 from __future__ import annotations
@@ -815,35 +816,43 @@ def record_conv_route(cap: Tuple[int, int], nfft: int, route: str) -> None:
 
 
 @_profiling.decision
-def conv_route_mode(nfft: int, force: Optional[str] = None,
-                    device=None) -> Optional[str]:
+def conv_route_mode(nfft: int, force: Optional[str] = None, device=None,
+                    stream: bool = False) -> Optional[str]:
     """'fused' | 'tmajor' | None: which block pipeline FastConv runs at
     this block length.
 
-    ``force`` ('fused' or 'tmajor') overrides the rest; a forced 'fused'
-    where the kernel's tile cannot hold nfft raises ValueError.  Else an
-    engine forced with :func:`set_engine` other than the chain keeps the
-    fused kernel (which runs the chain) out; else the measured table; else
-    coverage: 'fused' where the chain's tile holds nfft, 'tmajor' where
-    some engine runs it, None otherwise."""
+    ``stream`` names the map the fused route launches: the stream map
+    (``conv_kernel.zconv_stream``, FastConv's streams), whose rows
+    (``conv_kernel.stream_tile``) hold nfft up to 16384, else the column
+    map (``conv_kernel.zconv_tmajor``, the column pipeline), whose tile is
+    the chain's (:func:`conv_kernel_choice`, nfft up to 2048).
 
-    fused_ok = conv_kernel_choice(nfft, 1, device) is not None
+    ``force`` ('fused' or 'tmajor') overrides the rest; a forced 'fused'
+    where that map cannot hold nfft raises ValueError.  Else an engine
+    forced with :func:`set_engine` other than the chain keeps the fused
+    kernel (which runs the chain) out; else the measured table; else
+    coverage: 'fused' where the map holds nfft, 'tmajor' where some engine
+    runs it, None otherwise."""
+
+    if stream:
+        fused_ok = _ck.stream_tile(nfft, device) is not None
+    else:
+        fused_ok = conv_kernel_choice(nfft, 1, device) is not None
     if force is not None:
         if force not in CONV_ROUTES:
             raise ValueError(f"unknown conv route {force!r}; expected one of {CONV_ROUTES}")
         if force == "fused" and not fused_ok:
-            raise ValueError(f"the fused conv kernel's tile cannot hold nfft={nfft}")
+            raise ValueError(f"the fused conv kernel's {'stream' if stream else 'column'} "
+                             f"map cannot hold nfft={nfft}")
         return force
-    plan = _plan.new_setup(nfft, _plan.COMPLEX, strict=False)
-    tmajor_ok = bool(available_engines(plan, 1, True, device))
     if _FORCED not in (None, "chain"):
         fused_ok = False
-    measured = _CONV_TABLE.get((capability(device), int(nfft)))
-    if measured == "fused" and fused_ok or measured == "tmajor" and tmajor_ok:
-        return measured
-    if fused_ok:
+    if fused_ok and _CONV_TABLE.get((capability(device), int(nfft))) != "tmajor":
         return "fused"
-    return "tmajor" if tmajor_ok else None
+    plan = _plan.new_setup(nfft, _plan.COMPLEX, strict=False)
+    if available_engines(plan, 1, True, device):
+        return "tmajor"
+    return "fused" if fused_ok else None
 
 
 @_profiling.decision

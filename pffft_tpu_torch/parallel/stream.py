@@ -7,7 +7,7 @@ over ranks turns that carried tail into a **halo**: producing the valid
 outputs of shard d requires the first ``filterLen-1`` samples of shard
 d+1.  One send/recv fetches it, and every rank then runs the port's
 batched overlap-save pipeline (``FastConv._conv_stream``: the fused
-conv kernel's stream map at nfft <= 2048) on its own samples and the halo
+conv kernel's stream map at nfft <= 16384) on its own samples and the halo
 — the structure PFFASTCONV uses across *calls*, re-expressed across
 *ranks*.
 """

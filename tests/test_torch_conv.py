@@ -3,8 +3,10 @@ fused spectral-conv kernel's plain version, against pffft_tpu on the same
 numpy inputs; the conv routes and the error messages.
 
 On the CPU the kernel wrapper runs its plain version over the routes the
-card takes ("fused" for nfft <= 2048, "tmajor" above); the reference's
-Pallas kernel runs in interpret mode."""
+card takes (FastConv's streams "fused", the kernel's stream map, for nfft
+<= 16384; the column pipeline, StreamingConv's frames, "fused" for nfft <=
+2048; "tmajor" above); the reference's Pallas kernel runs in interpret
+mode."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from pffft_tpu_torch import conv as tconv
 from pffft_tpu_torch import runtime as truntime
 from pffft_tpu_torch.ops import conv_kernel as tck
 from pffft_tpu_torch.ops import dispatch as D
+from pffft_tpu_torch.ops import fused_stage as tfs
 from pffft_tpu_torch.ops import pallas_fft as tpk
 
 # One intra-op thread: the suite runs in several worker processes.
@@ -227,7 +230,7 @@ def test_block_negotiation(filter_len, block_len, expect_nfft):
 def _routes(fc):
     """The default route, and the other one where the kernel covers nfft."""
 
-    default = D.conv_route_mode(fc.nfft)
+    default = D.conv_route_mode(fc.nfft, stream=True)
     return [None] + (["tmajor"] if default == "fused" else [])
 
 
@@ -266,7 +269,8 @@ def test_apply_batched_matches_reference(name):
 STREAM_RUNS = [("real", 33, 1, 700), ("real", 33, 3, 64 * 31 + 13),
                ("correlation", 40, 3, 1001), ("cplx_inp_out", 33, 1, 777),
                ("cplx_single_fft", 33, 3, 640), ("cplx_filter", 20, 3, 555),
-               ("cplx_filter_correlation", 20, 1, 601)]
+               ("cplx_filter_correlation", 20, 1, 601), ("real", 2100, 3, 9001),
+               ("cplx_single_fft", 1100, 1, 5000)]
 
 
 @pytest.mark.parametrize("name,flen,rows,length", STREAM_RUNS)
@@ -274,7 +278,7 @@ def test_fused_route_stream_map_matches_reference(name, flen, rows, length):
     flags = FLAG_SETS[name]
     h, x = _inputs(flags, flen, length, flen + rows, lead=(rows,))
     fc = tconv.FastConv(h, flags=flags, device=CPU)
-    assert D.conv_route_mode(fc.nfft) == "fused"
+    assert D.conv_route_mode(fc.nfft, stream=True) == "fused"
     want = np.asarray(rconv.FastConv(h, flags=flags).apply_batched(jnp.asarray(x)))
     got = fc.apply_batched(x)
     assert got.shape == want.shape and got.shape[-1] == length - flen + 1
@@ -333,6 +337,34 @@ def test_streaming_conv_matches_reference(flen, block_len):
     assert b.shape == a.shape
     if a.size:
         assert _rel(b, a) <= TOL
+
+
+@pytest.mark.parametrize("flen", [1100, 2100])  # nfft 4096, 8192
+def test_column_pipeline_composes_past_the_chain(flen, monkeypatch):
+    """Past the chain's nfft 2048 the column pipeline (StreamingConv's
+    frames, ``FastConv._block_conv``) takes the composed route and no kernel
+    map, matching the reference, while FastConv's streams at the same nfft
+    take the stream map."""
+
+    seen = []
+    for name in ("zconv_tmajor", "zconv_stream"):
+        real = getattr(tck, name)
+        monkeypatch.setattr(tck, name, lambda *a, _f=real, _n=name, **k: seen.append(_n) or
+                            _f(*a, **k))
+    rng = np.random.default_rng(flen)
+    h = rng.standard_normal(flen).astype(np.float32)
+    x = rng.standard_normal(5 * flen + 3001).astype(np.float32)
+    got = tconv.StreamingConv(h, device=CPU)
+    nfft = got.setup.nfft
+    assert D.conv_route_mode(nfft) == "tmajor" and D.conv_kernel_choice(nfft, 1) is None
+    ref = rconv.StreamingConv(h)
+    a = np.concatenate([ref.push(x[:4000]), ref.push(x[4000:]), ref.flush()])
+    b = np.concatenate([got.push(x[:4000]), got.push(x[4000:]), got.flush()])
+    assert b.shape == a.shape and _rel(b, a) <= TOL
+    assert seen == []
+    want = np.asarray(rconv.FastConv(h).apply_batched(jnp.asarray(x[None])))
+    y = got.setup.apply_batched(x[None])
+    assert seen == ["zconv_stream"] and _rel(y.numpy(), want) <= TOL
 
 
 def test_stream_framer_matches_reference():
@@ -394,10 +426,22 @@ def clean_conv_state():
     D.set_engine(None)
 
 
+# the stream map's route (FastConv's streams): B9's rows, nfft <= 16384
+STREAM_ROUTE = {32: "fused", 128: "fused", 2048: "fused", 4096: "fused", 8192: "fused",
+                16384: "fused", 32768: "tmajor"}
+
+
+# route: the column pipeline's (the chain's coverage, nfft <= 2048)
 @pytest.mark.parametrize("nfft,route", [(32, "fused"), (128, "fused"), (2048, "fused"),
-                                        (4096, "tmajor"), (8192, "tmajor"), (32768, "tmajor")])
+                                        (4096, "tmajor"), (8192, "tmajor"), (16384, "tmajor"),
+                                        (32768, "tmajor")])
 def test_conv_route_follows_coverage(nfft, route):
     assert D.conv_route_mode(nfft) == route
+    assert D.conv_route_mode(nfft, stream=True) == STREAM_ROUTE[nfft]
+    tile = tck.stream_tile(nfft)
+    assert (tile is not None) == (STREAM_ROUTE[nfft] == "fused")
+    if tile is not None:
+        assert tile.threads * tile.elems >= tile.rows * nfft  # whole rows a block
     choice = D.conv_kernel_choice(nfft, 10)
     if route == "fused":
         plan, tile = choice
@@ -410,6 +454,20 @@ def test_conv_route_follows_coverage(nfft, route):
     assert D.conv_kernel_choice(nfft, 0) is None
 
 
+def test_stream_tile_is_b9_rows_but_at_8192():
+    """The stream map launches B9's rows, except one row of 512 threads x 16
+    values at nfft 8192 (the faster shape on the H100); nfft <= 2048 keeps
+    B9's shape exactly."""
+
+    for n in (32, 64, 480, 2048, 4096, 16384):
+        assert tck.stream_tile(n) == tfs.fused2_tile(n)
+    t, b9 = tck.stream_tile(8192), tfs.fused2_tile(8192)
+    assert (t.rows, t.threads, t.elems, t.blocks_per_sm) == (1, 512, 16, 1)
+    assert (b9.threads, b9.elems) == (256, 32)
+    assert t._replace(threads=256, elems=32, blocks_per_sm=b9.blocks_per_sm) == b9
+    assert tck.stream_tile(32768) is None
+
+
 def test_conv_route_table_force_and_engine(clean_conv_state):
     assert D._CONV_TABLE == {}  # filled only from measurements on the card
     D.record_conv_route((9, 0), 128, "tmajor")
@@ -417,15 +475,23 @@ def test_conv_route_table_force_and_engine(clean_conv_state):
     assert D.conv_route_mode(128, "fused") == "fused"
     D.record_conv_route((9, 0), 8192, "fused")  # not covered: coverage wins
     assert D.conv_route_mode(8192) == "tmajor"
+    assert D.conv_route_mode(8192, stream=True) == "fused"  # the stream map covers it
+    D.record_conv_route((9, 0), 8192, "tmajor")  # the table wins over the stream map too
+    assert D.conv_route_mode(8192, stream=True) == "tmajor"
+    assert D.conv_route_mode(8192, "fused", stream=True) == "fused"
     D.set_engine("stages")  # an engine other than the chain keeps the kernel out
     assert D.conv_route_mode(256) == "tmajor"
+    assert D.conv_route_mode(4096, stream=True) == "tmajor"
     D.set_engine(None)
     with pytest.raises(ValueError, match="unknown conv route"):
         D.record_conv_route((9, 0), 128, "xla")
     with pytest.raises(ValueError, match="unknown conv route"):
         D.conv_route_mode(128, "pallas")
-    with pytest.raises(ValueError, match="cannot hold nfft=4096"):
+    with pytest.raises(ValueError, match="column map cannot hold nfft=4096"):
         D.conv_route_mode(4096, "fused")
+    assert D.conv_route_mode(4096, "fused", stream=True) == "fused"
+    with pytest.raises(ValueError, match="stream map cannot hold nfft=32768"):
+        D.conv_route_mode(32768, "fused", stream=True)
 
 
 def test_fastconv_errors():
@@ -438,10 +504,14 @@ def test_fastconv_errors():
         fc.apply(np.zeros(64, np.complex64))
     with pytest.raises(ValueError, match="apply_batched"):
         fc.apply(np.zeros((2, 64), np.float32))
-    with pytest.raises(ValueError, match="cannot hold"):
-        big = tconv.FastConv(np.ones(4096), device=CPU)
+    with pytest.raises(ValueError, match="cannot hold nfft=32768"):
+        big = tconv.FastConv(np.ones(16385), device=CPU)  # nfft 32768: past the stream map
         big._force_conv_kernel = "fused"
-        big.apply(np.zeros(9000, np.float32), flush=True)
+        big.apply(np.zeros(40000, np.float32), flush=True)
+    with pytest.raises(ValueError, match="column map cannot hold nfft=8192"):
+        frames = tconv.StreamingConv(np.ones(4096), device=CPU)
+        frames.setup._force_conv_kernel = "fused"
+        frames.push(np.zeros(9000, np.float32))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tconv.FastConv(np.ones(8)).apply(np.zeros(64, np.float32))

@@ -364,11 +364,13 @@ def test_conv_kernel_matches_plain(cuda_device, n, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,u", [(64, 33), (128, 65), (480, 200), (2048, 1025)])
+@pytest.mark.parametrize("n,u", [(64, 33), (128, 65), (480, 200), (2048, 1025), (4096, 2049),
+                                 (8192, 4097), (16384, 8193)])
 @pytest.mark.parametrize("cplx", [False, True])
 def test_stream_conv_kernel_matches_plain(cuda_device, n, u, cplx):
     """B7's stream map against its plain version: rows that start
-    unaligned (odd L), a ragged tail, R = 1 and 3, real and complex."""
+    unaligned (odd L), a ragged tail, R = 1 and 3, real and complex, at
+    every row length of its planner up to nfft 16384."""
 
     rng = np.random.default_rng(n + u + cplx)
     plan = D._thin_plan(n)
@@ -484,7 +486,7 @@ def test_fir_kernels_reject_bad_arguments(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("flen", [16, 1024, 4096])
+@pytest.mark.parametrize("flen", [16, 1024, 4096, 16385])
 @pytest.mark.parametrize("flags", [tc.ConvFlags.NONE, tc.ConvFlags.CORRELATION,
                                    tc.ConvFlags.CPLX_INP_OUT,
                                    tc.ConvFlags.CPLX_INP_OUT | tc.ConvFlags.CPLX_SINGLE_FFT,
@@ -499,8 +501,8 @@ def test_fastconv_on_the_card_matches_oracle(cuda_device, flen, flags):
     if cplx:
         x = x + 1j * rng.standard_normal(x.shape)
     fc = tc.FastConv(h, flags=flags)
-    route = "fused" if fc.nfft <= 2048 else "tmajor"  # CPLX_SINGLE_FFT doubles nfft
-    assert D.conv_route_mode(fc.nfft, None, cuda_device) == route
+    route = "fused" if fc.nfft <= 16384 else "tmajor"  # CPLX_SINGLE_FFT doubles nfft
+    assert D.conv_route_mode(fc.nfft, None, cuda_device, stream=True) == route
     xt = torch.from_numpy(x.astype(np.complex64 if cplx else np.float32)).to(cuda_device)
     before = ck.zconv_stream.launches
     y = fc.apply_batched(xt)
@@ -1324,7 +1326,7 @@ def test_launch_spans_hold_their_launches(cuda_device, tmp_path, cell):
         chunk()
         torch.cuda.synchronize()
     launched = _launch_total() - before
-    assert launched == {"fir_taps1024": 1, "chan_bulk": 3, "fir_taps4096": 4}[cell]
+    assert launched == {"fir_taps1024": 1, "chan_bulk": 3, "fir_taps4096": 1}[cell]
     (path,) = tmp_path.glob("*.pt.trace.json")
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("ph") == "X" and "dur" in e]
@@ -1477,19 +1479,22 @@ def test_real_transform_gradient_on_the_card(cuda_device, monkeypatch, n, b, tim
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("taps,flags,want", [
-    (64, tc.ConvFlags.NONE, ("zconv_stream",)),
-    (40, tc.ConvFlags.CPLX_INP_OUT | tc.ConvFlags.CPLX_FILTER, ("zconv_stream",)),
-    (1100, tc.ConvFlags.NONE, ("cfft_chain_tmajor", "cfft_combine_tmajor"))])
-def test_fastconv_gradient_on_the_card(cuda_device, monkeypatch, taps, flags, want):
+@pytest.mark.parametrize("taps,flags,force,want", [
+    (64, tc.ConvFlags.NONE, None, ("zconv_stream",)),
+    (40, tc.ConvFlags.CPLX_INP_OUT | tc.ConvFlags.CPLX_FILTER, None, ("zconv_stream",)),
+    (4096, tc.ConvFlags.NONE, None, ("zconv_stream",)),
+    (1100, tc.ConvFlags.NONE, "tmajor", ("cfft_chain_tmajor", "cfft_combine_tmajor"))])
+def test_fastconv_gradient_on_the_card(cuda_device, monkeypatch, taps, flags, force, want):
     """B7's stream map (the reversed, conjugated taps' spectrum over the
-    padded gradient) and the "tmajor" route past nfft 2048."""
+    padded gradient) up to nfft 16384, and the "tmajor" route forced past
+    nfft 2048."""
 
     rng = np.random.default_rng(taps)
     h = rng.standard_normal(taps)
     if flags & tc.ConvFlags.CPLX_FILTER:
         h = h + 1j * rng.standard_normal(taps)
     fc = tc.FastConv(h, flags=flags)
+    fc._force_conv_kernel = force
     xr, xi = _planes(3, 20001, taps, cuda_device)
     if flags & tc.ConvFlags.CPLX_INP_OUT:
         fn = lambda a, c: (torch.view_as_real(fc.apply_batched(torch.complex(a, c))),)

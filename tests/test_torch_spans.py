@@ -207,11 +207,14 @@ def _chan_short_step():
 
 
 def _fir_tmajor():
-    # nfft 8192: the "tmajor" route frames 2 rows of 40000 at u = 4097 into
-    # 8 blocks (4 column pairs a row, 8 columns of 8192), then keeps 4097
-    # samples of each of the 8 frames of each row
+    # nfft 8192 on the "tmajor" route (forced: the stream map holds nfft
+    # 8192): it frames 2 rows of 40000 at u = 4097 into 8 blocks (4 column
+    # pairs a row, 8 columns of 8192), then keeps 4097 samples of each of
+    # the 8 frames of each row
     x = _streams(2, 40000)
-    return _fir(4096).apply_batched, x, 2 * 8192 * 8 * 4 + 2 * 8 * 4097 * 4
+    fc = _fir(4096)
+    fc._force_conv_kernel = "tmajor"
+    return fc.apply_batched, x, 2 * 8192 * 8 * 4 + 2 * 8 * 4097 * 4
 
 
 COPIES = {"fir-strided": _fir_strided, "fir-contiguous": _fir_contiguous,
