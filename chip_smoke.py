@@ -29,7 +29,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      128 and 2048, the composed kern2 route at 8192), CPLX_INP_OUT, CPLX_SINGLE_FFT and
      CORRELATION runs, each against a complex128 FFT convolution on
      sampled channels, and a ``StreamingConv`` run in odd-sized chunks
-     against the one-shot output; launch counts per route;
+     against the one-shot output; launch counts per route; the stream
+     map on [16, 2^22] sliced from a ring buffer's rows at F = 1024 and
+     4096, read in place and bit-equal to the contiguous call, both timed;
   7. the polyphase channelizer at (M, P, batch, frames) = (4096, 8, 4,
      1024) and (1024, 8, 16, 1024) (64 MB per plane): ``process_split``
      and ``process_split_tmajor`` over two steps with the state carried,
@@ -213,6 +215,7 @@ from pffft_tpu_torch.ops import pallas_fft as pk
 from pffft_tpu_torch.ops import pfb_kernel as pfb
 from pffft_tpu_torch.ops import real_kernel as rk
 from pffft_tpu_torch.ops import split as S
+from pffft_tpu_torch.utils import profiling as P
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
@@ -237,6 +240,9 @@ FUSED2_PLANS = ((1024, 32), (1536, 48), (2400, 64), (4096, 64))
 # FastConv: a 16-channel real stream of 2^22 samples (256 MB), filtered by
 # design_lowpass(F, 0.1) at F = 64, 1024 and 4096 (nfft 128, 2048, 8192)
 CONV_ROWS, CONV_LEN, CONV_TAPS = 16, 1 << 22, (64, 1024, 4096)
+# the benchmark's chunk: [16, 2^22] at an odd column offset of a ring
+# buffer [16, 2^24 + 2^22 + 8192], read in place, at F = 1024 and 4096
+RING_LEN, RING_OFFSET, RING_TAPS = (1 << 24) + (1 << 22) + 8192, 1001, (1024, 4096)
 # the flag runs: [4, 2^20] complex64 streams at F = 1024
 FLAG_ROWS, FLAG_LEN, FLAG_TAPS = 4, 1 << 20, 1024
 # the channelizer: (M, P, batch, frames per step), 64 MB per plane per step
@@ -1737,9 +1743,36 @@ def phase_fastconv(gen):
           "chunks": len(outs) - 1, "out": int(got.size), "rel_err_vs_one_shot": serr})
     check(got.shape == want.shape and serr <= KERNEL_TOL,
           f"StreamingConv: {got.shape} vs {want.shape}, rel err {serr}")
+    fastconv_ring_view(gen)
     launches = counts()
     emit({"phase": "fastconv", "launches": launches})
     return launches, runs
+
+
+def fastconv_ring_view(gen) -> None:
+    """The stream map on a slice of a ring buffer's rows, as a streaming
+    caller hands it: read in place (no layout copy, one strided read), bit
+    for bit the call on the same rows made contiguous; both timed."""
+
+    ring = torch.randn((CONV_ROWS, RING_LEN), generator=gen, device="cuda")
+    x = ring[:, RING_OFFSET:RING_OFFSET + CONV_LEN]
+    xc = x.contiguous()
+    keys = ("entry.copy_bytes", P.STRIDED_READS)
+    for taps in RING_TAPS:
+        fc = C.FastConv(pt.design_lowpass(taps, 0.1))
+        before = [P.counters.get(k, 0) for k in keys]
+        y = fc.apply_batched(x, flush=False)
+        moved = [P.counters.get(k, 0) - b for k, b in zip(keys, before)]
+        same = bool(torch.equal(y, fc.apply_batched(xc, flush=False)))
+        emit({"phase": "fastconv", "run": "ring_view", "taps": taps, "nfft": fc.nfft,
+              "shape": list(x.shape), "row_stride": x.stride(0), "bitwise_equal": same,
+              "copy_bytes": moved[0], "strided_reads": moved[1],
+              "strided_ms": time_ms(lambda: fc.apply_batched(x, flush=False), inner=2),
+              "contiguous_ms": time_ms(lambda: fc.apply_batched(xc, flush=False), inner=2)})
+        check(same and moved == [0, 1],
+              f"FastConv ring view at F = {taps}: equal {same}, (copy bytes, strided reads) "
+              f"{moved}, expected (0, 1)")
+    del ring, x, xc
 
 
 def pfb_oracle(x: torch.Tensor, weights: np.ndarray, offset: int = 0) -> torch.Tensor:

@@ -253,17 +253,17 @@ class FastConv:
     def _conv_stream(self, x: torch.Tensor, total: int) -> torch.Tensor:
         """Valid-mode overlap-save conv of streams [R, L] -> [R, total]:
         real streams two frames per transform, complex streams one.  The
-        "fused" route is one launch of the kernel's stream map; "tmajor"
-        composes the framing and unpacking copies around the routed
-        transforms."""
+        "fused" route is one launch of the kernel's stream map, on the
+        caller's rows where it reads them in place (:func:`_stream_rows`);
+        "tmajor" composes the framing and unpacking copies around the
+        routed transforms."""
 
         u = self.num_out_per_block
         if self._route(x.device, stream=True) == "fused":
             hfr, hfi = self._spectrum(x.device)
             adjoint = self._adjoint(x.device) if _grad.needed(x) else None
-            return _ck.zconv_stream(_dispatch._thin_plan(self.nfft),
-                                    _profiling.contiguous(x, "contiguous"), hfr, hfi, u, total,
-                                    adjoint)
+            return _ck.zconv_stream(_dispatch._thin_plan(self.nfft), _stream_rows(x), hfr, hfi,
+                                    u, total, adjoint)
         return _ck.stream_conv(self._block_conv, x, self.nfft, u, total)
 
     # ------------------------------------------------------------------
@@ -386,6 +386,19 @@ def fastconv_valid(x, h, flags: ConvFlags = ConvFlags.NONE, device="cuda") -> to
     if isinstance(x, torch.Tensor):
         device = x.device
     return FastConv(h, flags=flags, device=device).apply_batched(x, flush=True)
+
+
+def _stream_rows(x: torch.Tensor) -> torch.Tensor:
+    """Streams [R, L] as the stream map takes them: on the card the caller's
+    rows themselves where the kernel reads them in place
+    (``conv_kernel.stream_rows``: unit inner stride, rows at least L apart,
+    as a slice of a ring buffer's rows), else a counted layout copy.  On the
+    CPU always a contiguous tensor: the plain version stands for the
+    kernel's arithmetic, not its reads."""
+
+    if x.device.type == "cuda" and _ck.stream_rows(x) is not None:
+        return x
+    return _profiling.contiguous(x, "contiguous")
 
 
 class StreamingConv:

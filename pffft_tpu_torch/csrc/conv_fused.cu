@@ -19,9 +19,11 @@
 //
 //   columns  time-major planes [N, B], one block per tb columns
 //            (ColLanes, as B1): zconv_tmajor, the reference's layout;
-//   stream   the frames of FastConv's streams [R, L] read in place
-//            (RowLanes, as B9: neighbouring threads on neighbouring
-//            samples): lane j of row r is frame j at stride u, x[r, j*u + t],
+//   stream   the frames of FastConv's streams [R, L] read in place, rows
+//            ld >= L samples apart (a slice of wider rows, such as a ring
+//            buffer's, is read where it lies; RowLanes, as B9: neighbouring
+//            threads on neighbouring samples): lane j of row r is frame j
+//            at stride u, x[r, j*u + t],
 //            or, with a real filter on a real stream (PAIRS), frames 2j and
 //            2j + 1 as the lane's re and im.  Samples past L read as zero
 //            (the reference's tail memset); the store keeps t < u of each
@@ -100,8 +102,9 @@ conv_cols_kernel(const float* __restrict__ re, const float* __restrict__ im,
               hfr, hfi);
 }
 
-// The stream map.  x is row r of the input (len samples; PAIRS: real, else
-// interleaved complex), lane f of the block is lane lane0 + f of the row.
+// The stream map.  x is row r of the input (len samples, of which none past
+// len is read; PAIRS: real, else interleaved complex), lane f of the block is
+// lane lane0 + f of the row.
 template <bool PAIRS>
 struct StreamIn {
   const float* x;
@@ -160,13 +163,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 conv_stream_kernel(const float* __restrict__ x, float* __restrict__ y,
                    const float* __restrict__ hfr, const float* __restrict__ hfi,
                    const float2* __restrict__ tw, const __grid_constant__ pf::rf::Plan plan,
-                   int len, int total, int u, int lanes, int bpr, int rows, int pitch,
-                   int shift) {
+                   int len, int ld, int total, int u, int lanes, int bpr, int rows,
+                   int pitch, int shift) {
   extern __shared__ __align__(16) float2 tile[];  // [rows, pitch]
   const int r = blockIdx.x / bpr;
   const int lane0 = (blockIdx.x - r * bpr) * rows;
   constexpr int kParts = PAIRS ? 1 : 2;  // floats a sample
-  const StreamIn<PAIRS> src{x + static_cast<size_t>(r) * len * kParts, len, u, lane0, lanes};
+  const StreamIn<PAIRS> src{x + static_cast<size_t>(r) * ld * kParts, len, u, lane0, lanes};
   const StreamOut<PAIRS> dst{y + static_cast<size_t>(r) * total * kParts, total, u, lane0,
                              lanes};
   convolve<E>(plan, tw, pf::rf::RowLanes{}, rows, src, LanesSmem{tile, pitch, shift}, dst,
@@ -220,10 +223,11 @@ int pf_conv_fused_tmajor(const float* re, const float* im, float* ore, float* oi
   return cudaGetLastError();
 }
 
-// Block convolution of the frames of `nrows` streams x [nrows, len] at
-// stride u into y [nrows, total]: frame j of a row is x[j*u : j*u + n]
-// (zero past len), and its first u outputs land at y[j*u : j*u + u] (only
-// positions < total are written).  pairs = 1: real streams, two frames a
+// Block convolution of the frames of `nrows` streams x [nrows, len], rows
+// ld >= len samples apart, at stride u into y [nrows, total]: frame j of a
+// row is x[j*u : j*u + n] (zero past len: nothing between a row's end and
+// the next row is read), and its first u outputs land at y[j*u : j*u + u]
+// (only positions < total are written).  pairs = 1: real streams, two frames a
 // lane (real filter); pairs = 0: interleaved complex streams, one frame a
 // lane.  lanes is the lanes of a row (pairs: ceil(frames / 2)).  The
 // launch shape (rows lanes per block, threads, elems, pitch, shift) is the
@@ -232,9 +236,9 @@ int pf_conv_fused_tmajor(const float* re, const float* im, float* ore, float* oi
 // cover cudaErrorInvalidConfiguration.
 int pf_conv_stream(const float* x, float* y, const float* hfr, const float* hfi,
                    const float* tw, const int* desc, int n_stages, int n, int nrows, int len,
-                   int total, int u, int lanes, int pairs, int rows, int threads, int elems,
-                   int pitch, int shift, int device, void* stream) {
-  if (n < 1 || nrows < 1 || len < 0 || total < 1 || u < 1 || u > n || lanes < 1 ||
+                   int ld, int total, int u, int lanes, int pairs, int rows, int threads,
+                   int elems, int pitch, int shift, int device, void* stream) {
+  if (n < 1 || nrows < 1 || len < 0 || ld < len || total < 1 || u < 1 || u > n || lanes < 1 ||
       rows < 1 || threads < 32 || threads % 32 || shift < 1 ||
       (elems != 16 && elems != 32) || pitch < pf::rf::pad(n - 1, shift) + 1 ||
       static_cast<long long>(lanes) * u * (pairs ? 2 : 1) < total ||
@@ -263,7 +267,7 @@ int pf_conv_stream(const float* x, float* y, const float* hfr, const float* hfi,
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(bpr * nrows), threads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      x, y, hfr, hfi, reinterpret_cast<const float2*>(tw), plan, len, total, u, lanes,
+      x, y, hfr, hfi, reinterpret_cast<const float2*>(tw), plan, len, ld, total, u, lanes,
       static_cast<int>(bpr), rows, pitch, shift);
   return cudaGetLastError();
 }

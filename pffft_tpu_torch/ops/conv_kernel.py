@@ -15,6 +15,8 @@ scales.
   * :func:`zconv_stream`, the stream map: FastConv's streams [R, L] framed
     at stride u inside the kernel, the first u outputs of each frame stored
     straight into [R, total], for frames up to 16384 (:func:`stream_tile`);
+    rows that are a slice of wider rows are read where they lie
+    (:func:`stream_rows`);
     it replaces the framing and unpacking copies around the column map
     (:func:`stream_conv` composes those, and is the stream map's plain
     version with the column map's plain version inside).
@@ -49,8 +51,8 @@ from . import fused_stage as _fs
 from . import pallas_fft as _pk
 
 __all__ = ["filter_spectrum", "zconv_tmajor", "zconv_tmajor_plain", "zconv_stream",
-           "zconv_stream_plain", "stream_conv", "column_tile", "stream_tile", "frames",
-           "columns", "keep", "unpack_pairs"]
+           "zconv_stream_plain", "stream_conv", "column_tile", "stream_tile", "stream_rows",
+           "frames", "columns", "keep", "unpack_pairs"]
 
 # Values a thread holds per stage in both maps.  The two chains of one
 # kernel ran faster at 16 than at B1's 32 (chip_smoke.py's conv_sweep line).
@@ -282,6 +284,28 @@ def stream_tile(n: int, device: Optional[torch.device] = None) -> Optional[_fs.F
                       blocks_per_sm=_pk.core_blocks_per_sm(threads, t.smem))
 
 
+_INT_MAX = 0x7FFFFFFF  # the kernel's row stride is a C int
+
+
+def stream_rows(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """x [..., L] as the rows [R, L] the stream map reads where they lie:
+    unit inner stride, rows at least L samples apart (a slice of wider rows
+    keeps its row stride), the leading dims collapsed without a copy; None
+    where only a copy gives such rows."""
+
+    if x.ndim != 2:
+        try:
+            x = x.view(-1, x.shape[-1])
+        except RuntimeError:
+            return None
+    rows, length = x.shape
+    if length > 1 and x.stride(1) != 1:
+        return None
+    if rows > 1 and not length <= x.stride(0) <= _INT_MAX:
+        return None
+    return x
+
+
 def zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torch.Tensor,
                  u: int, total: int, adjoint: Optional[Tuple[torch.Tensor, torch.Tensor,
                                                               int]] = None):
@@ -291,8 +315,10 @@ def zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torc
     at positions j*u .. j*u + u - 1 of the output row [R, total].
 
     Real float32 x: a real filter, two frames per lane, real output.
-    complex64 x: one frame per lane, complex64 output.  The inputs are not
-    modified.
+    complex64 x: one frame per lane, complex64 output.  On the card x's
+    rows are read where they lie (:func:`stream_rows`: unit inner stride,
+    rows at least L apart); the memory between one row's end and the next
+    row is never read.  The inputs are not modified.
 
     A gradient with respect to x (:class:`_ZconvStream`) needs ``adjoint``
     = (hfr', hfi', span): the spectrum of the filter's taps reversed (and
@@ -319,13 +345,15 @@ def _zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: tor
     if x.device.type == "cpu":
         return zconv_stream_plain(plan, x, hfr, hfi, u, total)
     pairs = not x.is_complex()
-    if x.dtype not in (torch.float32, torch.complex64) or not x.is_contiguous():
-        raise ValueError("streams must be contiguous float32 or complex64 tensors")
+    if x.dtype not in (torch.float32, torch.complex64) or stream_rows(x) is None:
+        raise ValueError("streams must be float32 or complex64 rows with unit inner stride, "
+                         "at least L samples apart")
     _pk._check_cuda(hfr, hfi)
     t = stream_tile(n, x.device)
     if t is None:
         raise ValueError(f"N={n} exceeds the stream conv kernel's rows")
     rows, length = int(x.shape[0]), int(x.shape[1])
+    ld = int(x.stride(0)) if rows > 1 else length  # in samples: complex strides count pairs
     y = torch.empty((rows, total), dtype=x.dtype, device=x.device)
     if rows == 0 or total == 0:
         return y
@@ -337,11 +365,13 @@ def _zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: tor
         lib, fn = _pk._kernel("pf_conv_stream")
         tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, x.device)
         err = fn(xv.data_ptr(), yv.data_ptr(), hfr.data_ptr(), hfi.data_ptr(), tw.data_ptr(),
-                 desc, count, n, rows, length, total, u, lanes, int(pairs), t.rows, t.threads,
-                 t.elems, t.pitch, t.shift, x.device.index or 0, _pk._stream(x))
-        _build.check(lib, err, f"stream conv kernel (N={n}, R={rows}, L={length}, u={u}, "
-                               f"total={total})")
+                 desc, count, n, rows, length, ld, total, u, lanes, int(pairs), t.rows,
+                 t.threads, t.elems, t.pitch, t.shift, x.device.index or 0, _pk._stream(x))
+        _build.check(lib, err, f"stream conv kernel (N={n}, R={rows}, L={length}, ld={ld}, "
+                               f"u={u}, total={total})")
     zconv_stream.launches += 1
+    if ld != length:
+        _profiling.count(_profiling.STRIDED_READS)
     return y
 
 

@@ -554,7 +554,7 @@ _SIGNATURES = {
                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # ops/conv_kernel.zconv_tmajor / zconv_stream, ops/pfb_kernel.pfb_fir / pfb_fir_stream_tmajor
     "pf_conv_fused_tmajor": ("conv_fused", [_P] * 8 + [_I] * 8 + [_P]),
-    "pf_conv_stream": ("conv_fused", [_P] * 6 + [_I] * 14 + [_P]),
+    "pf_conv_stream": ("conv_fused", [_P] * 6 + [_I] * 15 + [_P]),
     "pf_pfb_fir": ("pfb_fir", [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _P]),
     "pf_pfb_stream": ("pfb_fir", [_P] * 7 + [_I] * 5 + [ctypes.c_longlong] * 3
                       + [_I] * 3 + [_P]),

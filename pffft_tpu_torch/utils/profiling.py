@@ -23,10 +23,12 @@ The package's own spans and counters (beyond the reference's names):
     per launch) and ``layout`` (a layout copy outside a hand kernel,
     :func:`copy`);
   * :data:`counters` — always on: ``entry.calls.<entry>``,
-    ``entry.copy_bytes`` (bytes written by the entries' layout copies) and
-    ``setup.seconds.<part>`` (the package's import, library loads, plans
-    and filter spectra, each part's own time without the parts nested in
-    it, :func:`setup`).
+    ``entry.copy_bytes`` (bytes written by the entries' layout copies),
+    ``entry.strided_reads`` (kernel calls that read a caller's rows in
+    place through a row stride other than the row length, with no layout
+    copy) and ``setup.seconds.<part>`` (the
+    package's import, library loads, plans and filter spectra, each part's
+    own time without the parts nested in it, :func:`setup`).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ __all__ = ["trace", "device_info", "Roofline"]
 counters: dict = {}
 _counters_lock = threading.Lock()
 _COPY_BYTES = "entry.copy_bytes"
+STRIDED_READS = "entry.strided_reads"
 
 _NULL = contextlib.nullcontext()
 # a torch without the check: every span opens a range (correct, only slower)

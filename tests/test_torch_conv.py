@@ -21,10 +21,12 @@ from pffft_tpu.ops import pallas_fft as rpk
 import pffft_tpu_torch as pt
 from pffft_tpu_torch import conv as tconv
 from pffft_tpu_torch import runtime as truntime
+from pffft_tpu_torch.ops import _build as tbuild
 from pffft_tpu_torch.ops import conv_kernel as tck
 from pffft_tpu_torch.ops import dispatch as D
 from pffft_tpu_torch.ops import fused_stage as tfs
 from pffft_tpu_torch.ops import pallas_fft as tpk
+from pffft_tpu_torch.utils import profiling as tprof
 
 # One intra-op thread: the suite runs in several worker processes.
 torch.set_num_threads(1)
@@ -204,6 +206,61 @@ def test_stream_map_rejects_bad_arguments():
         tck.zconv_stream(plan, x[0], hf, hf, 40, 100)
     with pytest.raises(ValueError, match="filter spectrum"):
         tck.zconv_stream(plan, x, hf[:32], hf[:32], 40, 100)
+
+
+def _ring(*shape):
+    return torch.arange(float(np.prod(shape))).reshape(shape)
+
+
+# view -> (rows the stream map reads in place [R, L] and their row stride, or
+# None where only a copy gives such rows)
+STREAM_ROW_VIEWS = {
+    "contiguous": (lambda: _ring(3, 40), ((3, 40), 40)),
+    "column_slice": (lambda: _ring(3, 101)[:, 7:47], ((3, 40), 101)),
+    "one_row_slice": (lambda: _ring(1, 101)[:, 7:47], ((1, 40), 101)),
+    "inner_stride_2": (lambda: _ring(3, 80)[:, ::2], None),
+    "overlapping_rows": (lambda: _ring(200).as_strided((3, 40), (20, 1)), None),
+    "collapsible_3d": (lambda: _ring(2, 3, 50)[:, :, 3:43], ((6, 40), 50)),
+    "non_collapsible_3d": (lambda: _ring(2, 4, 40)[:, 1:4], None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_ROW_VIEWS))
+def test_stream_rows_reads_views_in_place(case):
+    """The stream map's rows: a view whose rows it reads where they lie
+    (unit inner stride, rows at least L apart, leading dims that collapse)
+    is taken as it is; any other needs a copy.  On the CPU FastConv's rows
+    helper copies every non-contiguous view and counts it, as before."""
+
+    make, want = STREAM_ROW_VIEWS[case]
+    x = make()
+    rows = tck.stream_rows(x)
+    if want is None:
+        assert rows is None
+    else:
+        assert (tuple(rows.shape), rows.stride(0), rows.stride(1)) == (*want, 1)
+        assert rows.data_ptr() == x.data_ptr()
+        assert torch.equal(rows, x.reshape(rows.shape))
+    if x.ndim == 2:
+        before = tprof.counters.get("entry.copy_bytes", 0)
+        got = tconv._stream_rows(x)
+        assert got.is_contiguous() and torch.equal(got, x)
+        copied = 0 if x.is_contiguous() else x.nbytes
+        assert tprof.counters.get("entry.copy_bytes", 0) - before == copied
+
+
+def test_stream_map_signature_matches_its_source():
+    """pf_conv_stream's ctypes argument types against its C parameters:
+    six pointers, fifteen ints (the row stride ld after len), the stream."""
+
+    src = (tbuild.CSRC / "conv_fused.cu").read_text()
+    params = src.split("int pf_conv_stream(", 1)[1].split(")", 1)[0]
+    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    argtypes = tpk._SIGNATURES["pf_conv_stream"][1]
+    assert len(argtypes) == len(names) == 22
+    assert names[names.index("len") + 1] == "ld"
+    assert [t is tpk._P for t in argtypes] == [
+        n in ("x", "y", "hfr", "hfi", "tw", "desc", "stream") for n in names]
 
 
 # ---------------------------------------------------------------------------

@@ -338,6 +338,7 @@ from pffft_tpu_torch import channelizer as tch  # noqa: E402
 from pffft_tpu_torch import conv as tc  # noqa: E402
 from pffft_tpu_torch.ops import conv_kernel as ck  # noqa: E402
 from pffft_tpu_torch.ops import pfb_kernel as pfb  # noqa: E402
+from pffft_tpu_torch.utils import profiling as prof  # noqa: E402
 
 
 def _spectrum(n, seed, dev, cplx):
@@ -385,6 +386,45 @@ def test_stream_conv_kernel_matches_plain(cuda_device, n, u, cplx):
             got = ck.zconv_stream(plan, xt, hfr, hfi, u, total)
             _hold((got,), (ck.zconv_stream_plain(plan, xt, hfr, hfi, u, total),))
             assert ck.zconv_stream.launches == before + 1
+
+
+def _ring_view(rows, length, offset, seed, dev, cplx=False):
+    """rows x length at column ``offset`` of a wider seeded buffer (a ring
+    buffer's rows), every sample outside the view NaN: a read past a row's
+    end, or of the wrong row, shows in the result."""
+
+    rng = np.random.default_rng(seed)
+    buf = rng.standard_normal((rows, offset + length + 4099))
+    if cplx:
+        buf = buf + 1j * rng.standard_normal(buf.shape)
+    buf[:, :offset] = buf[:, offset + length:] = np.nan
+    t = torch.from_numpy(buf.astype(np.complex64 if cplx else np.float32)).to(dev)
+    return t[:, offset:offset + length]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,u", [(2048, 1025), (8192, 4097), (16384, 8193)])
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("offset", [1, 4097])
+def test_stream_conv_kernel_reads_strided_rows(cuda_device, n, u, cplx, offset):
+    """B7's stream map on rows that are slices of wider rows, read where
+    they lie through the row stride: bit for bit the call on the same rows
+    made contiguous, in one launch, at odd column offsets, R = 1 and 3."""
+
+    plan = D._thin_plan(n)
+    hfr, hfi = _spectrum(n, n + 1, cuda_device, cplx)
+    for rows, length in ((1, 9 * u + n + 3), (3, 20 * u + 7)):
+        x = _ring_view(rows, length, offset, n + rows + offset, cuda_device, cplx)
+        total = length - (n - u) - 5
+        want = ck.zconv_stream(plan, x.contiguous(), hfr, hfi, u, total)
+        before = (ck.zconv_stream.launches, prof.counters.get(prof.STRIDED_READS, 0))
+        got = ck.zconv_stream(plan, x, hfr, hfi, u, total)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert (ck.zconv_stream.launches, prof.counters.get(prof.STRIDED_READS, 0)) == (
+            before[0] + 1, before[1] + (rows > 1))
+    with pytest.raises(ValueError, match="unit inner stride"):
+        ck.zconv_stream(plan, x[:, ::2], hfr, hfi, u, 100)
 
 
 @pytest.mark.cuda
@@ -521,6 +561,35 @@ def test_fastconv_on_the_card_matches_oracle(cuda_device, flen, flags):
         ref = ref.real
     assert 0 < y.shape[-1] <= ref.shape[-1]
     assert _rel(y, ref[..., : y.shape[-1]]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [tc.ConvFlags.NONE, tc.ConvFlags.CPLX_INP_OUT,
+                                   tc.ConvFlags.CPLX_INP_OUT | tc.ConvFlags.CPLX_SINGLE_FFT])
+def test_fastconv_reads_a_strided_view_in_place(cuda_device, flags):
+    """FastConv on a slice of a ring buffer's rows: the stream map reads the
+    caller's rows in place (no layout copy, one strided read); a view with a
+    non-unit inner stride is still copied, and counted."""
+
+    cplx = bool(flags & tc.ConvFlags.CPLX_INP_OUT)
+    fc = tc.FastConv(pt.design_lowpass(1024, 0.1), flags=flags)
+    x = _ring_view(4, 60001, 7, int(flags), cuda_device, cplx)
+    want = fc.apply_batched(x.contiguous(), flush=False)
+    keys = ("entry.copy_bytes", prof.STRIDED_READS)
+    before = [prof.counters.get(k, 0) for k in keys]
+    got = fc.apply_batched(x, flush=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert [prof.counters.get(k, 0) for k in keys] == [before[0], before[1] + 1]
+    x2 = x[:, ::2]
+    want = fc.apply_batched(x2.contiguous(), flush=False)
+    before = [prof.counters.get(k, 0) for k in keys]
+    got = fc.apply_batched(x2, flush=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # the interleaved stream's reshape to [R, 2L] has made its rows already
+    copied = 0 if flags & tc.ConvFlags.CPLX_SINGLE_FFT else x2.nbytes
+    assert [prof.counters.get(k, 0) for k in keys] == [before[0] + copied, before[1]]
 
 
 @pytest.mark.cuda
@@ -1501,6 +1570,19 @@ def test_fastconv_gradient_on_the_card(cuda_device, monkeypatch, taps, flags, fo
         _hold_gradient(fn, (xr, xi), monkeypatch, want)
     else:
         _hold_gradient(lambda a: (fc.apply_batched(a),), (xr,), monkeypatch, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [64, 4096])
+def test_fastconv_gradient_through_a_strided_view(cuda_device, monkeypatch, taps):
+    """The gradient with respect to a slice of wider rows, whose forward the
+    stream map reads in place, against plain autograd."""
+
+    fc = tc.FastConv(np.random.default_rng(taps).standard_normal(taps))
+    x = _planes(3, 30001, taps, cuda_device)[0][:, 11:20011]
+    before = prof.counters.get(prof.STRIDED_READS, 0)
+    _hold_gradient(lambda a: (fc.apply_batched(a),), (x,), monkeypatch, ("zconv_stream",))
+    assert prof.counters.get(prof.STRIDED_READS, 0) == before + 1
 
 
 @pytest.mark.cuda
