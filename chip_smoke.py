@@ -54,14 +54,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      five time-major band shapes N = 4096 .. 65536 (64 MB per plane),
      forward and backward, against a complex128 ``torch.fft.fft(dim=0)``,
      the unscaled round trip and the 140 dB carrier; two launches per shape;
- 11. the ``"ksplit"`` engine, forced with ``set_engine``, through the public
-     time-major call: complex at (2048, 8192) and (4096, 4096), real at N =
-     4096 and 8192; the chain once per call (and the split kernel for real);
- 12. float64 plans, complex and real, time-major and batch-major, at (N, B)
+ 11. float64 plans, complex and real, time-major and batch-major, at (N, B)
      = (4096, 2048) and (65536, 128) (64 MB per f64 plane) against complex128
      ``torch.fft``, the 215 dB carrier, one float64 FastConv run; no f32
      kernel may launch;
- 13. the PFDSP chain (BASELINE.json config #4): ``mixer_apply_split`` at
+ 12. the PFDSP chain (BASELINE.json config #4): ``mixer_apply_split`` at
      2^22 samples and on a [16, 2^22] stream through one NCO, against the
      float64 carrier of the exact fixed-point phase; ``CicDDC`` at 2^22 and
      2^24 samples for R = 16 and 64, two chunks with the state carried,
@@ -72,7 +69,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      ``zconv_stream`` launch a float32 chunk; the ALGO C/E/I wrappers and
      the carriers at 2^14 against the port's CPU result; the CIC's and the
      resampler's products in full fp32 (the matmul precision checked);
- 14. the STFT front end and the resampler on a [4, 2^22] signal:
+ 13. the STFT front end and the resampler on a [4, 2^22] signal:
      ``stft_split`` by both routes and ``stft_split_tmajor`` at n_fft 1024
      (hop 512) and 8192, against complex128 ``torch.fft.rfft`` of the
      windowed frames; an ``istft`` round trip, ``welch_psd``, and
@@ -81,7 +78,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      on the batch-major one and in ``istft``); each call timed beside its
      bound (and the banded products' fp32 operation time), the STFT beside
      ``torch.stft``;
- 15. the transforms past the 2/3/5-smooth size contract and long-FIR
+ 14. the transforms past the 2/3/5-smooth size contract and long-FIR
      streaming (``anylen``), at the sizes of bench_pipeline's
      bluestein_prime, zoom_czt, fft2 and pconv_fdl: Bluestein at N = 4099
      (B9 at the inner M = 8640) and 12289 (kern2 at M = 25600) both ways,
@@ -94,7 +91,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      direct sums and matrix products on 64 sampled rows); one float64 case
      per module; then each call timed beside its bytes bound, the PyTorch
      yardstick and its parts;
- 16. timing with CUDA events (median of 10 after warm-up), per band shape,
+ 15. timing with CUDA events (median of 10 after warm-up), per band shape,
      per kernel and per FIR pipeline, beside the bound, the plain version
      and a library yardstick (torch.fft, conv1d); B1's launch-shape sweep
      (batch columns x values a thread, as kern2's pass A too), B4's (the
@@ -105,7 +102,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      copies around the column map it replaces; B10 beside kern2 on the
      same planes, with sweeps of its batch columns and cluster size; blocks
      per SM of B1, B3, B9 and B10 from the planner and from the card;
- 17. the SDR capture path (``capture``): 4 channels x 2^23 complex samples,
+ 16. the SDR capture path (``capture``): 4 channels x 2^23 complex samples,
      seeded noise and two tones quantized to cs16 by the port's
      ``runtime.convert_planar_f32_cs16``, converted back by the native
      ``convert_cs16_planar_f32``, moved to the card and channelized by
@@ -120,12 +117,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      framer's push + frames() native against its numpy arm, the whole
      capture step against the channelizer step alone, and float64 steps
      against float32 ones;
- 18. the oracle phase (run after phase 3): the public transforms at small
+ 17. the oracle phase (run after phase 3): the public transforms at small
      shapes (complex time-major at N = 1024 and 4096 on 16 columns, both
      directions, real at N = 2048, batch-major rows at N = 4096) against the
      port's numpy FFTPACK oracle (``pffft_tpu_torch.oracle``, the reference
      bench's --validate);
- 19. the distribution layer (``parallel``, after phase 17) on a world of one
+ 18. the distribution layer (``parallel``, after phase 16) on a world of one
      NCCL rank built here: ``FourStepPlan`` complex at N = 2^24 (4096 x
      4096) on a batch of 2, ordered and internal with ``reorder``, the real
      four-step at 2^25, ``Pencil2D((4096, 4096))`` on [4, 4096, 4096] in both
@@ -138,7 +135,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      autograd (1e-5), its backward's launches (no plain version) and its
      ms, device-busy ms and host enqueue µs beside the forward's bytes
      bound; phase 3 holds each kernel shape these paths give;
- 20. measure mode (``tune``, after every timed phase; it empties the tables
+ 19. measure mode (``tune``, after every timed phase; it empties the tables
      it fills): ``tune_engine`` at the band shapes time-major and at three
      batch-major shapes (each engine's median, the winner, the default
      route, and one public call after recording that must launch the
@@ -147,7 +144,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      4096, 65536, real N = 8192 (one kernel route for every candidate:
      nothing timed) and complex float64 N = 4096 (the stage engine: the
      candidates race), each candidate's factors, route and time;
- 21. the gradients (``phase_grad``, before measure mode): the transforms at
+ 20. the gradients (``phase_grad``, before measure mode): the transforms at
      (2048, 8192), (65536, 256) time-major and (4096, 4096) batch-major,
      complex and real ((2048, 8192), (131072, 128), batch-major (2048,
      4096)), both directions; FastConv on [16, 2^22] at 1024 and 4096 taps;
@@ -163,7 +160,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      ``torch.fft``'s own backward; then three steps of gradient descent on
      [4, 2^22] toward a target magnitude spectrogram, the loss falling at
      each; phase 3 holds every kernel at the shapes the backward hands it;
- 22. ``torch.func.vmap`` over the public calls (``vmap``, after phase 21),
+ 21. ``torch.func.vmap`` over the public calls (``vmap``, after phase 20),
      at BASELINE.json config #3's and #5's widths: ``FastConv.apply_batched``
      over [4, 4, 2^22] at 1024 taps (B7's stream map) and 4096 (the
      composed kern2 route), StreamingConv's block step over the frames of 4
@@ -176,7 +173,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      launched as often as by one unbatched call, the vmapped call's ms and
      host enqueue us beside the loop's and the batched call's; phase 3
      holds B7 at the folded calls' shapes;
- 23. the ``kernels`` line, the card line, and the final ``ok`` line (the done
+ 22. the ``kernels`` line, the card line, and the final ``ok`` line (the done
      line before them gives each phase's seconds).
 
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda), g++ (the
@@ -267,9 +264,6 @@ CHAIN_SWEEP_SHAPES = ((16, 32), (8, 32), (8, 16), (4, 32), (4, 16))
 PFB_SWEEP = (4, 1, 2, 8)
 # B7's column map at FastConv's nfft = 2048 column count, (tb, values a thread)
 CONV_SWEEP_SHAPES = ((4, 16), (8, 32), (4, 32))
-# the "ksplit" engine: complex (N, B) and real (N, B)
-KSPLIT_BAND = ((2048, 8192), (4096, 4096))
-KSPLIT_REAL_BAND = ((4096, 4096), (8192, 2048))
 # float64 plans: (N, B), a 64 MB float64 plane
 F64_SHAPES = ((4096, 2048), (65536, 128))
 F64_TOL = 1e-12      # vs the complex128 oracle, relative to max|oracle|
@@ -924,12 +918,10 @@ def phase_kernels(gen):
         # one time-major engine's kernel calls at [N, B]
         if engine == "chain":
             chain_case(D._chain_plan(plan, dev), n, b)
-        elif engine in ("kern2", "ksplit"):
-            mplan, last = (D._kern2_build(n, dev, None) if engine == "kern2"
-                           else D._ksplit_plans(n, dev))
+        elif engine == "kern2":
+            mplan, last = D._kern2_build(n, dev, None)
             chain_case(mplan, mplan.engine_n, last.r * b)
-            if engine == "kern2":
-                combine_case(last, b)
+            combine_case(last, b)
 
     # measure mode's public calls, shape for shape: after a race the call
     # runs whichever engine won, so every engine that can run each of
@@ -2168,69 +2160,6 @@ def phase_ksplit2_timing(gen):
                   "default_ms": rec["ksplit2_ms"]})
         del re, im, z
     return rows
-
-
-def phase_ksplit(gen):
-    """The "ksplit" engine (never a default) forced through the public
-    time-major call, complex and real; returns the launch counts."""
-
-    dev = torch.device("cuda")
-    reset_counts()
-    times = []
-    D.set_engine("ksplit")
-    try:
-        for n, b in KSPLIT_BAND:
-            plan = pt.new_setup(n)
-            check(D.select_engine(plan, b, True, dev) == "ksplit", f"ksplit N={n}: engine")
-            re, im = planes(n, b, gen)
-            c0 = counts()
-            yr, yi = pt.transform_ordered_split_tmajor(plan, (re, im))
-            c1 = counts()
-            br, bi = pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD)
-            torch.cuda.synchronize()
-            fwd, bwd = launched(c1, c0), launched(counts(), c1)
-            cols = sample_rows(b)
-            e_fwd = rel_err(torch.complex(yr[:, cols].double(), yi[:, cols].double()),
-                            sampled_oracle(re, im, cols))
-            e_rt = max(rel_err(br / n, re), rel_err(bi / n, im))
-            emit({"phase": "ksplit", "n": n, "b": b, "conf": list(D._ksplit_conf(n, dev)),
-                  "fwd_rel_err": e_fwd, "roundtrip_rel_err": e_rt, "fwd_launches": fwd,
-                  "bwd_launches": bwd})
-            check(e_fwd <= ORACLE_TOL and e_rt <= ROUND_TRIP_TOL,
-                  f"ksplit N={n}: errors {e_fwd}, {e_rt}")
-            want = {"cfft_chain_tmajor": 1}
-            check(fwd == want and bwd == want, f"ksplit N={n}: launches {fwd}, {bwd}")
-            times.append((n, b, lambda plan=plan, re=re, im=im:
-                          pt.transform_ordered_split_tmajor(plan, (re, im))))
-        for n, b in KSPLIT_REAL_BAND:
-            plan = pt.new_setup(n, pt.REAL)
-            x = torch.randn((n, b), generator=gen, device="cuda")
-            c0 = counts()
-            yr, yi = pt.transform_ordered_split_tmajor(plan, x)
-            c1 = counts()
-            back = pt.transform_ordered_split_tmajor(plan, (yr, yi), pt.BACKWARD)
-            torch.cuda.synchronize()
-            fwd, bwd = launched(c1, c0), launched(counts(), c1)
-            cols = sample_rows(b)
-            ref = torch.fft.rfft(x[:, cols].double(), dim=0)
-            packed = ref[: n // 2].clone()
-            packed[0] = torch.complex(ref[0].real, ref[n // 2].real)
-            e_fwd = rel_err(torch.complex(yr[:, cols].double(), yi[:, cols].double()), packed)
-            e_rt = rel_err(back / n, x)
-            emit({"phase": "ksplit", "real_n": n, "b": b,
-                  "conf": list(D._ksplit_conf(n // 2, dev)), "fwd_rel_err": e_fwd,
-                  "roundtrip_rel_err": e_rt, "fwd_launches": fwd, "bwd_launches": bwd})
-            check(e_fwd <= ORACLE_TOL and e_rt <= ROUND_TRIP_TOL,
-                  f"ksplit real N={n}: errors {e_fwd}, {e_rt}")
-            want = {"cfft_chain_tmajor": 1, "real_split_tmajor": 1}
-            check(fwd == want and bwd == want, f"ksplit real N={n}: launches {fwd}, {bwd}")
-        launches = counts()
-        for n, b, fn in times:
-            emit({"phase": "ksplit_time", "n": n, "b": b, "fwd_ms": time_ms(fn)})
-    finally:
-        D.set_engine(None)
-    emit({"phase": "ksplit", "launches": launches})
-    return launches
 
 
 def phase_f64(gen):
@@ -3690,7 +3619,7 @@ def parallel_paths(gen, mesh):
 # "tmajor" runs the time-major route the dispatcher picks)
 ENGINE_LAUNCHES = {"chain": {"cfft_chain_tmajor": 1},
                    "kern2": {"cfft_chain_tmajor": 1, "cfft_combine_tmajor": 1},
-                   "ksplit": {"cfft_chain_tmajor": 1}, "stages": {},
+                   "stages": {},
                    "fused2": {"cfft_fused2": 1}}
 
 
@@ -4342,7 +4271,6 @@ def main() -> int:
     bm_launches, bm_shapes = run(phase_bmajor_main, gen)
     bmr_launches, bmr_shapes = run(phase_bmajor_real_main, gen)
     ks2_launches = run(phase_ksplit2, gen)
-    ksplit_launches = run(phase_ksplit, gen)
     run(phase_f64, gen)
     dsp_launches = run(phase_dsp, gen)
     spectral_launches = run(phase_spectral, gen)
@@ -4385,9 +4313,6 @@ def main() -> int:
                  "zconv_tmajor"):
         check(cap_launches[name] > 0,
               f"capture path did not launch every path kernel: {cap_launches}")
-    for name in ("cfft_chain_tmajor", "real_split_tmajor"):
-        check(ksplit_launches[name] > 0,
-              f"ksplit path did not launch every path kernel: {ksplit_launches}")
     for name in ("cfft_chain_tmajor", "cfft_combine_tmajor", "cfft_fused2", "zconv_stream"):
         check(sum(c[name] for c in par_launches) > 0,
               f"distribution paths did not launch every path kernel: {par_launches}")
@@ -4401,13 +4326,13 @@ def main() -> int:
               f"the vmapped paths did not launch every path kernel: {vmap_launches}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "phase_seconds": secs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    # launches: the count over the main-path runs, each from zero (the ten
+    # launches: the count over the main-path runs, each from zero (the nine
     # paths, then the anylen paths, the capture path, the distribution
     # layer's four paths and their gradients, the gradient paths' forward
     # and backward, the vmapped calls and measure mode's public calls); the
     # float64 phases launch none
     paths = (launches, real_launches, conv_launches, chan_launches, bm_launches,
-             bmr_launches, ks2_launches, ksplit_launches, dsp_launches, spectral_launches,
+             bmr_launches, ks2_launches, dsp_launches, spectral_launches,
              *anylen_launches, cap_launches, *par_launches, grad_launches, vmap_launches,
              tune_launches)
     meta = {

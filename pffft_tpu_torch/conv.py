@@ -25,11 +25,12 @@ spectral-conv kernel's stream map (``csrc/conv_fused.cu``; nfft up to
 16384), which frames the streams, convolves and keeps the valid samples in
 the kernel, or ``"tmajor"``, the same pipeline composed of copies (frames
 into time-major columns [Nfft, C], the block convolution, the valid
-samples back out; ``ops/conv_kernel.stream_conv``).  The column pipeline
+samples back out; ``ops/conv_kernel.stream_conv``) around the routed
+forward transform, a multiply by Hf and the routed backward transform
+(:meth:`FastConv._transform_conv`).  The column pipeline
 (:meth:`FastConv._block_conv`, which StreamingConv runs on its frames)
-routes on its own: the kernel's column map up to nfft 2048, else the
-routed forward transform, a multiply by Hf and the routed backward
-transform.  ``apply_batched`` serves every row in one call.
+routes on its own: the kernel's column map up to nfft 2048, else the same
+routed transforms.  ``apply_batched`` serves every row in one call.
 
 numpy input goes to the setup's ``device`` (default "cuda"); tensors stay
 where they are.  A float64 setup computes in float64 and complex128 and
@@ -160,7 +161,7 @@ class FastConv:
         self._g = g
         self._hf: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._hf_adjoint: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor, int]] = {}
-        # None: the dispatch table; 'fused' or 'tmajor' forces a route
+        # None: the route by coverage; 'fused' or 'tmajor' forces a route
         # (tests, probes).  Set before first apply.
         self._force_conv_kernel: Optional[str] = None
 
@@ -233,10 +234,18 @@ class FastConv:
         map, or the routed transforms around a multiply."""
 
         dev = re.device
-        hfr, hfi = self._spectrum(dev)
         if self._route(dev) == "fused":
+            hfr, hfi = self._spectrum(dev)
             cplan = _dispatch.conv_kernel_choice(self.nfft, re.shape[1], dev)[0]
             return _ck.zconv_tmajor(cplan, re, im, hfr, hfi)
+        return self._transform_conv(re, im)
+
+    def _transform_conv(self, re: torch.Tensor, im: torch.Tensor):
+        """IFFT(FFT(x)·Hf) per column of the planes [nfft, C] through the
+        routed forward transform, a multiply by Hf and the routed backward
+        transform (the "tmajor" route)."""
+
+        hfr, hfi = self._spectrum(re.device)
         sr, si = _fft.transform_ordered_split_tmajor(self.plan, (re, im), _plan.FORWARD)
         hr, hi = hfr[:, None], hfi[:, None]
         return _fft.transform_ordered_split_tmajor(
@@ -255,8 +264,8 @@ class FastConv:
         real streams two frames per transform, complex streams one.  The
         "fused" route is one launch of the kernel's stream map, on the
         caller's rows where it reads them in place (:func:`_stream_rows`);
-        "tmajor" composes the framing and unpacking copies around the
-        routed transforms."""
+        "tmajor" composes the framing and unpacking copies around
+        :meth:`_transform_conv`: the stream's route is decided once."""
 
         u = self.num_out_per_block
         if self._route(x.device, stream=True) == "fused":
@@ -264,7 +273,7 @@ class FastConv:
             adjoint = self._adjoint(x.device) if _grad.needed(x) else None
             return _ck.zconv_stream(_dispatch._thin_plan(self.nfft), _stream_rows(x), hfr, hfi,
                                     u, total, adjoint)
-        return _ck.stream_conv(self._block_conv, x, self.nfft, u, total)
+        return _ck.stream_conv(self._transform_conv, x, self.nfft, u, total)
 
     # ------------------------------------------------------------------
     def _as_stream(self, x) -> torch.Tensor:

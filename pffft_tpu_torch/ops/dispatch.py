@@ -10,18 +10,16 @@ planes [N, B], with the reference's names beside them:
   * ``"kern2"`` (reference ``"kern2"``): two passes for N = m*r past the
     chain's tile: the chain kernel on the free [m, r*B] view, then the
     combine kernel (``csrc/combine.cu``).
-  * ``"ksplit"`` (reference ``"ksplit"``): the chain kernel on the free
-    [m, r*B] view, then the radix-r combine as one einsum stage in torch
-    ops, as the reference computes it in XLA.  Never a default: it runs
-    only where the measured table or :func:`set_engine` asks for it.
 
-The default route follows coverage: the chain when it holds N, else kern2
-with the largest chain-covered m, else the stage engine.  A measured
-table keyed by (compute capability, N, time_major) overrides it; it
-starts empty and is filled by :func:`record_engine` from measurements on
-the card.  On the CPU the capability is the H100's (9, 0), so the tests
-walk the routes the card takes.  Float64 plans run the stage engine in
-either layout: every kernel is f32.
+A route is decided from what the call shows: the plan's dtype and engine
+length, the layout and the device's compute capability (on the CPU the
+H100's (9, 0), so the tests walk the routes the card takes).  The default
+follows coverage: the chain when it holds N, else kern2 with the largest
+chain-covered m, else the stage engine.  Float64 plans run the stage
+engine in either layout: every kernel is f32.  Two overrides sit on top:
+:func:`set_engine` forces an engine for every call, and
+:func:`record_engine` holds the winner of ``tune.tune_engine``'s race on
+the card for a complex plan at (compute capability, N, layout).
 
 B10, the in-kernel ksplit (``csrc/ksplit2.cu``,
 :func:`cfft_ksplit2_tmajor`): kern2's function in one pass, run by a
@@ -51,9 +49,9 @@ batch-major split kernel (``csrc/real_split_bmajor.cu``, B6,
 :func:`real_split_bmajor_route`), which covers any H and B.
 
 A REAL plan's transform runs the same engines at its engine length
-H = N/2, chosen by the same rules from a table of its own
-(:func:`record_engine_real`): real and complex route state never mix.
-The engine picks the real route (the routes below):
+H = N/2, chosen by coverage (or :func:`set_engine`) alone: a record for a
+complex plan never moves a real one.  The engine picks the real route
+(the routes below):
 
   * ``"chain"``: the fused real kernel, one pass per direction;
   * ``"kern2"``: forward the packed-input chain on kern2's wide view, the
@@ -66,8 +64,7 @@ FastConv's overlap-save block pipeline has routes of its own
 (``csrc/conv_fused.cu``) where the map it launches holds nfft (the stream
 map's rows up to 16384, the column map's tile, the chain's, up to 2048),
 else ``"tmajor"``, the routed forward transform, a multiply by the filter
-spectrum and the routed backward transform.  Its measured table, keyed by
-(compute capability, nfft), starts empty too.
+spectrum and the routed backward transform.
 """
 
 from __future__ import annotations
@@ -95,13 +92,9 @@ __all__ = [
     "select_engine",
     "set_engine",
     "record_engine",
-    "record_engine_real",
     "cfft_dispatch",
     "cfft_kern2_tmajor",
     "cfft_kern2_tmajor_packed",
-    "set_kern2_conf",
-    "cfft_ksplit_tmajor",
-    "set_ksplit_conf",
     "cfft_ksplit2_tmajor",
     "ksplit2_tmajor_plain",
     "ksplit2_tile",
@@ -113,12 +106,11 @@ __all__ = [
     "real_split_kernel_route",
     "real_split_bmajor_route",
     "CONV_ROUTES",
-    "record_conv_route",
     "conv_route_mode",
     "conv_kernel_choice",
 ]
 
-ENGINES = ("stages", "chain", "kern2", "ksplit")  # time-major planes
+ENGINES = ("stages", "chain", "kern2")            # time-major planes
 BMAJOR_ENGINES = ("fused2", "tmajor", "stages")    # batch-major planes
 # engines per layout (time_major key), and the order coverage tries them in
 _LAYOUT_ENGINES = {True: ENGINES, False: BMAJOR_ENGINES}
@@ -126,10 +118,9 @@ _COVERAGE = {True: ("chain", "kern2", "stages"), False: BMAJOR_ENGINES}
 
 _FORCED: Optional[str] = None
 
-# (compute capability, N, time_major) -> engine, measured on the card: one
-# table for complex plans, one for real plans (keyed by the engine length).
+# (compute capability, N, time_major) -> engine: tune.tune_engine's winner
+# on the card, for complex plans.
 _MEASURED_TABLE: dict = {}
-_MEASURED_TABLE_REAL: dict = {}
 
 _SM90 = (9, 0)
 
@@ -182,31 +173,15 @@ def _chain_covers(plan: _plan.Plan, device=None) -> bool:
     return _pk.chain_tile(plan.engine_n, radices, device) is not None
 
 
-# (compute capability, N) -> (m, r), measured on the card: kern2's split.
-_KERN2_CONF: dict = {}
-
-
 def _check_conf(what: str, n: int, m: int, r: int) -> None:
     if m * r != n:
         raise ValueError(f"{what} conf {m}*{r} != {n}")
 
 
-def set_kern2_conf(cap: Tuple[int, int], n: int, m: int, r: int) -> None:
-    """Record a measured kern2 (m, r) split for length ``n`` at a compute
-    capability; :func:`_kern2_conf` reads it before its derivation."""
-
-    _check_conf("kern2", n, m, r)
-    _KERN2_CONF[(tuple(cap), int(n))] = (int(m), int(r))
-
-
 def _kern2_conf(n: int, device=None) -> Optional[Tuple[int, int]]:
-    """(m, r) for the two-pass engine: the measured split, else the
-    largest chain-covered m with r = n/m a radix of the combine kernel,
-    else None."""
+    """(m, r) for the two-pass engine: the largest chain-covered m with
+    r = n/m a radix of the combine kernel, else None."""
 
-    conf = _KERN2_CONF.get((capability(device), n))
-    if conf is not None:
-        return conf
     for r in _pk.COMBINE_RADICES:
         if n % r or n // r < 2:
             continue
@@ -263,85 +238,6 @@ def cfft_kern2_tmajor_packed(plan: _plan.Plan, y: torch.Tensor, *,
     b = y.shape[1] // 2
     ar, ai = _pk.cfft_chain_tmajor_packed(mplan, y.reshape(m, r * 2 * b), slabs=r)
     return _pk.cfft_combine_tmajor(last, ar.reshape(n, b), ai.reshape(n, b))
-
-
-# ---------------------------------------------------------------------------
-# ksplit: the chain kernel on [m, r*B], then one einsum combine stage
-# (reference ``cfft_ksplit_tmajor``)
-# ---------------------------------------------------------------------------
-
-# (compute capability, N) -> (m, r), measured on the card: ksplit's split.
-_KSPLIT_CONF: dict = {}
-
-
-def set_ksplit_conf(cap: Tuple[int, int], n: int, m: int, r: int) -> None:
-    """Record a measured ksplit (m, r) split for length ``n`` at a compute
-    capability; :func:`_ksplit_conf` reads it before its derivation."""
-
-    _check_conf("ksplit", n, m, r)
-    _KSPLIT_CONF[(tuple(cap), int(n))] = (int(m), int(r))
-
-
-def _ksplit_conf(n: int, device=None) -> Optional[Tuple[int, int]]:
-    """(m, r) split for the ksplit engine: the measured split, else None
-    below N = 2048, else the largest m in (1024, 512, 256) with
-    2 <= r <= 128 and a chain plan for m (the reference's rules)."""
-
-    conf = _KSPLIT_CONF.get((capability(device), n))
-    if conf is not None:
-        return conf
-    if n < 2048:
-        return None
-    for m in (1024, 512, 256):
-        r = n // m
-        if n == m * r and 2 <= r <= 128 and _pk.thin_factors(m) is not None:
-            return m, r
-    return None
-
-
-def _ksplit_plans(n: int, device=None):
-    """(m_plan, last_stage) of the ksplit engine for length n, or None."""
-
-    conf = _ksplit_conf(n, device)
-    return None if conf is None else _build_ksplit(n, *conf)
-
-
-def _ksplit_runs(plan: _plan.Plan, device=None) -> bool:
-    """Whether the ksplit engine runs ``plan``: f32, with a split whose
-    m the chain kernel's tile holds."""
-
-    if plan.dtype != np.float32:
-        return False
-    built = _ksplit_plans(plan.engine_n, device)
-    return built is not None and _chain_covers(built[0], device)
-
-
-def cfft_ksplit_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
-                       backward: bool = False,
-                       conf: Optional[Tuple[int, int]] = None):
-    """Kernel-then-einsum complex FFT, time-major planes [N, B].
-
-    Unscaled, canonical order.  N = m*r: the chain kernel runs the
-    length-m transforms on the free [m, r*B] view, then one einsum stage
-    (twiddle W_N^{c*k}, dense radix-r DFT) combines them, as the reference
-    does in XLA; output index t*m + k is row-major [r, m].  ``conf``
-    overrides the (m, r) split."""
-
-    n = plan.engine_n
-    built = _build_ksplit(n, *conf) if conf is not None else _ksplit_plans(n, re.device)
-    if built is None:
-        raise ValueError(f"no ksplit configuration for N={n}")
-    mplan, last = built
-    b = re.shape[1]
-    m, r = mplan.engine_n, last.r
-    ar, ai = _pk.cfft_chain_tmajor(mplan, re.reshape(m, r * b), im.reshape(m, r * b),
-                                   backward=backward)
-    consts = _split._device_consts(last, backward, re.device)
-    with _split._full_fp32():
-        ar, ai = _split._apply_twiddle(ar.reshape(m, r, 1, b), ai.reshape(m, r, 1, b),
-                                       consts[2], 0)
-        nr, ni = _split._contract_stage(ar, ai, consts, "lrmb,rt->tlmb")
-    return nr.reshape(n, b), ni.reshape(n, b)
 
 
 # ---------------------------------------------------------------------------
@@ -513,8 +409,6 @@ def _tmajor_engines(plan: _plan.Plan, batch: int, device=None) -> Tuple[str, ...
         out.append("chain")
     if plan.dtype == np.float32 and _kern2_conf(plan.engine_n, device) is not None:
         out.append("kern2")
-    if _ksplit_runs(plan, device):
-        out.append("ksplit")
     return tuple(out)
 
 
@@ -545,41 +439,29 @@ def set_engine(name: Optional[str]) -> None:
     _FORCED = name
 
 
-def _check_layout_engine(engine: str, time_major: bool) -> None:
+def record_engine(cap: Tuple[int, int], n: int, engine: str,
+                  time_major: bool = True) -> None:
+    """Record an engine measured fastest (``tune.tune_engine``'s race) for
+    complex plans at (compute capability, N, layout)."""
+
     if engine not in ENGINES + BMAJOR_ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if engine not in _LAYOUT_ENGINES[time_major]:
         raise ValueError(f"engine {engine!r} does not serve "
                          f"{'time' if time_major else 'batch'}-major planes")
-
-
-def record_engine(cap: Tuple[int, int], n: int, engine: str,
-                  time_major: bool = True) -> None:
-    """Record a measured engine choice for complex plans at (compute
-    capability, N, layout)."""
-
-    _check_layout_engine(engine, time_major)
     _MEASURED_TABLE[(tuple(cap), int(n), bool(time_major))] = engine
-
-
-def record_engine_real(cap: Tuple[int, int], n: int, engine: str,
-                       time_major: bool = True) -> None:
-    """Record a measured engine choice for real plans at (compute
-    capability, engine length n = N/2, layout).  Complex plans never read
-    it."""
-
-    _check_layout_engine(engine, time_major)
-    _MEASURED_TABLE_REAL[(tuple(cap), int(n), bool(time_major))] = engine
 
 
 def _choose(plan: _plan.Plan, batch: int, time_major: bool, device,
             avail: Tuple[str, ...]) -> str:
-    """The measured table's engine, else the first by coverage."""
+    """The engine recorded for a complex plan at (compute capability, N,
+    layout) where it can run the call, else the first of the layout's
+    coverage order in ``avail``."""
 
-    table = _MEASURED_TABLE_REAL if plan.is_real else _MEASURED_TABLE
-    measured = table.get((capability(device), plan.engine_n, bool(time_major)))
-    if measured is not None and measured in avail:
-        return measured
+    if not plan.is_real:
+        measured = _MEASURED_TABLE.get((capability(device), plan.engine_n, bool(time_major)))
+        if measured in avail:
+            return measured
     for engine in _COVERAGE[time_major]:
         if engine in avail:
             return engine
@@ -589,6 +471,10 @@ def _choose(plan: _plan.Plan, batch: int, time_major: bool, device,
 @_profiling.decision
 def select_engine(plan: _plan.Plan, batch: int, time_major: bool = True,
                   device=None) -> str:
+    """The engine that runs ``plan`` on [N, batch] (or [batch, N]) planes
+    on ``device``: the one :func:`set_engine` forced, else
+    :func:`_choose`'s."""
+
     avail = available_engines(plan, batch, time_major, device)
     if _FORCED is not None:
         if _FORCED not in avail:
@@ -661,8 +547,6 @@ def _cfft_tmajor(plan: _plan.Plan, re: torch.Tensor, im: torch.Tensor, *,
                                      backward=backward)
     if engine == "kern2":
         return cfft_kern2_tmajor(plan, re, im, backward=backward)
-    if engine == "ksplit":
-        return cfft_ksplit_tmajor(plan, re, im, backward=backward)
     return _split.cfft_stages_split_tmajor(
         re, im, plan.stages, backward=backward, ordered=True)
 
@@ -802,18 +686,6 @@ def real_split_kernel_route(plan: _plan.Plan, backward: bool):
 
 CONV_ROUTES = ("fused", "tmajor")
 
-# (compute capability, nfft) -> route, measured on the card.
-_CONV_TABLE: dict = {}
-
-
-def record_conv_route(cap: Tuple[int, int], nfft: int, route: str) -> None:
-    """Record a measured FastConv route ('fused' or 'tmajor') at (compute
-    capability, nfft)."""
-
-    if route not in CONV_ROUTES:
-        raise ValueError(f"unknown conv route {route!r}; expected one of {CONV_ROUTES}")
-    _CONV_TABLE[(tuple(cap), int(nfft))] = route
-
 
 @_profiling.decision
 def conv_route_mode(nfft: int, force: Optional[str] = None, device=None,
@@ -830,9 +702,8 @@ def conv_route_mode(nfft: int, force: Optional[str] = None, device=None,
     ``force`` ('fused' or 'tmajor') overrides the rest; a forced 'fused'
     where that map cannot hold nfft raises ValueError.  Else an engine
     forced with :func:`set_engine` other than the chain keeps the fused
-    kernel (which runs the chain) out; else the measured table; else
-    coverage: 'fused' where the map holds nfft, 'tmajor' where some engine
-    runs it, None otherwise."""
+    kernel (which runs the chain) out; else coverage: 'fused' where the
+    map holds nfft, 'tmajor' where some engine runs it, None otherwise."""
 
     if stream:
         fused_ok = _ck.stream_tile(nfft, device) is not None
@@ -845,14 +716,10 @@ def conv_route_mode(nfft: int, force: Optional[str] = None, device=None,
             raise ValueError(f"the fused conv kernel's {'stream' if stream else 'column'} "
                              f"map cannot hold nfft={nfft}")
         return force
-    if _FORCED not in (None, "chain"):
-        fused_ok = False
-    if fused_ok and _CONV_TABLE.get((capability(device), int(nfft))) != "tmajor":
+    if fused_ok and _FORCED in (None, "chain"):
         return "fused"
     plan = _plan.new_setup(nfft, _plan.COMPLEX, strict=False)
-    if available_engines(plan, 1, True, device):
-        return "tmajor"
-    return "fused" if fused_ok else None
+    return "tmajor" if available_engines(plan, 1, True, device) else None
 
 
 @_profiling.decision

@@ -476,10 +476,7 @@ def test_short_input_consumes_nothing():
 
 @pytest.fixture
 def clean_conv_state():
-    table = dict(D._CONV_TABLE)
     yield
-    D._CONV_TABLE.clear()
-    D._CONV_TABLE.update(table)
     D.set_engine(None)
 
 
@@ -526,22 +523,25 @@ def test_stream_tile_is_b9_rows_but_at_8192():
 
 
 def test_conv_route_table_force_and_engine(clean_conv_state):
-    assert D._CONV_TABLE == {}  # filled only from measurements on the card
-    D.record_conv_route((9, 0), 128, "tmajor")
-    assert D.conv_route_mode(128) == "tmajor"
+    # no table: the route is coverage's, under a forced route or engine
+    assert not hasattr(D, "record_conv_route") and not hasattr(D, "_CONV_TABLE")
+    assert D.conv_route_mode(128) == "fused"
+    assert D.conv_route_mode(128, "tmajor") == "tmajor"
     assert D.conv_route_mode(128, "fused") == "fused"
-    D.record_conv_route((9, 0), 8192, "fused")  # not covered: coverage wins
-    assert D.conv_route_mode(8192) == "tmajor"
+    assert D.conv_route_mode(8192) == "tmajor"  # past the column map
     assert D.conv_route_mode(8192, stream=True) == "fused"  # the stream map covers it
-    D.record_conv_route((9, 0), 8192, "tmajor")  # the table wins over the stream map too
-    assert D.conv_route_mode(8192, stream=True) == "tmajor"
+    assert D.conv_route_mode(8192, "tmajor", stream=True) == "tmajor"
     assert D.conv_route_mode(8192, "fused", stream=True) == "fused"
     D.set_engine("stages")  # an engine other than the chain keeps the kernel out
     assert D.conv_route_mode(256) == "tmajor"
     assert D.conv_route_mode(4096, stream=True) == "tmajor"
+    assert D.conv_route_mode(256, "fused") == "fused"  # a forced route wins
+    D.set_engine("chain")  # the chain is the kernel's own engine
+    assert D.conv_route_mode(256) == "fused"
+    assert D.conv_route_mode(4096, stream=True) == "fused"
     D.set_engine(None)
     with pytest.raises(ValueError, match="unknown conv route"):
-        D.record_conv_route((9, 0), 128, "xla")
+        D.conv_route_mode(128, "xla")
     with pytest.raises(ValueError, match="unknown conv route"):
         D.conv_route_mode(128, "pallas")
     with pytest.raises(ValueError, match="column map cannot hold nfft=4096"):
@@ -549,6 +549,39 @@ def test_conv_route_table_force_and_engine(clean_conv_state):
     assert D.conv_route_mode(4096, "fused", stream=True) == "fused"
     with pytest.raises(ValueError, match="stream map cannot hold nfft=32768"):
         D.conv_route_mode(32768, "fused", stream=True)
+
+
+def _raises(name):
+    def call(*a, **k):
+        raise AssertionError(f"{name} called on the composed route")
+    return call
+
+
+# (dtype, forced route, taps, flags): the composed route's cases: float64
+# (nfft 2048), a forced "tmajor" where both maps hold nfft (2048; a complex
+# stream at 128), and nfft 32768, past the stream map
+COMPOSED_RUNS = [("float64", None, 1024, "real"), ("float32", "tmajor", 1024, "real"),
+                 ("float32", "tmajor", 64, "cplx_inp_out"), ("float32", None, 9000, "real")]
+
+
+@pytest.mark.parametrize("dtype,force,flen,name", COMPOSED_RUNS)
+def test_composed_route_decides_once(dtype, force, flen, name, monkeypatch):
+    """FastConv's streams on the "tmajor" route take the routed transforms
+    directly: no column-map decision, no kernel map."""
+
+    flags = FLAG_SETS[name]
+    h, x = _inputs(flags, flen, flen + 3 * 2048 + 401, flen, lead=(2,))
+    fc = tconv.FastConv(h, flags=flags, dtype=dtype, device=CPU)
+    fc._force_conv_kernel = force
+    assert fc._route(torch.device(CPU), stream=True) == "tmajor"
+    monkeypatch.setattr(D, "conv_kernel_choice", _raises("conv_kernel_choice"))
+    for kernel in ("zconv_tmajor", "zconv_stream"):
+        monkeypatch.setattr(tck, kernel, _raises(kernel))
+    got = fc.apply_batched(x)
+    want = np.stack([np.convolve(r.astype(np.complex128 if np.iscomplexobj(r) else np.float64),
+                                 h.astype(np.float64), "valid") for r in x])
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want) <= TOL
 
 
 def test_fastconv_errors():

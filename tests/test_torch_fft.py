@@ -143,7 +143,7 @@ def test_unported_dtypes_have_only_the_stage_engine():
 
 @pytest.mark.parametrize("engine", D.ENGINES)
 def test_every_engine_matches_reference(engine):
-    n = 2048 if engine == "ksplit" else 1024  # ksplit splits N >= 2048 only
+    n = 1024
     re, im = _planes(n, 8, 4)
     er, ei = _reference(n, re, im, pf.BACKWARD)
     D.set_engine(engine)
@@ -174,6 +174,41 @@ def test_forced_and_measured_engines():
     finally:
         D._MEASURED_TABLE.clear()
     assert D.select_engine(plan, 8) == "kern2"
+
+
+# (kind, N, dtype, time_major) -> the engine coverage picks where nothing
+# is recorded (the H100's routes; the CPU is routed as sm_90)
+COVERAGE_ROUTES = [
+    (("complex", 1024, "float32", True), "chain"),
+    (("complex", 4096, "float32", True), "kern2"),
+    (("complex", 65536, "float32", True), "kern2"),
+    (("complex", 2048, "float64", True), "stages"),
+    (("complex", 4096, "float32", False), "fused2"),
+    (("real", 4096, "float32", True), "chain"),
+    (("real", 16384, "float32", True), "kern2"),
+]
+
+
+@pytest.mark.parametrize("case,engine", COVERAGE_ROUTES)
+def test_default_route_is_the_coverage_route(case, engine, monkeypatch):
+    kind, n, dtype, time_major = case
+    monkeypatch.setattr(D, "_MEASURED_TABLE", {})
+    plan = pt.new_setup(n, pt.REAL if kind == "real" else pt.COMPLEX, dtype=dtype)
+    for b in (8, 128):
+        avail = D.available_engines(plan, b, time_major)
+        assert D._choose(plan, b, time_major, None, avail) == engine
+        assert D.select_engine(plan, b, time_major) == engine
+        assert D.select_engine(plan, b, time_major, torch.device(CPU)) == engine
+
+
+def test_retired_engine_names_are_unknown():
+    assert D.ENGINES == ("stages", "chain", "kern2")
+    with pytest.raises(ValueError, match="unknown engine 'ksplit'"):
+        D.set_engine("ksplit")
+    assert D._FORCED is None
+    with pytest.raises(ValueError, match="unknown engine 'ksplit'"):
+        D.record_engine((9, 0), 2048, "ksplit")
+    assert D._MEASURED_TABLE == {}
 
 
 def _carrier_columns(n):

@@ -1,12 +1,11 @@
-"""B10, the in-kernel ksplit, and the "ksplit" engine of the port's
-dispatcher, against pffft_tpu.ops.dispatch on the same numpy inputs.
+"""B10, the in-kernel ksplit, against pffft_tpu.ops.dispatch on the same
+numpy inputs.
 
 B10's wrapper (``dispatch.cfft_ksplit2_tmajor``) runs its plain version on
 CPU tensors, and is held against the reference's Pallas kernel in
 interpret mode, as the reference's own tests run it.  The CUDA kernel is
 held against its plain version in ``test_torch_cuda.py``."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,13 +21,9 @@ from pffft_tpu_torch.ops import pallas_fft as pk
 torch.set_num_threads(1)
 
 CPU = "cpu"
-SM90 = (9, 0)
 # relative to max|ref|.  B10: the port's radix-16/8 chain against the
 # reference's chain for m, both then the same twiddled radix-r combine in f32.
 KSPLIT2_TOL = 2e-6
-# the ksplit engine against the reference's: the same chain and einsum
-# combine in f32, and 1e-5 of max against numpy, as the reference's test
-KSPLIT_TOL = 1e-5
 
 
 def _planes(n, b, seed):
@@ -172,131 +167,3 @@ def test_core_tables_are_the_chain_tables_transposed():
                               chain[off: off + l * r].reshape(l, r).T)
     twc = pk._core_tables((last,), torch.device(CPU))[0].numpy().view(np.complex64)
     assert np.array_equal(twc.reshape(2, 2048), last.twiddle.astype(np.complex64).T)
-
-
-@pytest.mark.parametrize("n,b", [(2048, 128), (4096, 64)])
-def test_ksplit_engine_matches_reference(n, b):
-    re, im = _planes(n, b, n)
-    assert D._ksplit_conf(n) == rdp._ksplit_conf(n)
-    ref_plan, plan = pf.new_setup(n), pt.new_setup(n)
-    tr, ti = torch.from_numpy(re), torch.from_numpy(im)
-    oracle = np.fft.fft(re.astype(np.float64) + 1j * im, axis=0)
-    for backward in (False, True):
-        er, ei = rdp.cfft_ksplit_tmajor(ref_plan, jnp.asarray(re), jnp.asarray(im),
-                                        backward=backward, interpret=True)
-        want = np.asarray(er).astype(np.float64) + 1j * np.asarray(ei)
-        got = _pair(*D.cfft_ksplit_tmajor(plan, tr, ti, backward=backward))
-        assert _rel(got, want) <= KSPLIT_TOL, backward
-        if not backward:
-            assert _rel(got, oracle) <= KSPLIT_TOL
-
-
-def test_ksplit_conf_override(monkeypatch):
-    monkeypatch.setattr(D, "_KSPLIT_CONF", {})
-    assert D._ksplit_conf(4096) == (1024, 4)
-    D.set_ksplit_conf(SM90, 4096, 512, 8)
-    assert D._ksplit_conf(4096) == (512, 8)
-    assert D._ksplit_conf(4096, torch.device(CPU)) == (512, 8)
-    re, im = _planes(4096, 32, 5)
-    er, ei = rdp.cfft_ksplit_tmajor(pf.new_setup(4096), jnp.asarray(re), jnp.asarray(im),
-                                    conf=(512, 8), interpret=True)
-    want = np.asarray(er).astype(np.float64) + 1j * np.asarray(ei)
-    got = _pair(*D.cfft_ksplit_tmajor(pt.new_setup(4096), torch.from_numpy(re),
-                                      torch.from_numpy(im)))
-    assert _rel(got, want) <= KSPLIT_TOL
-    with pytest.raises(ValueError, match="ksplit conf 512\\*4 != 4096"):
-        D.set_ksplit_conf(SM90, 4096, 512, 4)
-    assert D._ksplit_conf(1024) is None  # the chain covers it: no split below 2048
-
-
-def test_ksplit_engine_availability():
-    # listed where the split's m fits the chain's tile; any batch (the TPU's
-    # lane gate does not carry over); never for f64 or batch-major planes
-    assert "ksplit" in D.available_engines(pt.new_setup(2048), 100)
-    assert "ksplit" in D.available_engines(pt.new_setup(65536), 3)
-    assert "ksplit" not in D.available_engines(pt.new_setup(1024), 128)
-    assert "ksplit" not in D.available_engines(pt.new_setup(2048, dtype="float64"), 128)
-    assert "ksplit" not in D.available_engines(pt.new_setup(2048), 128, time_major=False)
-    assert "ksplit" in D.available_engines(pt.new_setup(4096, pt.REAL), 128)
-    # never a default: coverage keeps chain / kern2
-    for n in (2048, 4096, 65536):
-        assert D.select_engine(pt.new_setup(n), 128) in ("chain", "kern2")
-
-
-@pytest.fixture
-def ksplit_recorded(monkeypatch):
-    """'ksplit' recorded at N = 2048 time-major in both packages' tables,
-    complex and real-at-H (restored after)."""
-
-    backend = jax.default_backend()
-    monkeypatch.setitem(rdp._MEASURED_TABLE, (backend, 2048, True), "ksplit")
-    # a fresh version before and after: the reference's jit caches key on it
-    rdp._TABLE_VERSION += 1
-    monkeypatch.setattr(D, "_MEASURED_TABLE", {})
-    monkeypatch.setattr(D, "_MEASURED_TABLE_REAL", {})
-    D.record_engine(SM90, 2048, "ksplit")
-    D.record_engine_real(SM90, 2048, "ksplit")
-    yield
-    rdp._TABLE_VERSION += 1
-
-
-def test_recorded_ksplit_serves_the_complex_call(ksplit_recorded):
-    n, b = 2048, 128
-    plan = pt.new_setup(n)
-    assert D.select_engine(plan, b) == "ksplit"
-    assert D.select_engine(plan, b, time_major=False) == "fused2"  # a time-major entry
-    re, im = _planes(n, b, 77)
-    rplan = pf.new_setup(n)
-    for rdir, tdir in ((pf.FORWARD, pt.FORWARD), (pf.BACKWARD, pt.BACKWARD)):
-        er, ei = pf.fft.transform_ordered_split_tmajor(rplan, (jnp.asarray(re),
-                                                               jnp.asarray(im)), rdir)
-        want = np.asarray(er).astype(np.float64) + 1j * np.asarray(ei)
-        got = _pair(*pt.transform_ordered_split_tmajor(plan, (re, im), tdir, device=CPU))
-        assert _rel(got, want) <= KSPLIT_TOL, tdir
-
-
-def test_recorded_ksplit_serves_the_real_call(ksplit_recorded):
-    n, b = 4096, 128
-    plan = pt.new_setup(n, pt.REAL)
-    assert D.select_engine(plan, b) == "ksplit"
-    assert D.fused_real_fwd_route(plan, b) is None and D.packed_fwd_route(plan, b) is None
-    x = np.random.default_rng(3).standard_normal((n, b)).astype(np.float32)
-    rplan = pf.new_setup(n, pf.REAL)
-    er, ei = pf.fft.transform_ordered_split_tmajor(rplan, jnp.asarray(x), pf.FORWARD)
-    want = np.asarray(er).astype(np.float64) + 1j * np.asarray(ei)
-    sr, si = pt.transform_ordered_split_tmajor(plan, x, device=CPU)
-    assert _rel(_pair(sr, si), want) <= KSPLIT_TOL
-    back = pt.transform_ordered_split_tmajor(plan, (sr, si), pt.BACKWARD)
-    rback = pf.fft.transform_ordered_split_tmajor(rplan, (er, ei), pf.BACKWARD)
-    assert _rel(back.numpy(), np.asarray(rback)) <= KSPLIT_TOL
-    assert np.abs(back.numpy() / n - x).max() < 1e-4
-
-
-def test_set_engine_ksplit():
-    D.set_engine("ksplit")
-    try:
-        assert D.select_engine(pt.new_setup(4096), 8) == "ksplit"
-        with pytest.raises(ValueError, match="unavailable"):
-            D.select_engine(pt.new_setup(1024), 8)
-    finally:
-        D.set_engine(None)
-    with pytest.raises(ValueError, match="does not serve batch-major"):
-        D.record_engine(SM90, 4096, "ksplit", time_major=False)
-
-
-def test_set_kern2_conf_is_read_by_kern2(monkeypatch):
-    monkeypatch.setattr(D, "_KERN2_CONF", {})
-    n, b = 4096, 16
-    assert D._kern2_conf(n) == (2048, 2)
-    D.set_kern2_conf(SM90, n, 1024, 4)
-    assert D._kern2_conf(n) == (1024, 4)
-    assert D._kern2_conf(n, torch.device(CPU)) == (1024, 4)
-    re, im = (torch.from_numpy(a) for a in _planes(n, b, 9))
-    got = D.cfft_kern2_tmajor(pt.new_setup(n), re, im)
-    want = pk.combine_tmajor_plain(
-        D._build_ksplit(n, 1024, 4)[1],
-        *(a.reshape(n, b) for a in pk.chain_tmajor_plain(
-            D._thin_plan(1024), re.reshape(1024, 4 * b), im.reshape(1024, 4 * b))))
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    with pytest.raises(ValueError, match="kern2 conf 1024\\*2 != 4096"):
-        D.set_kern2_conf(SM90, n, 1024, 2)

@@ -190,9 +190,9 @@ def test_unwritable_cache_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("time_major, n, times, winner", [
     (True, 1024, {"stages": 3.0, "chain": 1.0, "kern2": 2.0}, "chain"),
-    (True, 4096, {"stages": 1.0, "kern2": 2.0, "ksplit": 4.0}, "stages"),
-    (True, 8192, {"stages": 3.0, "kern2": 2.0, "ksplit": 2.5}, "kern2"),
-    (True, 2048, {"stages": 3.0, "chain": 2.0, "kern2": 2.5, "ksplit": 1.0}, "ksplit"),
+    (True, 4096, {"stages": 1.0, "kern2": 2.0}, "stages"),
+    (True, 8192, {"stages": 3.0, "kern2": 2.0}, "kern2"),
+    (True, 2048, {"stages": 3.0, "chain": 2.0, "kern2": 1.0}, "kern2"),
     (False, 4096, {"stages": 3.0, "fused2": 2.5, "tmajor": 1.5}, "tmajor"),
     (False, 1024, {"stages": 3.0, "fused2": 0.5, "tmajor": 1.5}, "fused2"),
 ])
