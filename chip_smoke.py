@@ -661,15 +661,16 @@ def phase_kernels(gen):
              {"n": n, "b": b, "complex_filter": cplx, "conjugate": conj}, dirs=(False,))
 
     def stream_case(n, u, x, total, cplx_filter, spectrum=None):
-        # spectrum: (hfr, hfi) given, e.g. the reversed taps' of a backward
-        plan = D._thin_plan(n)
+        # spectrum: (hfr, hfi) given, e.g. the reversed taps' of a backward;
+        # the plain version on the kernel's own plan (radix 32 at nfft 8192)
+        plan = ck.stream_plan(n)
         hfr, hfi = spectrum or filter_spectrum(n, cplx_filter, n - u + 1)
         hold("conv_fused",
              lambda bwd: (ck.zconv_stream(plan, x, hfr, hfi, u, total),),
              lambda bwd: (ck.zconv_stream_plain(plan, x, hfr, hfi, u, total),),
              {"map": "stream", "n": n, "u": u, "shape": list(x.shape), "total": total,
               "complex": x.is_complex(), "complex_filter": cplx_filter,
-              "adjoint": spectrum is not None}, dirs=(False,))
+              "adjoint": spectrum is not None, "factors": list(plan.factors)}, dirs=(False,))
 
     def adjoint_stream_case(fc, rows, total, cplx_stream):
         # the stream map's backward: the reversed taps' spectrum over the
@@ -715,6 +716,25 @@ def phase_kernels(gen):
         if D.conv_route_mode(fc.nfft, None, dev) == "fused":
             conv_case(fc.nfft, conv_columns(fc, CONV_ROWS, CONV_LEN), False)
     del xs
+    # the stream map on the FIR cells' rows, [16, 2^22 + F - 1] read in place
+    # out of a ring buffer's, forward and backward (the reversed taps'
+    # spectrum over the gradient) at nfft 2048, 4096 and 8192: the radix-32
+    # launch counter counts both launches at 8192 (32*16*16) and none below
+    ring = torch.randn((CONV_ROWS, RING_LEN), generator=gen, device="cuda")
+    for taps in (1024, 2048, 4096):
+        fc = C.FastConv(pt.design_lowpass(taps, 0.1))
+        n, r32 = fc.nfft, ck.stream_plan(fc.nfft).factors[0] == 32
+        c0, r0 = counts(), P.counters.get(ck.R32_LAUNCHES, 0)
+        stream_case(n, fc.num_out_per_block,
+                    ring[:, RING_OFFSET:RING_OFFSET + CONV_LEN + taps - 1], CONV_LEN, False)
+        adjoint_stream_case(fc, CONV_ROWS, CONV_LEN, False)
+        delta, r32_launches = launched(counts(), c0), P.counters.get(ck.R32_LAUNCHES, 0) - r0
+        emit({"phase": "kernel", "kernel": "conv_fused", "map": "stream", "n": n,
+              "taps": taps, "launches": delta, "r32_launches": r32_launches})
+        check(delta == {"zconv_stream": 2} and r32 == (n == 8192)
+              and r32_launches == (2 if r32 else 0),
+              f"stream map at nfft {n}: launches {delta}, radix-32 launches {r32_launches}")
+    del ring
     # the stream map's flag runs: a complex stream (complex filter), rows
     # that start unaligned (L odd), a ragged tail (total short of a frame),
     # R = 1 and 3, an odd number of frames in real mode
@@ -1994,6 +2014,14 @@ def phase_fir_timing(gen, conv_runs, chan_runs):
                 unpack_ms=time_ms(lambda: ck.unpack_pairs(yr, yi, u, x.shape[0], nb // 2),
                                   inner=2))
             del v, pre, pim, yr, yi
+        if route == "fused" and "stream_ms" not in rec:
+            # the stream map alone beside the chunk's bound (bytes at nfft 8192)
+            hfr, hfi = fc._spectrum(dev)
+            splan = ck.stream_plan(n)
+            rec.update(stream_ms=time_ms(lambda: ck.zconv_stream(splan, x, hfr, hfi, u, total),
+                                         inner=2),
+                       stream_factors=list(splan.factors), stream_bound_ms=bnd[0],
+                       stream_tile=ck.stream_tile(n, dev)._asdict())
         emit(rec)
     torch.backends.cudnn.allow_tf32 = False  # the conv1d yardstick in full f32
     for ch, xr, xi, engine in chan_runs:

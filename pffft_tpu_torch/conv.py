@@ -271,8 +271,8 @@ class FastConv:
         if self._route(x.device, stream=True) == "fused":
             hfr, hfi = self._spectrum(x.device)
             adjoint = self._adjoint(x.device) if _grad.needed(x) else None
-            return _ck.zconv_stream(_dispatch._thin_plan(self.nfft), _stream_rows(x), hfr, hfi,
-                                    u, total, adjoint)
+            return _ck.zconv_stream(_ck.stream_plan(self.nfft), _stream_rows(x), hfr, hfi, u,
+                                    total, adjoint)
         return _ck.stream_conv(self._transform_conv, x, self.nfft, u, total)
 
     # ------------------------------------------------------------------

@@ -49,6 +49,10 @@ namespace {
 
 using pf::rf::kMaxThreads;
 
+// Values a thread holds per stage in the stream map's radix-32 instance
+// (the launch shape ops/conv_kernel.stream_tile gives its lengths).
+constexpr int kR32Elems = 16;
+
 // The shared tile times the filter spectrum: element p of every lane is
 // multiplied by Hf[p].
 template <class Sm>
@@ -65,26 +69,29 @@ struct TimesHf {
 // chains made ptxas spill 2.3-7 KB a thread at 128 registers; called, each
 // gets the registers alone and neither spills.  The plan stays in the
 // kernel's parameter space (__grid_constant__), read through a pointer.
-template <int E, class Lanes, class Src, class Sm>
+// R32: the plan may open with radix-32 stages (regfft.cuh's run).
+template <int E, bool R32, class Lanes, class Src, class Sm>
 __device__ __noinline__ void forward_chain(const pf::rf::Plan* plan, const float2* tw, Lanes ln,
                                            int lanes, Src src, Sm sm) {
-  pf::rf::run<E, false>(*plan, tw, ln, lanes, src, sm, sm, false);  // ends after a barrier
+  // ends after a barrier
+  pf::rf::run<E, false, false, R32>(*plan, tw, ln, lanes, src, sm, sm, false);
 }
 
-template <int E, class Lanes, class Sm, class Dst>
+template <int E, bool R32, class Lanes, class Sm, class Dst>
 __device__ __noinline__ void backward_chain(const pf::rf::Plan* plan, const float2* tw,
                                             Lanes ln, int lanes, Sm sm, Dst dst,
                                             const float* hfr, const float* hfi) {
-  pf::rf::run<E, true, true>(*plan, tw, ln, lanes, TimesHf<Sm>{sm, hfr, hfi}, sm, dst, true);
+  pf::rf::run<E, true, true, R32>(*plan, tw, ln, lanes, TimesHf<Sm>{sm, hfr, hfi}, sm, dst,
+                                  true);
 }
 
-template <int E, class Lanes, class Src, class Sm, class Dst>
+template <int E, bool R32 = false, class Lanes, class Src, class Sm, class Dst>
 __device__ __forceinline__ void convolve(const pf::rf::Plan& plan, const float2* tw,
                                          const Lanes& ln, int lanes, const Src& src,
                                          const Sm& sm, const Dst& dst, const float* hfr,
                                          const float* hfi) {
-  forward_chain<E>(&plan, tw, ln, lanes, src, sm);
-  backward_chain<E>(&plan, tw, ln, lanes, sm, dst, hfr, hfi);
+  forward_chain<E, R32>(&plan, tw, ln, lanes, src, sm);
+  backward_chain<E, R32>(&plan, tw, ln, lanes, sm, dst, hfr, hfi);
 }
 
 template <int E>
@@ -158,7 +165,9 @@ struct LanesSmem {
 };
 
 // Block i serves stream row i / bpr, lanes (i % bpr) * rows .. + rows - 1.
-template <int E, bool PAIRS>
+// R32: the instance whose plan opens with radix-32 stages (kR32Elems values
+// a thread); every other length runs the thin plan's instances.
+template <int E, bool PAIRS, bool R32 = false>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 conv_stream_kernel(const float* __restrict__ x, float* __restrict__ y,
                    const float* __restrict__ hfr, const float* __restrict__ hfi,
@@ -172,13 +181,15 @@ conv_stream_kernel(const float* __restrict__ x, float* __restrict__ y,
   const StreamIn<PAIRS> src{x + static_cast<size_t>(r) * ld * kParts, len, u, lane0, lanes};
   const StreamOut<PAIRS> dst{y + static_cast<size_t>(r) * total * kParts, total, u, lane0,
                              lanes};
-  convolve<E>(plan, tw, pf::rf::RowLanes{}, rows, src, LanesSmem{tile, pitch, shift}, dst,
-              hfr, hfi);
+  convolve<E, R32>(plan, tw, pf::rf::RowLanes{}, rows, src, LanesSmem{tile, pitch, shift}, dst,
+                   hfr, hfi);
 }
 
-// The plan's checks, shared by both maps.
+// The plan's checks, shared by both maps (R32: the stream map's radix-32
+// plans).
+template <bool R32 = false>
 cudaError_t load_plan(const int* desc, int n_stages, int n, pf::rf::Plan* plan) {
-  cudaError_t err = pf::rf::plan_from(desc, n_stages, plan);
+  cudaError_t err = pf::rf::plan_from<R32>(desc, n_stages, plan);
   if (err != cudaSuccess) return err;
   return pf::rf::plan_spans(*plan, n) ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -231,9 +242,11 @@ int pf_conv_fused_tmajor(const float* re, const float* im, float* ore, float* oi
 // lane (real filter); pairs = 0: interleaved complex streams, one frame a
 // lane.  lanes is the lanes of a row (pairs: ceil(frames / 2)).  The
 // launch shape (rows lanes per block, threads, elems, pitch, shift) is the
-// row planner's (ops/conv_kernel.stream_tile).  Returns a cudaError_t:
-// invalid arguments give cudaErrorInvalidValue, a shape the core cannot
-// cover cudaErrorInvalidConfiguration.
+// row planner's (ops/conv_kernel.stream_tile).  A desc whose first stage is
+// radix 32 (ops/conv_kernel.stream_plan) runs the R32 instance, at
+// kR32Elems values a thread.  Returns a cudaError_t: invalid arguments give
+// cudaErrorInvalidValue, a shape the core cannot cover
+// cudaErrorInvalidConfiguration.
 int pf_conv_stream(const float* x, float* y, const float* hfr, const float* hfi,
                    const float* tw, const int* desc, int n_stages, int n, int nrows, int len,
                    int ld, int total, int u, int lanes, int pairs, int rows, int threads,
@@ -253,15 +266,20 @@ int pf_conv_stream(const float* x, float* y, const float* hfr, const float* hfi,
   }
   const long long bpr = (lanes + rows - 1) / rows;
   if (bpr * nrows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool r32 = n_stages >= 1 && desc[0] == 32;
+  if (r32 && elems != kR32Elems) return cudaErrorInvalidConfiguration;
   pf::rf::Plan plan;
-  cudaError_t err = load_plan(desc, n_stages, n, &plan);
+  cudaError_t err = r32 ? load_plan<true>(desc, n_stages, n, &plan)
+                        : load_plan(desc, n_stages, n, &plan);
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  auto kernel = pairs ? (elems == 16 ? conv_stream_kernel<16, true>
-                                     : conv_stream_kernel<32, true>)
-                      : (elems == 16 ? conv_stream_kernel<16, false>
-                                     : conv_stream_kernel<32, false>);
+  auto kernel = r32 ? (pairs ? conv_stream_kernel<kR32Elems, true, true>
+                             : conv_stream_kernel<kR32Elems, false, true>)
+                : pairs ? (elems == 16 ? conv_stream_kernel<16, true>
+                                       : conv_stream_kernel<32, true>)
+                        : (elems == 16 ? conv_stream_kernel<16, false>
+                                       : conv_stream_kernel<32, false>);
   const size_t smem = static_cast<size_t>(rows) * pitch * sizeof(float2);
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;

@@ -5,7 +5,8 @@
 // fused block convolution (conv_fused.cu, B7).
 //
 // A block runs F independent length-n transforms ("lanes") with the stages
-// of one thin plan (radix 16/8/4/2, then 5 and 3).  Within a stage every
+// of one thin plan (radix 16/8/4/2, then 5 and 3; an instance that asks for
+// it may open with radix-32 stages, see run()).  Within a stage every
 // value lives in registers: a thread reads the R inputs of each of its
 // butterflies, applies the stage twiddle T[k, i] (conjugated for backward),
 // runs the radix-R butterfly (butterflies.cuh) and writes the R outputs.
@@ -204,9 +205,12 @@ __device__ __forceinline__ void stage_at(bool first, bool last, const Lanes& ln,
 // A thin plan's radices come in the order 16..., then at most one of 8, 4,
 // 2, then 5..., then 3..., so each radix gets a loop (or a test) of its own.
 // One loop over all stages with a switch on the radix made ptxas spill at
-// 128 registers, while each radix alone spills nothing.
-template <int E, bool BWD, bool SRC_SHARED = false, class Lanes, class Src, class Sm,
-          class Dst>
+// 128 registers, while each radix alone spills nothing.  R32: the plan may
+// open with radix-32 stages (B7's stream map at 8192 = 32*16*16: one stage,
+// so one exchange a chain, fewer than the thin plan); only a kernel
+// instance that asks for it compiles that loop.
+template <int E, bool BWD, bool SRC_SHARED = false, bool R32 = false, class Lanes, class Src,
+          class Sm, class Dst>
 __device__ __forceinline__ void run(const Plan& p, const float2* __restrict__ tw,
                                     const Lanes& ln, int lanes, const Src& src, const Sm& sm,
                                     const Dst& dst, bool last_to_dst) {
@@ -214,6 +218,9 @@ __device__ __forceinline__ void run(const Plan& p, const float2* __restrict__ tw
 #define PF_RF_STAGE(R)                                                                   \
   stage_at<R, E, BWD, SRC_SHARED>(s == 0, last_to_dst && s == p.count - 1, ln, lanes, p.l[s], \
                                   p.m[s], tw + p.off[s], src, sm, dst)
+  if constexpr (R32) {
+    for (; s < p.count && p.r[s] == 32; ++s) PF_RF_STAGE(32);
+  }
   for (; s < p.count && p.r[s] == 16; ++s) PF_RF_STAGE(16);
   if (s < p.count && p.r[s] == 8) PF_RF_STAGE(8), ++s;
   if (s < p.count && p.r[s] == 4) PF_RF_STAGE(4), ++s;
@@ -224,18 +231,21 @@ __device__ __forceinline__ void run(const Plan& p, const float2* __restrict__ tw
 }
 
 // Host side: the stage descriptor, n_stages rows of (r, l, m, offset into
-// tw in complex values), in the thin order run() walks.  Invalid rows give
+// tw in complex values), in the thin order run() walks (R32: radix-32
+// stages may come first, for a run<..., R32 = true>).  Invalid rows give
 // cudaErrorInvalidValue.
+template <bool R32 = false>
 inline cudaError_t plan_from(const int* desc, int n_stages, Plan* p) {
   if (n_stages < 1 || n_stages > kMaxStages) return cudaErrorInvalidValue;
   *p = Plan{};
   p->count = n_stages;
-  int rank = 0;  // position of the radix in the order 16, 8, 4, 2, 5, 3
+  int rank = 0;  // position of the radix in the order 32, 16, 8, 4, 2, 5, 3
   for (int s = 0; s < n_stages; ++s) {
     const int r = desc[4 * s];
-    const int at = r == 16 ? 0 : r == 8 ? 1 : r == 4 ? 2 : r == 2 ? 3 : r == 5 ? 4 : r == 3 ? 5 : -1;
+    const int at = R32 && r == 32 ? 0 : r == 16 ? 1 : r == 8 ? 2 : r == 4 ? 3 : r == 2 ? 4
+                 : r == 5 ? 5 : r == 3 ? 6 : -1;
     // out of order, unknown, or a second 8, 4 or 2
-    if (at < rank || (at == rank && at >= 1 && at <= 3)) return cudaErrorInvalidValue;
+    if (at < rank || (at == rank && at >= 2 && at <= 4)) return cudaErrorInvalidValue;
     rank = at;
     p->r[s] = r;
     p->l[s] = desc[4 * s + 1];

@@ -14,7 +14,8 @@ scales.
     shape of :func:`column_tile`;
   * :func:`zconv_stream`, the stream map: FastConv's streams [R, L] framed
     at stride u inside the kernel, the first u outputs of each frame stored
-    straight into [R, total], for frames up to 16384 (:func:`stream_tile`);
+    straight into [R, total], for frames up to 16384 (:func:`stream_tile`),
+    on the plan of :func:`stream_plan` (three register stages at 8192);
     rows that are a slice of wider rows are read where they lie
     (:func:`stream_rows`);
     it replaces the framing and unpacking copies around the column map
@@ -27,7 +28,9 @@ complex lane.  A complex filter's lane holds one complex frame.
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises.  ``zconv_tmajor.launches`` and
-``zconv_stream.launches`` count the launches.
+``zconv_stream.launches`` count the launches; the always-on counter
+``kernels.stream_map.r32_launches`` counts the stream map's launches whose
+plan holds a radix-32 stage.
 
 Both maps are differentiable with respect to the signal (Function 3,
 :class:`_ZconvTmajor` and :class:`_ZconvStream`), not the filter: the
@@ -37,6 +40,7 @@ map and the reversed taps' spectrum for the stream map.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -51,8 +55,8 @@ from . import fused_stage as _fs
 from . import pallas_fft as _pk
 
 __all__ = ["filter_spectrum", "zconv_tmajor", "zconv_tmajor_plain", "zconv_stream",
-           "zconv_stream_plain", "stream_conv", "column_tile", "stream_tile", "stream_rows",
-           "frames", "columns", "keep", "unpack_pairs"]
+           "zconv_stream_plain", "stream_conv", "column_tile", "stream_plan", "stream_tile",
+           "stream_rows", "frames", "columns", "keep", "unpack_pairs", "R32_LAUNCHES"]
 
 # Values a thread holds per stage in both maps.  The two chains of one
 # kernel ran faster at 16 than at B1's 32 (chip_smoke.py's conv_sweep line).
@@ -262,10 +266,49 @@ def zconv_stream_plain(plan: _plan.Plan, x, hfr, hfi, u: int, total: int):
                            plan.engine_n, u, total)
 
 
+# Where the stream map's plan opens with radix-32 stages: n -> factors, one
+# register stage fewer than thin_plan(n) (a stage past the first is a
+# shared-memory exchange in each chain).  The kernel runs these plans in an
+# instance of their own (conv_fused.cu's kR32Elems values a thread).  At
+# 8192 the stream map took 0.99 ms against 1.40 on 16*16*16*2; 32*32*16 at
+# 16384 took 2.07 against 1.34 (32 values a thread: it spills), so 16384
+# keeps the thin plan (tools/b7_probe.py, H100).
+_STREAM_R32 = {8192: (32, 16, 16)}
+# The stream map's radices: the chain's and radix 32.
+_STREAM_RADICES = frozenset(_pk.CHAIN_RADICES) | {32}
+# The always-on counter of the stream map's launches on a radix-32 plan.
+R32_LAUNCHES = "kernels.stream_map.r32_launches"
+
+
+@functools.lru_cache(maxsize=64)
+def stream_plan(n: int) -> Optional[_plan.Plan]:
+    """The stream map's plan for frames of length n: a radix-32 stage
+    first where that saves a register stage (:data:`_STREAM_R32`: 8192 =
+    32*16*16), else ``pallas_fft.thin_plan(n)`` exactly.  None where n is
+    not 2/3/5-smooth."""
+
+    factors = _STREAM_R32.get(n)
+    if factors is None:
+        return _pk.thin_plan(n)
+    return _plan.new_setup(n, _plan.COMPLEX, factors=factors, strict=False)
+
+
+def _stream_plan_fits(plan: _plan.Plan, n: int) -> None:
+    """The stream map's check of a caller's plan: the chain's radices, or
+    radix 32 (:func:`stream_plan`); its plain version runs that plan."""
+
+    if (plan.local_split is not None or not plan.stages
+            or any(st.r != 1 and st.r not in _STREAM_RADICES for st in plan.stages)):
+        raise ValueError(f"plan {plan} has factors the stream conv kernel does not run")
+    if n != plan.engine_n:
+        raise ValueError(f"data length {n} != plan engine length {plan.engine_n}")
+
+
 # Where the stream map's one-row block differs from B9's: n -> (threads,
-# values a thread).  At n = 8192, 512 x 16 (one block an SM) ran 4.2 - 4.7%
-# faster than B9's 256 x 32 on the H100; at 4096 and 16384 B9's shape was
-# the fastest the core takes.
+# values a thread).  At n = 8192 on 32*16*16, 512 x 16 (one block an SM)
+# ran 1.56x as fast as B9's 256 x 32, whose radix-32 instance spills at the
+# launch bound's 128 registers (tools/b7_probe.py, H100); at 4096 and 16384
+# B9's shape was the fastest the core takes.
 _STREAM_ROW = {8192: (512, 16)}
 
 
@@ -336,7 +379,7 @@ def zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torc
 def _zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: torch.Tensor,
                   u: int, total: int):
     n = plan.engine_n
-    _pk._chain_plan_fits(plan, n)
+    _stream_plan_fits(plan, n)
     if x.ndim != 2:
         raise ValueError(f"streams must be [R, L]; got {tuple(x.shape)}")
     if not 0 < u <= n or total < 0:
@@ -363,13 +406,16 @@ def _zconv_stream(plan: _plan.Plan, x: torch.Tensor, hfr: torch.Tensor, hfi: tor
         xv = x if pairs else torch.view_as_real(x)
         yv = y if pairs else torch.view_as_real(y)
         lib, fn = _pk._kernel("pf_conv_stream")
-        tw, desc, count = _pk._core_tables(_pk.thin_plan(n).stages, x.device)
+        splan = stream_plan(n)
+        tw, desc, count = _pk._core_tables(splan.stages, x.device)
         err = fn(xv.data_ptr(), yv.data_ptr(), hfr.data_ptr(), hfi.data_ptr(), tw.data_ptr(),
                  desc, count, n, rows, length, ld, total, u, lanes, int(pairs), t.rows,
                  t.threads, t.elems, t.pitch, t.shift, x.device.index or 0, _pk._stream(x))
         _build.check(lib, err, f"stream conv kernel (N={n}, R={rows}, L={length}, ld={ld}, "
                                f"u={u}, total={total})")
     zconv_stream.launches += 1
+    if splan.factors[0] == 32:
+        _profiling.count(R32_LAUNCHES)
     if ld != length:
         _profiling.count(_profiling.STRIDED_READS)
     return y

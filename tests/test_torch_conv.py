@@ -508,18 +508,149 @@ def test_conv_route_follows_coverage(nfft, route):
     assert D.conv_kernel_choice(nfft, 0) is None
 
 
-def test_stream_tile_is_b9_rows_but_at_8192():
+@pytest.mark.parametrize("n", [32, 64, 480, 2048, 4096, 8192, 16384, 32768])
+def test_stream_tile_is_b9_rows_but_at_8192(n):
     """The stream map launches B9's rows, except one row of 512 threads x 16
-    values at nfft 8192 (the faster shape on the H100); nfft <= 2048 keeps
-    B9's shape exactly."""
+    values at nfft 8192 (the faster shape on the H100, where its plan opens
+    with a radix-32 stage); every other length keeps B9's shape exactly,
+    and nothing past 16384."""
 
-    for n in (32, 64, 480, 2048, 4096, 16384):
-        assert tck.stream_tile(n) == tfs.fused2_tile(n)
-    t, b9 = tck.stream_tile(8192), tfs.fused2_tile(8192)
-    assert (t.rows, t.threads, t.elems, t.blocks_per_sm) == (1, 512, 16, 1)
-    assert (b9.threads, b9.elems) == (256, 32)
-    assert t._replace(threads=256, elems=32, blocks_per_sm=b9.blocks_per_sm) == b9
-    assert tck.stream_tile(32768) is None
+    t, b9 = tck.stream_tile(n), tfs.fused2_tile(n)
+    if n == 32768:
+        assert t is None and b9 is None
+    elif n != 8192:
+        assert t == b9
+    else:
+        assert (t.rows, t.threads, t.elems, t.blocks_per_sm) == (1, 512, 16, 1)
+        assert (b9.threads, b9.elems) == (256, 32)
+        assert t._replace(threads=256, elems=32, blocks_per_sm=b9.blocks_per_sm) == b9
+
+
+# n -> the stream map's factors where they differ from the thin plan's
+STREAM_R32 = {8192: (32, 16, 16)}
+
+
+@pytest.mark.parametrize("n", [32, 64, 480, 1000, 2048, 4096, 8192, 16384, 32768])
+def test_stream_plan_takes_radix32_only_where_it_saves_a_stage(n):
+    """The stream map's plan is the thin plan exactly, except at nfft 8192:
+    three stages, one of them radix 32, one stage fewer than 16*16*16*2."""
+
+    plan, thin = tck.stream_plan(n), tpk.thin_plan(n)
+    if n not in STREAM_R32:
+        assert plan is thin
+        return
+    radices = [st.r for st in plan.stages if st.r != 1]
+    assert plan.n == n and tuple(radices) == plan.factors == STREAM_R32[n]
+    assert radices.count(32) == 1 and len(radices) == 3
+    assert len([st for st in thin.stages if st.r != 1]) == 4
+    assert not tpk.supported(plan)  # the chain kernels refuse it
+    assert tpk.supported(thin) and thin.factors == tpk.thin_factors(n) == (16, 16, 16, 2)
+
+
+def test_radix32_stays_out_of_the_chain_kernels():
+    """The chain's radices, thin plans and checks are as they were: a
+    radix-32 plan handed to B1 (or B9 in internal order) is refused before
+    any launch; the stream map takes it."""
+
+    assert tpk.CHAIN_RADICES == (2, 3, 4, 5, 8, 16)
+    assert tpk.thin_factors(8192) == (16, 16, 16, 2)
+    assert tpk.thin_factors(16384) == (16, 16, 16, 4)
+    plan = tck.stream_plan(8192)
+    re = torch.zeros((8192, 4))
+    before = tpk.cfft_chain_tmajor.launches, tfs.cfft_fused2.launches
+    with pytest.raises(ValueError, match="chain kernel does not run"):
+        tpk.cfft_chain_tmajor(plan, re, re)
+    with pytest.raises(ValueError, match="not a two-stage plan"):
+        tfs.cfft_fused2(plan, re.T, re.T, ordered=False)
+    with pytest.raises(ValueError, match="stream conv kernel does not run"):
+        tck.zconv_stream(pt.new_setup(8192, pt.COMPLEX, factors=(64, 128), strict=False),
+                         torch.zeros((1, 9000)), re[:, 0], re[:, 0], 4097, 100)
+    assert (tpk.cfft_chain_tmajor.launches, tfs.cfft_fused2.launches) == before
+
+
+def _spy_stream_plans(monkeypatch):
+    """The factors of every plan the stream map's plain version runs."""
+
+    seen = []
+    plain = tck.zconv_stream_plain
+
+    def spy(plan, *a, **k):
+        seen.append(plan.factors)
+        return plain(plan, *a, **k)
+
+    monkeypatch.setattr(tck, "zconv_stream_plain", spy)
+    return seen
+
+
+def _lowpass(taps):
+    n = np.arange(taps) - (taps - 1) / 2.0
+    h = 0.2 * np.sinc(0.2 * n) * np.hamming(taps)
+    return h / h.sum()
+
+
+@pytest.mark.parametrize("mode", ["real_strided", "complex"])
+def test_stream_map_at_8192_on_radix32_matches_float64(mode, monkeypatch):
+    """FastConv at 4096 taps (nfft 8192) runs the stream map on 32*16*16:
+    a real stream read out of wider rows, and a complex stream, against the
+    float64 valid convolution; within 2e-6 of the thin plan's plain map."""
+
+    taps, rows, u = 4096, 3, 4097
+    rng = np.random.default_rng(26 + len(mode))
+    h = _lowpass(taps).astype(np.float32)
+    length = taps - 1 + 3 * u + 123
+    flags = F_.NONE if mode == "real_strided" else F_.CPLX_INP_OUT
+    buf = rng.standard_normal((rows, length + 1001))
+    if mode == "complex":
+        buf = buf + 1j * rng.standard_normal(buf.shape)
+    buf = torch.from_numpy(buf.astype(np.complex64 if mode == "complex" else np.float32))
+    x = buf[:, 500:500 + length]  # rows length + 1001 apart
+    fc = tconv.FastConv(h, flags=flags, device=CPU)
+    assert fc.nfft == 8192 and fc.num_out_per_block == u
+    seen = _spy_stream_plans(monkeypatch)
+    got = fc.apply_batched(x, flush=True)
+    assert seen == [(32, 16, 16)]
+    x64 = x.numpy().astype(np.complex128 if mode == "complex" else np.float64)
+    want = np.stack([np.convolve(r, h.astype(np.float64), "valid") for r in x64])
+    assert got.shape == want.shape == (rows, length - taps + 1)
+    assert _rel(got.numpy(), want) <= TOL
+    hfr, hfi = fc._spectrum(torch.device(CPU))
+    xs = x if mode == "complex" else x.contiguous()
+    thin = tck.zconv_stream(tpk.thin_plan(8192), xs, hfr, hfi, u, got.shape[-1])
+    assert _rel(got.numpy(), thin.numpy()) <= KERNEL_TOL
+
+
+def test_stream_map_gradient_at_8192_on_radix32_matches_float64(monkeypatch):
+    """The gradient of FastConv at 4096 taps through the stream map on
+    32*16*16 (forward, and the backward's map over the reversed taps),
+    against float64 autograd of the same valid convolution."""
+
+    taps, rows = 4096, 2
+    rng = np.random.default_rng(4096)
+    h = _lowpass(taps).astype(np.float32)
+    length = taps - 1 + 2 * 4097 + 77
+    x = torch.from_numpy(rng.standard_normal((rows, length)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((rows, length - taps + 1)).astype(np.float32))
+    fc = tconv.FastConv(h, device=CPU)
+    seen = _spy_stream_plans(monkeypatch)
+    xg = x.clone().requires_grad_(True)
+    (fc.apply_batched(xg, flush=True) * g).sum().backward()
+    assert seen == [(32, 16, 16), (32, 16, 16)]
+    x64 = x.double().requires_grad_(True)
+    w = torch.from_numpy(h.astype(np.float64)[::-1].copy())[None, None]
+    (torch.nn.functional.conv1d(x64[:, None], w)[:, 0] * g.double()).sum().backward()
+    assert _rel(xg.grad.numpy(), x64.grad.numpy()) <= TOL
+
+
+def test_cpu_stream_map_counts_no_radix32_launch():
+    """The radix-32 launch counter counts card launches only: the CPU's
+    plain version at nfft 8192 leaves it and the launch counter alone."""
+
+    plan = tck.stream_plan(8192)
+    hf = torch.zeros(8192)
+    before = tprof.counters.get(tck.R32_LAUNCHES, 0), tck.zconv_stream.launches
+    tck.zconv_stream(plan, torch.zeros((2, 9000)), hf, hf, 4097, 800)
+    assert (tprof.counters.get(tck.R32_LAUNCHES, 0), tck.zconv_stream.launches) == before
+    assert tck.R32_LAUNCHES == "kernels.stream_map.r32_launches"
 
 
 def test_conv_route_table_force_and_engine(clean_conv_state):

@@ -428,6 +428,61 @@ def test_stream_conv_kernel_reads_strided_rows(cuda_device, n, u, cplx, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,u", [(2048, 1025), (4096, 2049), (8192, 4097), (16384, 8193)])
+@pytest.mark.parametrize("cplx", [False, True])
+def test_stream_map_counts_its_radix32_launches(cuda_device, n, u, cplx):
+    """B7's stream map on its own plan (``stream_plan``: 32*16*16 at nfft
+    8192, the thin plan elsewhere) over strided rows, against its plain
+    version on that plan; ``kernels.stream_map.r32_launches`` counts the
+    launch where the plan opens with radix 32, and no other."""
+
+    plan = ck.stream_plan(n)
+    hfr, hfi = _spectrum(n, n + 2, cuda_device, cplx)
+    x = _ring_view(3, 20 * u + 7, 4097, n + 26, cuda_device, cplx)
+    total = x.shape[1] - (n - u) - 5
+    before = (ck.zconv_stream.launches, prof.counters.get(ck.R32_LAUNCHES, 0))
+    got = ck.zconv_stream(plan, x, hfr, hfi, u, total)
+    _hold((got,), (ck.zconv_stream_plain(plan, x, hfr, hfi, u, total),))
+    r32 = plan.factors[0] == 32
+    assert r32 == (n == 8192)
+    assert (ck.zconv_stream.launches, prof.counters.get(ck.R32_LAUNCHES, 0)) == (
+        before[0] + 1, before[1] + r32)
+
+
+@pytest.mark.cuda
+def test_core_kernels_refuse_a_radix32_descriptor(cuda_device):
+    """Only the stream map's radix-32 instance takes a plan that opens
+    with radix 32: B1, B9 and the column map refuse its descriptor
+    (cudaErrorInvalidValue), and the stream map refuses it at another
+    number of values a thread than its instance's (a shape error)."""
+
+    n, dev = 8192, cuda_device
+    tw, desc, count = pk._core_tables(ck.stream_plan(n).stages, dev)
+    re, im = _planes(n, 4, 3, dev)
+    out = torch.empty_like(re)
+    ptrs = (re.data_ptr(), im.data_ptr(), out.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    lib, fn = pk._kernel("pf_chain_tmajor")
+    assert fn(*ptrs, tw.data_ptr(), desc, count, n, 4, 1, 512, 32, 4, 0, 0, stream) == 1
+    t = fs.fused2_tile(n, dev)
+    lib, fn = pk._kernel("pf_fused2")
+    assert fn(*ptrs, tw.data_ptr(), desc, count, n, 4, t.rows, t.threads, t.elems, t.pitch,
+              t.shift, n, 1, 1, 0, 0, stream) == 1
+    hf = torch.zeros(n, device=dev)
+    lib, fn = pk._kernel("pf_conv_fused_tmajor")
+    assert fn(*ptrs, hf.data_ptr(), hf.data_ptr(), tw.data_ptr(), desc, count, n, 4, 1, 512,
+              32, 4, 0, stream) == 1
+    x = torch.zeros((1, 3 * n), device=dev)
+    t = ck.stream_tile(n, dev)
+    lib, fn = pk._kernel("pf_conv_stream")
+    args = (x.data_ptr(), out.data_ptr(), hf.data_ptr(), hf.data_ptr(), tw.data_ptr(), desc,
+            count, n, 1, 3 * n, 3 * n, 100, 4097, 1, 1, t.rows, t.threads)
+    assert fn(*args, 32, t.pitch, t.shift, 0, stream) == 9
+    assert fn(*args, t.elems, t.pitch, t.shift, 0, stream) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [64, 1000, 4096])
 @pytest.mark.parametrize("p", [1, 4, 8, 40])  # 40 takes the kernel's plain loop
 def test_pfb_kernel_matches_plain(cuda_device, m, p):
