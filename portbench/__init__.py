@@ -1,4 +1,4 @@
-"""The benchmark of pffft_tpu_torch: streamed FIR and channelizer cells on one card.
+"""The benchmark of pffft_tpu_torch: streamed FIR and channelizer cells, one process a card.
 
 Run one cell with ``python3 -m portbench.run --workload <name> --seed <n>
 --seconds <s> --trace <0|1>`` from the root of a checkout; the cells, the

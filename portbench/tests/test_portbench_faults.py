@@ -87,6 +87,35 @@ def test_a_partial_trace_is_refused(monkeypatch):
         go("chan_bulk", trace=True)
 
 
+@pytest.mark.parametrize("fault, tries", [("partial", 1), ("clock", 1), ("clock", 3)])
+def test_an_unsound_trace_is_traced_again(monkeypatch, capsys, fault, tries):
+    """An unsound sub-window (a launch the profiler missed, or device ops
+    placed far outside their launch) is tried again on chunks of its own;
+    the run goes on with the sound try's numbers, or where every try is
+    misplaced, with the try misplaced least."""
+
+    from portbench import trace
+
+    if fault == "partial":
+        seen = iter([0, 5])
+        monkeypatch.setattr(run, "launch_count", lambda: next(seen, 0))
+    else:
+        read, calls = trace.read, []
+
+        def misplaced(*args):
+            calls.append(1)
+            return {**read(*args), "misplaced_us": 4000.0 - len(calls)} \
+                if len(calls) <= tries else read(*args)
+
+        monkeypatch.setattr(trace, "read", misplaced)
+    res = go("fir_taps1024", trace=True)
+    assert res["correct"] and "dispatch.launches_per_chunk" in res["metrics"], res
+    err = capsys.readouterr().err
+    assert "traced sub-window 1 of 3 (device) unsound" in err
+    assert ("a partial trace" if fault == "partial" else "3999.0 µs outside") in err
+    assert ("kept the whole sub-window misplaced least, by 3997.0 µs" in err) == (tries == 3)
+
+
 def test_forbidden_modules_are_named_by_whole_top_level_names(monkeypatch):
     import sys
     import types
